@@ -10,17 +10,24 @@ fails; nothing is caught and passed over:
 
   1. the card: ``nvidia-smi`` name and power limit, torch and CUDA versions;
   2. build: ``nvcc`` compiles ``kernels/csrc/gemm.cu`` for sm_90a from the
-     checkout (``repro_torch.kernels.build``), timed;
+     checkout (``repro_torch.kernels.build``), timed; the ``-Xptxas=-v``
+     report must show no spills;
   3. kernels: each instantiation of the scheduled GEMM kernel at the main
      path's shapes (``toycar_mlp`` at batch 16, its 8 layers with the block
-     configs the compiled schedules give), plus OS, ragged and
-     every-epilogue cases, against its plain PyTorch version on the card
-     (integers bit-exact; float32 within rtol=1e-4, atol=1e-3, since the
-     two sum in different orders; bf16 within one bf16 ulp).  Times are
-     device times per launch from CUDA events around a CUDA-graph replay
-     of back-to-back launches, summed over the 8 layers of one forward;
-     the bound is max(bytes / 3.35 TB/s, operations / peak) for the same
-     work with the published H100 SXM peaks;
+     configs the compiled schedules give, each layer's cluster geometry
+     printed), plus OS, ragged, every-epilogue, M = 1, K = 8 / 100 / 4096,
+     multi-round (tall or wide blocks), unaligned-row and unaligned-base
+     cases, the int32 wrap through a split K and through one CTA's mma
+     accumulator, and two float launches with a split K compared bit for
+     bit, each against its plain PyTorch version on the card (integers
+     bit-exact; float32 within rtol=1e-4, atol=1e-3, since the two sum in
+     different orders; bf16 within one bf16 ulp).
+     Times are device times per launch from CUDA events around a
+     CUDA-graph replay of back-to-back launches, summed over the 8 layers of
+     one forward, beside the launch floor (8 launches of an empty kernel
+     from the same source, timed the same way); the bound is
+     max(bytes / 3.35 TB/s, operations / peak) for the same work with the
+     published H100 SXM peaks;
   4. main path: ``repro_torch.compile("toycar_mlp")`` on gemmini in every
      mode, on ``cuda``; 64 requests through ``run_many`` on the batch-16
      module (4 dispatches) and 8 single requests at batch 1, twice (the
@@ -164,6 +171,16 @@ def toycar_configs() -> dict[str, list[tuple[tuple[int, int, int], GemmKernelCon
     return out
 
 
+def geometry_line(m: int, k: int, n: int, cfg: GemmKernelConfig, x, w) -> str:
+    """The launch's cluster geometry and staging path, as the wrapper picks them."""
+    geo = gemm.launch_geometry(m, k, n, cfg)
+    vec_x, vec_w = gemm.copy_paths(x, w, cfg)
+    return (f"clusters {geo.grid[0]}x{geo.grid[1]} of {geo.cluster} CTAs "
+            f"(col_split {geo.col_split} x k_split {geo.k_split}, col_tile {geo.col_tile}, "
+            f"k slices {geo.k_slices()}) copies x {'16B' if vec_x else 'element'} "
+            f"w {'16B' if vec_w else 'element'}")
+
+
 def kernel_phase(dev: torch.device) -> dict[str, dict]:
     rng = np.random.default_rng(0)
 
@@ -184,9 +201,15 @@ def kernel_phase(dev: torch.device) -> dict[str, dict]:
             for shape, cfg in configs["optimized"]
         ],
     }
+    floors = {}
+    for cluster in (1, 8):
+        noops = lambda: [gemm.launch_noop(dev, cluster) for _ in range(8)]  # noqa: E731
+        floors[cluster] = device_ms(noops)
+        print(f"launch floor: 8 empty launches of a {cluster}-CTA cluster {floors[cluster]:.6f} ms")
+    floor_ms = floors[1]
     for name, rows in specs.items():
         tot = {"ms": 0.0, "eager_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
-        err, bound_kind, library_missing = 0.0, {"bytes": 0.0, "operations": 0.0}, []
+        err, bound_kind, library_missing, layer_ms = 0.0, {"bytes": 0.0, "operations": 0.0}, [], []
         for (m, k, n), cfg in rows:
             if name == "gemm_float":
                 x, w, b = floats((m, k)), floats((k, n)), floats((n,))
@@ -213,8 +236,10 @@ def kernel_phase(dev: torch.device) -> dict[str, dict]:
             print(
                 f"kernel {name} {m}x{k}x{n} blocks {cfg.block_m}/{cfg.block_k}/{cfg.block_n} "
                 f"{cfg.dataflow}: ms {ms:.6f} eager_ms {h_ms:.6f} plain_ms {p_ms:.6f} "
-                f"bound_ms {b_ms:.8f} ({by}) library_ms {lib} max_abs_err {e}"
+                f"bound_ms {b_ms:.8f} ({by}) library_ms {lib} max_abs_err {e}; "
+                f"{geometry_line(m, k, n, cfg, x, w)}"
             )
+            layer_ms.append(ms)
             tot["ms"] += ms
             tot["eager_ms"] += h_ms
             tot["plain_ms"] += p_ms
@@ -227,16 +252,20 @@ def kernel_phase(dev: torch.device) -> dict[str, dict]:
             )
         results[name] = {
             **tot,
+            "layer_ms": layer_ms,
+            "launch_floor_ms": floor_ms,
+            "cluster8_floor_ms": floors[8],
             "max_abs_err": err,
             "bound_by": max(bound_kind, key=bound_kind.get),
         }
     extra_cases(ints, floats)
+    edge_cases(dev, ints, floats)
     return results
 
 
 def extra_cases(ints, floats) -> None:
     """OS raster, ragged edges and every epilogue of each instantiation."""
-    m, k, n = 37, 100, 75  # ragged against every block below
+    m, k, n = 37, 100, 75  # ragged against every block below; rows unaligned
     blocks = dict(block_m=16, block_k=32, block_n=64)
     x, w = ints((m, k)), ints((k, n))
     b = ints((n,), -3000, 3000, np.int32)
@@ -258,9 +287,98 @@ def extra_cases(ints, floats) -> None:
                                   xf.to(dt), wf.to(dt), cfg, bf))
     for label, xx, ww, cfg, bb in cases:
         e = compare(label, scheduled_gemm(xx, ww, cfg, bb), gemm_plain(xx, ww, cfg, bb))
-        print(f"case {label} {m}x{k}x{n}: max_abs_err {e}")
+        print(f"case {label} {m}x{k}x{n}: max_abs_err {e}; {geometry_line(m, k, n, cfg, xx, ww)}")
     torch.cuda.synchronize()
     print(f"cases: {len(cases)} OS/WS x ragged x epilogue cases equal their plain versions")
+
+
+def edge_cases(dev: torch.device, ints, floats) -> None:
+    """Shapes the cluster design must survive, each against the plain
+    version: the int32 wrap through the split-K reduction and through one
+    CTA's mma accumulator, M = 1, K ragged against the stage depth, a K
+    longer than the shared-memory ring, CTAs that walk several row or
+    column rounds, unaligned rows and bases, and bit-identical float
+    launches with a split K."""
+    q = dict(acc_dtype="int32", out_dtype="int8", requant_scale=1 / 256, clip_lo=-128, clip_hi=127,
+             has_bias=True)
+    i32 = dict(acc_dtype="int32", out_dtype="int32")
+    fl = dict(has_bias=True)
+
+    def misaligned(t: torch.Tensor) -> torch.Tensor:
+        """The same values, contiguous, with the base one element off 16 bytes."""
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    cases = []  # (label, x, w, cfg, bias)
+    # 2**17 + 64 products of (-128)(-128) = 2**31 + 2**20: past int32
+    kk = 2**17 + 64
+    xo = torch.full((16, kk), -128, dtype=torch.int8, device=dev)
+    for nn, bn in ((8, 8), (1024, 1024)):
+        wo = torch.full((kk, nn), -128, dtype=torch.int8, device=dev)
+        cfg = GemmKernelConfig(16, 128, bn, "WS", **i32)
+        geo = gemm.launch_geometry(16, kk, nn, cfg)
+        where = "split-K reduction" if geo.k_split > 1 else "one CTA's mma accumulator"
+        cases.append((f"int32 wrap through the {where}", xo, wo, cfg, None))
+    for m, k, n in ((1, 640, 128), (16, 8, 128), (16, 100, 128), (16, 4096, 128)):
+        x, w = ints((m, k)), ints((k, n))
+        b = ints((n,), -3000, 3000, np.int32)
+        xf, wf, bf = floats((m, k)), floats((k, n)), floats((n,))
+        blocks = (16, 128, 128)
+        cases += [
+            (f"qgemm_requant {m}x{k}x{n}", x, w, GemmKernelConfig(*blocks, "WS", **q), b),
+            (f"gemm_int32 {m}x{k}x{n}", x, w, GemmKernelConfig(*blocks, "OS", **i32), None),
+            (f"gemm_float f32 {m}x{k}x{n}", xf, wf, GemmKernelConfig(*blocks, "WS", **fl), bf),
+            (f"gemm_float bf16 {m}x{k}x{n}", xf.bfloat16(), wf.bfloat16(),
+             GemmKernelConfig(*blocks, "WS", out_dtype="bfloat16", **fl), bf),
+        ]
+    # CTAs that walk several rounds: 16-row sub-tiles of a taller block with
+    # a split K, more column tiles than a cluster holds (some CTAs idle in
+    # the last round), and both at once
+    for (m, k, n), blocks in (((50, 300, 100), (40, 64, 128)), ((20, 96, 1100), (32, 32, 1100)),
+                              ((45, 200, 300), (32, 64, 300))):
+        x, w = ints((m, k)), ints((k, n))
+        b = ints((n,), -3000, 3000, np.int32)
+        xf, wf, bf = floats((m, k)), floats((k, n)), floats((n,))
+        cases += [
+            (f"qgemm_requant rounds {blocks}", x, w, GemmKernelConfig(*blocks, "WS", **q), b),
+            (f"gemm_int32 rounds {blocks}", x, w, GemmKernelConfig(*blocks, "OS", **i32), None),
+            (f"gemm_float f32 rounds {blocks}", xf, wf, GemmKernelConfig(*blocks, "OS", **fl), bf),
+            (f"gemm_float bf16 rounds {blocks}", xf.bfloat16(), wf.bfloat16(),
+             GemmKernelConfig(*blocks, "WS", out_dtype="bfloat16", **fl), bf),
+        ]
+    m, k, n = 16, 640, 128  # aligned shape, unaligned bases
+    x, w, b = ints((m, k)), ints((k, n)), ints((n,), -3000, 3000, np.int32)
+    xf, wf, bf = floats((m, k)), floats((k, n)), floats((n,))
+    cases += [
+        ("qgemm_requant unaligned bases", misaligned(x), misaligned(w),
+         GemmKernelConfig(16, 128, 128, "WS", **q), b),
+        ("gemm_float f32 unaligned bases", misaligned(xf), misaligned(wf),
+         GemmKernelConfig(16, 128, 128, "WS", **fl), bf),
+        ("gemm_float bf16 unaligned bases", misaligned(xf.bfloat16()), misaligned(wf.bfloat16()),
+         GemmKernelConfig(16, 128, 128, "WS", out_dtype="bfloat16", **fl), bf),
+    ]
+    for label, xx, ww, cfg, bb in cases:
+        got, want = scheduled_gemm(xx, ww, cfg, bb), gemm_plain(xx, ww, cfg, bb)
+        e = compare(label, got, want)
+        mm, kk_, nn = xx.shape[0], xx.shape[1], ww.shape[1]
+        print(f"case {label} {mm}x{kk_}x{nn}: max_abs_err {e}; {geometry_line(mm, kk_, nn, cfg, xx, ww)}")
+        if label.startswith("int32 wrap"):
+            wrapped = (2**31 + 2**20) - 2**32
+            check(bool((want == wrapped).all()), f"{label}: the plain version did not wrap")
+    for m, k, n in ((16, 640, 128), (16, 4096, 128)):
+        xf, wf, bf = floats((m, k)), floats((k, n)), floats((n,))
+        for dt in (torch.float32, torch.bfloat16):
+            cfg = GemmKernelConfig(16, 128, 128, "WS", out_dtype="float32", has_bias=True)
+            first = scheduled_gemm(xf.to(dt), wf.to(dt), cfg, bf)
+            second = scheduled_gemm(xf.to(dt), wf.to(dt), cfg, bf)
+            k_split = gemm.launch_geometry(m, k, n, cfg).k_split
+            check(k_split > 1 and torch.equal(first, second),
+                  f"gemm_float {dt} {m}x{k}x{n}: two launches differ (k_split {k_split})")
+            print(f"case gemm_float {dt} {m}x{k}x{n} k_split {k_split}: two launches bit-identical")
+    torch.cuda.synchronize()
+    print(f"edge cases: {len(cases)} equal their plain versions; 4 float launch pairs bit-identical")
 
 
 def sample_latencies(module, feeds_list) -> list[float]:
@@ -361,6 +479,13 @@ def main() -> int:
     print(f"build: {path.name} in {time.perf_counter() - t0:.2f} s")
     usage = sorted({line.split(":", 1)[1].strip() for line in log.splitlines() if "Used" in line})
     print(f"build: ptxas per kernel: {usage}")
+    spills = [line for line in log.splitlines() if "spill" in line]
+    if log:  # empty when an earlier run of this checkout built the library
+        check(bool(spills) and all("0 bytes spill stores, 0 bytes spill loads" in line for line in spills),
+              f"build: ptxas reports spills: {[line for line in spills if ' 0 bytes spill' not in line]}")
+        print(f"build: no spills in {len(spills)} kernels")
+    else:
+        print("build: library built by an earlier run; no ptxas report to check")
 
     kernels = kernel_phase(dev)
     summary = main_path(dev, card_line)
@@ -387,6 +512,9 @@ def main() -> int:
             "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
             "eager_ms": r["eager_ms"],
+            "launch_floor_ms": r["launch_floor_ms"],
+            "cluster8_floor_ms": r["cluster8_floor_ms"],
+            "layer_ms": r["layer_ms"],
             "shapes": "toycar_mlp batch 16, 8 layers, summed",
         }
         for name, r in kernels.items()

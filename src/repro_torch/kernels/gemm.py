@@ -1,28 +1,37 @@
 """The scheduled GEMM kernel — the Hopper lowering of the paper's mapping
 generator output.
 
-The extended-CoSA ``Schedule`` fixes the buffer tile shape (block_m/k/n)
-and the dataflow.  On the card (``csrc/gemm.cu``) each output block of the
-config is one CTA, the dataflow sets the raster order of the blocks (OS:
-m outer, WS: n outer so a weight panel's blocks launch together), and the
-reduction runs as a loop over block_k steps inside the CTA, with operand
-chunks staged through a fixed shared-memory budget.  The int32 or f32
-accumulator lives in registers — Gemmini's accumulator SRAM analogue —
-and the epilogue (bias, then requantize + clip or an activation, then the
-cast) runs before the one store, so no intermediate reaches device memory.
+Port of ``repro.kernels.gemm`` (the TPU kernel ``_gemm_kernel``, reached
+through ``pl.pallas_call``).  The extended-CoSA ``Schedule`` fixes the
+buffer tile shape (block_m/k/n) and the dataflow.  On the card
+(``csrc/gemm.cu``) each (block_m x block_n) output block of the config is
+one thread-block cluster of up to 8 CTAs, and the dataflow sets the raster
+order of the clusters (OS: m outer, WS: n outer, as ``grid_for``).  At the
+serving shapes (M = 16) the time is the launch plus one pass over K, so
+the cluster spreads a block over several SMs: its CTAs split the block's
+columns into tiles of at most 128 and its K range into slices of whole
+32-deep stages, each CTA runs its slice on the tensor cores (``mma.sync``:
+int8 m16n8k32 with an int32 accumulator that wraps mod 2**32 as the
+reference's does; bf16 m16n8k16; f32 as 3xTF32 m16n8k8, within float32
+rounding), and the partial sums meet through distributed shared memory in
+a fixed rank order, so two launches give the same bits.  The epilogue
+(bias, then requantize + clip or an activation, then the cast) runs once
+on the full sum before the one store.  ``launch_geometry`` is that split,
+a pure function of the shape and the config; block_k no longer shapes the
+launch (integer sums are exact in any order, float sums within rounding).
 
 Kernel-naming convention: m, k, n are the GEMM dims (paper's N, C, K).
 
-Port of ``repro.kernels.gemm``.  ``scheduled_gemm`` launches the CUDA
-kernel for a CUDA tensor and raises if it cannot; for a CPU tensor it runs
-the plain PyTorch version (``repro_torch.kernels.ref``); any other device
-raises.  The kernel masks ragged edges itself, so operands need not be
-multiples of the block shape.
+``scheduled_gemm`` launches the CUDA kernel for a CUDA tensor and raises if
+it cannot; for a CPU tensor it runs the plain PyTorch version
+(``repro_torch.kernels.ref``); any other device raises.  The kernel masks
+ragged edges itself, so operands need not be multiples of the block shape.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from dataclasses import dataclass
 
 import torch
@@ -52,6 +61,92 @@ class GemmKernelConfig:
         if self.dataflow == "WS":
             return (gn, gm, gk)
         return (gm, gn, gk)
+
+
+#: depth of one K stage, widest column tile of a CTA, largest (portable)
+#: cluster: the constants kStageK, kTileN and kMaxCluster of csrc/gemm.cu
+STAGE_K = 32
+TILE_N = 128
+MAX_CLUSTER = 8
+
+
+@dataclass(frozen=True)
+class LaunchGeometry:
+    """How one launch of ``csrc/gemm.cu`` covers an (m, k, n) product.
+
+    ``grid`` counts the config's output blocks in raster order, (outer,
+    inner) as ``GemmKernelConfig.grid_for`` orders them; each block is a
+    cluster of ``col_split * k_split`` CTAs.  Rank r of a cluster takes the
+    column tiles ``r // k_split + i * col_split`` (``col_tile`` columns
+    each) and the K slice ``k_slices()[r % k_split]``."""
+
+    grid: tuple[int, int]
+    col_split: int
+    k_split: int
+    col_tile: int
+    k: int
+
+    @property
+    def cluster(self) -> int:
+        return self.col_split * self.k_split
+
+    @property
+    def stages(self) -> int:
+        return -(-self.k // STAGE_K)
+
+    def k_slices(self) -> list[tuple[int, int]]:
+        """Each K slice as [begin, end) in elements: whole stages, balanced,
+        the last cut at k (the kernel's rule)."""
+        s = self.stages
+        return [
+            (i * s // self.k_split * STAGE_K, min((i + 1) * s // self.k_split * STAGE_K, self.k))
+            for i in range(self.k_split)
+        ]
+
+
+def _pow2_ceil(v: int) -> int:
+    return 1 << (v - 1).bit_length()
+
+
+def _pow2_floor(v: int) -> int:
+    return 1 << (v.bit_length() - 1)
+
+
+@functools.lru_cache(maxsize=4096)
+def launch_geometry(m: int, k: int, n: int, cfg: GemmKernelConfig) -> LaunchGeometry:
+    """The cluster split of each config block, for m, n >= 1.
+
+    Columns first: the block's columns (at most ``block_n``, at most n)
+    spread over the fewest power-of-two CTAs whose tiles are at most
+    ``TILE_N`` wide (multiples of 16, the kernel's copy granule), up to
+    ``MAX_CLUSTER``; wider blocks loop over tiles.  The cluster's remaining
+    room splits K, into a power of two of at most one slice per stage.  A
+    block of one column tile and one stage is one CTA."""
+    grid_m, grid_n = -(-m // cfg.block_m), -(-n // cfg.block_n)
+    grid = (grid_n, grid_m) if cfg.dataflow == "WS" else (grid_m, grid_n)
+    cols = min(cfg.block_n, n)
+    col_split = min(MAX_CLUSTER, _pow2_ceil(-(-cols // TILE_N)))
+    per_cta = -(-cols // col_split)
+    col_tile = min(TILE_N, (per_cta + 15) // 16 * 16)
+    k_split = min(MAX_CLUSTER // col_split, _pow2_floor(max(-(-k // STAGE_K), 1)))
+    return LaunchGeometry(grid, col_split, k_split, col_tile, k)
+
+
+def vector_copies(t: torch.Tensor, *row_lengths: int) -> bool:
+    """Whether the kernel may stage ``t`` with 16-byte ``cp.async``: its
+    base and every row offset it is cut at (``row_lengths``, in elements)
+    are 16-byte aligned.  Otherwise it copies element by element."""
+    size = t.element_size()
+    return t.data_ptr() % 16 == 0 and all(r * size % 16 == 0 for r in row_lengths)
+
+
+def copy_paths(x: torch.Tensor, w: torch.Tensor, cfg: GemmKernelConfig) -> tuple[bool, bool]:
+    """(x, w): whether each operand is staged with 16-byte copies.  x is cut
+    at its rows; w at its rows and, with more than one block of columns, at
+    every block's first column."""
+    k, n = w.shape
+    grid_n = -(-n // cfg.block_n)
+    return vector_copies(x, k), vector_copies(w, n, cfg.block_n if grid_n > 1 else n)
 
 
 #: kernel launches per instantiation of ``csrc/gemm.cu``, counted where the
@@ -159,12 +254,16 @@ def _library() -> ctypes.CDLL:
         lib.repro_scheduled_gemm.argtypes = [
             p, p, p, p,  # x, w, bias, out
             i, i, i,  # m, k, n
-            i, i, i,  # block_m, block_k, block_n
-            i, i, i, i,  # weight_stationary, in_type, out_type, epilogue
+            i, i, i,  # block_m, block_n, weight_stationary
+            i, i, i,  # col_split, k_split, col_tile
+            i, i,  # vec_x, vec_w
+            i, i, i,  # in_type, out_type, epilogue
             f, f, f,  # scale, clip_lo, clip_hi
             p,  # stream
         ]
         lib.repro_scheduled_gemm.restype = ctypes.c_int
+        lib.repro_noop.argtypes = [i, p]
+        lib.repro_noop.restype = ctypes.c_int
         lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -188,6 +287,8 @@ def _launch(
     out = torch.empty((m, n), dtype=out_t, device=x.device)
     if m == 0 or n == 0:
         return out
+    geo = launch_geometry(m, k, n, cfg)
+    vec_x, vec_w = copy_paths(x, w, cfg)
     lib = _library()
     with torch.cuda.device(x.device):
         rc = lib.repro_scheduled_gemm(
@@ -199,9 +300,13 @@ def _launch(
             k,
             n,
             cfg.block_m,
-            cfg.block_k,
             cfg.block_n,
             int(cfg.dataflow == "WS"),
+            geo.col_split,
+            geo.k_split,
+            geo.col_tile,
+            int(vec_x),
+            int(vec_w),
             _IN_TYPES[x.dtype],
             _OUT_TYPES[out_t],
             _EPILOGUES[_epilogue(cfg)],
@@ -215,6 +320,17 @@ def _launch(
         raise RuntimeError(f"scheduled GEMM kernel launch failed: CUDA error {rc} ({msg})")
     LAUNCHES[variant(cfg)] += 1
     return out
+
+
+def launch_noop(device: torch.device, cluster: int = 1) -> None:
+    """Launch the source's empty kernel, as one cluster of ``cluster`` CTAs,
+    on ``device``'s current stream: the floor under a launch's device
+    time, for measurements."""
+    lib = _library()
+    with torch.cuda.device(device):
+        rc = lib.repro_noop(cluster, torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"empty kernel launch failed: CUDA error {rc}")
 
 
 def scheduled_gemm(

@@ -279,3 +279,125 @@ def test_kernel_build_outside_a_checkout_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="not running from a checkout"):
         build.library_path("gemm")
     assert not (tmp_path / "lib" / "python3.12" / "build").exists()
+
+
+# -- the kernel's launch geometry (csrc/gemm.cu's cluster split) --------------
+
+_GEOMETRY_CASES = [
+    # (m, k, n), (block_m, block_k, block_n)
+    ((16, 640, 128), (16, 128, 128)),
+    ((16, 640, 128), (16, 640, 128)),
+    ((16, 128, 640), (16, 128, 640)),
+    ((16, 128, 640), (16, 128, 128)),
+    ((16, 128, 8), (16, 128, 16)),
+    ((16, 8, 128), (16, 16, 128)),
+    ((1, 640, 128), (16, 128, 128)),
+    ((37, 100, 75), (16, 32, 64)),
+    ((16, 4096, 128), (16, 128, 128)),
+    ((16, 2**17 + 64, 8), (16, 128, 8)),
+    ((16, 2**17 + 64, 1024), (16, 128, 1024)),
+    ((64, 96, 2000), (32, 32, 2000)),
+    ((5, 33, 520), (8, 16, 520)),
+    ((3, 0, 7), (4, 4, 4)),
+]
+
+
+@pytest.mark.parametrize("dataflow", ["OS", "WS"])
+@pytest.mark.parametrize("shape,blocks", _GEOMETRY_CASES)
+def test_launch_geometry_k_slices_tile_k_in_whole_stages(shape, blocks, dataflow):
+    m, k, n = shape
+    geo = gemm.launch_geometry(m, k, n, GemmKernelConfig(*blocks, dataflow))
+    slices = geo.k_slices()
+    assert len(slices) == geo.k_split
+    assert slices[0][0] == 0 and slices[-1][1] == k
+    for (b0, e0), (b1, _) in zip(slices, slices[1:]):
+        assert e0 == b1  # contiguous, no overlap
+    for b, e in slices:
+        assert b % gemm.STAGE_K == 0 and (e % gemm.STAGE_K == 0 or e == k)
+        assert b < e or k == 0  # no CTA gets an empty slice
+    stage_counts = [-(-(e - b) // gemm.STAGE_K) for b, e in slices]
+    assert max(stage_counts) - min(stage_counts) <= 1  # balanced
+
+
+@pytest.mark.parametrize("dataflow", ["OS", "WS"])
+@pytest.mark.parametrize("shape,blocks", _GEOMETRY_CASES)
+def test_launch_geometry_clusters_and_column_tiles(shape, blocks, dataflow):
+    m, k, n = shape
+    cfg = GemmKernelConfig(*blocks, dataflow)
+    geo = gemm.launch_geometry(m, k, n, cfg)
+    assert 1 <= geo.cluster <= gemm.MAX_CLUSTER
+    for split in (geo.col_split, geo.k_split):
+        assert split & (split - 1) == 0  # powers of two
+    assert geo.col_tile % 16 == 0 and 16 <= geo.col_tile <= gemm.TILE_N
+    cols = min(cfg.block_n, n)
+    tiles = -(-cols // geo.col_tile)
+    # every column tile has a CTA, and no more CTAs than tiles go unused
+    assert geo.col_split == gemm.MAX_CLUSTER or geo.col_split < 2 * tiles
+    assert tiles <= geo.col_split or geo.col_tile == gemm.TILE_N
+    assert geo.k_split <= max(geo.stages, 1)
+    if cols <= gemm.TILE_N and k <= gemm.STAGE_K:
+        assert geo.cluster == 1  # the block fits one CTA and one stage
+    assert gemm.launch_geometry(m, k, n, cfg) is geo  # cached per shape and config
+
+
+@pytest.mark.parametrize("dataflow", ["OS", "WS"])
+def test_launch_geometry_rasters_like_grid_for(dataflow):
+    """The clusters walk the blocks in the order of the config's grid: for
+    shapes that are whole blocks, ``grid`` is ``grid_for``'s first two axes;
+    ragged shapes round up."""
+    cfg = GemmKernelConfig(16, 32, 64, dataflow)
+    for m, k, n in ((32, 64, 128), (48, 96, 192), (16, 32, 64)):
+        assert gemm.launch_geometry(m, k, n, cfg).grid == cfg.grid_for(m, k, n)[:2]
+        assert gemm.launch_geometry(m, k, n, cfg).grid == RefConfig(
+            16, 32, 64, dataflow
+        ).grid_for(m, k, n)[:2]
+    outer, inner = gemm.launch_geometry(37, 100, 75, cfg).grid
+    assert (outer, inner) == ((2, 3) if dataflow == "WS" else (3, 2))
+
+
+def test_launch_geometry_spreads_the_toycar_blocks():
+    """toycar_mlp@16 as compiled: the 16x640x128 layer splits K over a full
+    cluster in every mode, naive's (16, 128, 640) block splits its columns,
+    and no layer is left on one CTA unless it is one stage deep."""
+    import repro_torch
+    from repro_torch.core import zoo
+
+    for mode in ("optimized", "baseline", "naive"):
+        module = repro_torch.compile(
+            zoo.get_model("toycar_mlp").build(batch=16),
+            repro_torch.Target("gemmini", mode=mode, device="cpu"),
+        )
+        geos = []
+        for node, op in module.ops.items():
+            x, w = node.inputs[0], node.inputs[1]
+            m, k, n = int(np.prod(x.shape[:-1])), x.shape[-1], w.shape[-1]
+            geos.append(((m, k, n), op.executor.kernel_config, gemm.launch_geometry(m, k, n, op.executor.kernel_config)))
+        (shape0, _, first), (shape7, cfg7, last) = geos[0], geos[-1]
+        assert shape0 == (16, 640, 128) and first.k_split == gemm.MAX_CLUSTER
+        assert shape7 == (16, 128, 640)
+        if mode == "naive":
+            assert cfg7.block_n == 640 and last.col_split > 1 and last.cluster > 1
+        for (m, k, n), _, geo in geos:
+            assert geo.cluster > 1 or k <= gemm.STAGE_K
+
+
+@pytest.mark.parametrize(
+    "dtype,shape,offset,lengths,want",
+    [
+        (torch.int8, (16, 640), 0, (640,), True),
+        (torch.int8, (16, 8), 0, (8,), False),  # toycar layer 5: x rows of 8 bytes
+        (torch.int8, (128, 8), 0, (8,), False),  # toycar layer 4: w rows of 8 bytes
+        (torch.int8, (16, 640), 1, (640,), False),  # base one byte off
+        (torch.float32, (37, 100), 0, (100,), True),  # 400-byte rows
+        (torch.float32, (100, 75), 0, (75,), False),
+        (torch.float32, (16, 128), 1, (128,), False),
+        (torch.bfloat16, (16, 128), 0, (128, 64), True),
+        (torch.int8, (128, 128), 0, (128, 75), False),  # a block width off 16 bytes
+    ],
+)
+def test_vector_copies_needs_aligned_base_and_rows(dtype, shape, offset, lengths, want):
+    numel = int(np.prod(shape))
+    buf = torch.zeros(numel + 64, dtype=dtype)
+    skip = (-buf.data_ptr() % 16) // buf.element_size()  # land on a 16-byte boundary first
+    t = buf[skip + offset: skip + offset + numel].view(shape)
+    assert gemm.vector_copies(t, *lengths) is want
