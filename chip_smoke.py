@@ -34,14 +34,38 @@ fails; nothing is caught and passed over:
      second pass timed).  Outputs must be bit-equal to the port's own
      ``device="cpu"`` run of the same feeds (which the CPU tests hold to
      the reference), ``modeled_cycles()`` equal on both devices, and the
-     kernel launch counter must rise by exactly 8 per ``run``.
+     kernel launch counter must rise by exactly 8 per ``run``;
+  5. path kernel cases: every (shape, block config) that the paths of
+     phases 6 and 7 launch — qcnn's im2col GEMMs, transformer_block's
+     projections and per-instance attention GEMMs, edge_npu's 8-wide
+     weight-stationary schedules of all four models, toycar at bucket 64 —
+     plus toycar's raw int32 GEMMs at bucket 64 (naive), each against its
+     plain version (bit-exact), timed as in phase 3, with
+     ``torch._int_mm`` beside the raw int32 GEMMs where it applies
+     (m > 16, k and n multiples of 8);
+  6. new paths: qcnn and transformer_block on gemmini and all four models
+     on edge_npu, every mode, per-sample (batch None) and at bucket 16,
+     on ``cuda``: outputs bit-equal to the port's CPU run, modeled cycles
+     equal, and the launches of each instantiation per run exactly what
+     the plan implies (accelerator steps x batched-matmul instances);
+  7. serving: ``repro_torch.launch.serve.serve_zoo`` for toycar_mlp on
+     gemmini:optimized at ``--batch 64`` (buckets 1, 4, 16, 64) and for
+     transformer_block at ``--batch 16``, a few hundred requests each
+     through the micro-batching queue on ``cuda``; every response
+     bit-equal to a per-request CPU run, and the launches equal to what
+     the dispatched chunks imply.
 
-It prints a ``{"kernels": [...]}`` line and a main-path summary, and as
-its last line ``{"ok": true, "device": {...}}``.
+The launch counts are set to 0 just before each of phases 4, 6 and 7 and
+read just after; the ``launches`` of the kernels line are their sum.  It
+prints a ``{"kernels": [...]}`` line (the toycar@16 sums of phase 3, and
+every case of phase 5 under ``cases``), a summary of the paths, and as
+its last line ``{"ok": true, "device": {...}}``.  ``--report PATH``
+also writes everything measured to PATH as JSON.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import sys
@@ -58,8 +82,11 @@ import torch  # noqa: E402
 
 import repro_torch  # noqa: E402
 from repro_torch.core import zoo  # noqa: E402
+from repro_torch.core.batching import pick_bucket, plan_chunks  # noqa: E402
+from repro_torch.core.strategy import gemm_instances  # noqa: E402
 from repro_torch.kernels import build, gemm  # noqa: E402
 from repro_torch.kernels.gemm import GemmKernelConfig, gemm_plain, scheduled_gemm  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
 
 #: published H100 SXM rates (dense, no sparsity), at the 700 W limit
 HBM_BYTES_PER_S = 3.35e12
@@ -74,6 +101,25 @@ REPLACES = {
 F32_TOL = dict(rtol=1e-4, atol=1e-3)
 GRAPH_LAUNCHES = 200
 LATENCY_SAMPLES = 100
+#: (model, accelerator) of phase 6, each in every mode, per-sample and at
+#: bucket MAIN_BUCKET
+NEW_PATHS = (
+    ("qcnn", "gemmini"),
+    ("transformer_block", "gemmini"),
+    ("qcnn", "edge_npu"),
+    ("toycar_mlp", "edge_npu"),
+    ("mlp_tiny", "edge_npu"),
+    ("transformer_block", "edge_npu"),
+)
+MAIN_BUCKET = 16
+PATH_FEEDS = 3  # seeds per module: each run alone, then all through run_many
+PATH_LATENCY_SAMPLES = 20
+#: phase 7: (model, target, --batch, --requests)
+SERVES = (
+    ("toycar_mlp", "gemmini:optimized", 64, 512),
+    ("transformer_block", "gemmini:optimized", 16, 256),
+)
+SERVE_DEADLINE_MS = 2.0
 
 
 def check(cond: bool, what: str) -> None:
@@ -461,7 +507,267 @@ def main_path(dev: torch.device, card_line: str) -> dict:
     return summary
 
 
-def main() -> int:
+# -- phases 5-7: the new paths ----------------------------------------------
+
+
+def step_gemms(node) -> tuple[tuple[int, int, int], int]:
+    """((m, k, n), instances) of one accelerator step: the GEMM each launch
+    computes and how many launches one run makes (a batched matmul replays
+    the per-sample GEMM once per instance; a conv is its im2col GEMM)."""
+    x, w = node.inputs[0], node.inputs[1]
+    transpose_b = bool(node.attrs.get("transpose_b"))
+    if node.op.endswith("conv2d"):
+        kh, kw, ci, co = w.shape
+        pool = node.attrs.get("pool")
+        pre = tuple(pool["conv_shape"]) if pool else tuple(node.shape)
+        return (int(np.prod(pre[:-1])), kh * kw * ci, co), 1
+    if len(w.shape) == 3:
+        return (x.shape[1], x.shape[2], w.shape[1] if transpose_b else w.shape[2]), gemm_instances(node)
+    return (int(np.prod(x.shape[:-1])), x.shape[-1], w.shape[0] if transpose_b else w.shape[1]), 1
+
+
+def plan_launches(module) -> dict[str, int]:
+    """Launches of each instantiation that one ``run`` of ``module`` makes."""
+    out = {name: 0 for name in gemm.LAUNCHES}
+    for node, op in module.ops.items():
+        out[gemm.variant(op.executor.kernel_config)] += step_gemms(node)[1]
+    return out
+
+
+def case_key(node, op) -> tuple:
+    cfg = op.executor.kernel_config
+    return (gemm.variant(cfg), step_gemms(node)[0], cfg)
+
+
+def path_label(name: str, acc: str, mode: str, batch) -> str:
+    return f"{name}@{acc}:{mode} b{batch or 1}"
+
+
+def compile_new_paths(dev: torch.device) -> dict[tuple, dict]:
+    """Every module of phase 6, on the card and on the CPU, keyed by
+    (model, accelerator, mode, batch)."""
+    out = {}
+    for name, acc in NEW_PATHS:
+        model = zoo.get_model(name)
+        for mode in MODES:
+            for batch in (None, MAIN_BUCKET):
+                out[name, acc, mode, batch] = {
+                    where: repro_torch.compile(
+                        model.build(batch=batch),
+                        repro_torch.Target(acc, mode=mode, device=str(dev) if where == "cuda" else "cpu"),
+                    )
+                    for where in ("cuda", "cpu")
+                }
+    return out
+
+
+def serve_modules() -> dict[str, list]:
+    """The bucket and per-sample modules phase 7 serves, compiled for the
+    CPU (only their configs are read), keyed by a label per module."""
+    out = {}
+    for name, target, batch, _ in SERVES:
+        acc, mode = target.split(":")
+        t = repro_torch.Target(acc, mode=mode, device="cpu", batch_size=batch)
+        module = repro_torch.compile(name, t)
+        out[f"serve {name}@{target} sample"] = module.sample_module
+        for b in module.bucket_sizes():
+            out[f"serve {name}@{target} b{b}"] = module.bucket_module(b)
+    return out
+
+
+def path_case_phase(dev: torch.device, modules: dict[str, object]) -> dict[tuple, dict]:
+    """Phase 5: each distinct (instantiation, shape, config) of the new
+    paths' modules, against its plain version and timed."""
+    rng = np.random.default_rng(1)
+
+    def ints(shape, lo=-128, hi=128, dtype=np.int8):
+        return torch.from_numpy(rng.integers(lo, hi, shape).astype(dtype)).to(dev)
+
+    where: dict[tuple, list[str]] = {}
+    attention: set[tuple] = set()
+    for label, module in modules.items():
+        for node, op in module.ops.items():
+            key = case_key(node, op)
+            where.setdefault(key, []).append(label)
+            if node.attrs.get("transpose_b") and len(node.inputs[1].shape) == 3:
+                attention.add(key)
+    results = {}
+    for key in sorted(where, key=lambda k: (k[0], k[1], k[2].block_m, k[2].block_k, k[2].block_n)):
+        name, (m, k, n), cfg = key
+        x = ints((m, k))
+        # the transposed attention operand reaches the kernel as a
+        # contiguous copy (kernels/ops.py): make it the same way here
+        w = ints((n, k)).T.contiguous() if key in attention else ints((k, n))
+        b = ints((n,), -2000, 2000, np.int32) if cfg.has_bias else None
+        run = lambda: scheduled_gemm(x, w, cfg, b)  # noqa: E731
+        plain = lambda: gemm_plain(x, w, cfg, b)  # noqa: E731
+        label = f"{name} {m}x{k}x{n} {cfg.block_m}/{cfg.block_k}/{cfg.block_n} {cfg.dataflow}"
+        err = compare(label, run(), plain())
+        ms, p_ms = device_ms(run), device_ms(plain)
+        b_ms, by = bound(m, k, n, "int8", 1 if name == "qgemm_requant" else 4, 0 if b is None else 4 * n)
+        lib, lib_note = None, None
+        if name == "gemm_int32" and b is None:
+            if m > 16 and k % 8 == 0 and n % 8 == 0:
+                check(torch.equal(torch._int_mm(x, w), run()), f"{label}: torch._int_mm != kernel")
+                lib = device_ms(lambda: torch._int_mm(x, w))
+            else:
+                lib_note = "torch._int_mm needs m > 16 and k, n multiples of 8"
+        results[key] = {
+            "variant": name, "m": m, "k": k, "n": n,
+            "blocks": f"{cfg.block_m}/{cfg.block_k}/{cfg.block_n}", "dataflow": cfg.dataflow,
+            "ms": ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": by, "library_ms": lib,
+            "max_abs_err": err, "attention": key in attention, "paths": len(where[key]),
+        }
+        geo = gemm.launch_geometry(m, k, n, cfg)
+        print(
+            f"path case {label}{' attention' if key in attention else ''}: ms {ms:.6f} "
+            f"plain_ms {p_ms:.6f} bound_ms {b_ms:.8f} ({by}) library_ms "
+            f"{lib if lib_note is None else 'none (' + lib_note + ')'} err {err}; clusters "
+            f"{geo.grid[0]}x{geo.grid[1]}x{geo.cluster}; {len(where[key])} modules, e.g. {where[key][0]}"
+        )
+    torch.cuda.synchronize()
+    print(f"path cases: {len(results)} (instantiation, shape, config) cases equal their plain versions")
+    return results
+
+
+def kernel_ms_per_run(module, cases: dict[tuple, dict]) -> float:
+    """Device time of one run's launches, from the phase-5 case times."""
+    return sum(cases[case_key(node, op)]["ms"] * step_gemms(node)[1] for node, op in module.ops.items())
+
+
+def new_paths_phase(compiled: dict, cases: dict, card_line: str) -> dict:
+    """Phase 6: every new path on the card, held to the CPU run."""
+    summary = {}
+    for (name, acc, mode, batch), mods in compiled.items():
+        got_m, want_m = mods["cuda"], mods["cpu"]
+        label = path_label(name, acc, mode, batch)
+        check(got_m.modeled_cycles() == want_m.modeled_cycles(), f"{label}: modeled cycles differ")
+        per_run = plan_launches(got_m)
+        model = zoo.get_model(name)
+        feeds = [model.feeds(seed, batch=batch) for seed in range(PATH_FEEDS)]
+        want = [want_m.run(f) for f in feeds]
+        before = dict(gemm.LAUNCHES)
+        got = [got_m.run(f) for f in feeds] + got_m.run_many(feeds)
+        runs = 2 * len(feeds)
+        for v, count in per_run.items():
+            check(gemm.LAUNCHES[v] - before[v] == count * runs,
+                  f"{label}: {gemm.LAUNCHES[v] - before[v]} {v} launches for {runs} runs, "
+                  f"the plan implies {count} per run")
+        for g, w in zip(got, want + want):
+            check(len(g) == len(w) == 1 and g[0].shape == w[0].shape and g[0].dtype == w[0].dtype,
+                  f"{label}: output shape/dtype")
+            if not np.array_equal(g[0], w[0]):
+                diff = int((g[0] != w[0]).sum())
+                check(False, f"{label}: cuda output != cpu output ({diff} of {g[0].size} codes differ)")
+        lat = []
+        for i in range(PATH_LATENCY_SAMPLES):
+            t0 = time.perf_counter()
+            got_m.run(feeds[i % len(feeds)])
+            lat.append((time.perf_counter() - t0) * 1e3)
+        summary[label] = {
+            "launches_per_run": {v: c for v, c in per_run.items() if c},
+            "modeled_cycles": got_m.modeled_cycles()["total"],
+            "run_ms_p50": float(np.percentile(lat, 50)),
+            "kernel_ms_per_run": kernel_ms_per_run(got_m, cases),
+        }
+        print(
+            f"new path {label}: bit-equal to cpu over {runs} runs; launches per run "
+            f"{summary[label]['launches_per_run']}; run p50 {summary[label]['run_ms_p50']:.4f} ms "
+            f"(kernels {summary[label]['kernel_ms_per_run']:.4f} ms device); modeled cycles "
+            f"{summary[label]['modeled_cycles']:.0f}"
+        )
+    print(f"new paths: {len(summary)} modules served on cuda bit-equal to cpu [{card_line}]")
+    return summary
+
+
+def serve_phase(dev: torch.device, cases: dict, card_line: str, windows: dict) -> dict:
+    """Phase 7: ``serve_zoo`` on the card, every response held to a
+    per-request CPU run; each call is its own launch-count window."""
+    summary = {}
+    for name, target, batch, requests in SERVES:
+        args = argparse.Namespace(zoo=name, target=target, batch=batch, requests=requests,
+                                  deadline_ms=SERVE_DEADLINE_MS, device=str(dev))
+        gemm.reset_launches()  # this serve call's window starts here
+        result = serve.serve_zoo(args)
+        window = dict(gemm.LAUNCHES)  # read just after it
+        windows[f"serve {name}@{target} --batch {batch}"] = window
+        module = result.module
+        # what the dispatched chunks imply: the warmup runs every bucket
+        # once, then each dispatch splits into plan_chunks of the buckets
+        buckets = module.bucket_sizes()
+        expected = {v: 0 for v in gemm.LAUNCHES}
+
+        def add_chunks(n: int) -> None:
+            for size in plan_chunks(buckets, n):
+                mod = (module.sample_module if size == 1
+                       else module.bucket_module(pick_bucket(buckets, size)))
+                for v, c in plan_launches(mod).items():
+                    expected[v] += c
+
+        for b in buckets:
+            add_chunks(b)
+        check(len(result.stats.batch_sizes) == result.stats.batches, f"serve {name}: dispatch record")
+        for size in result.stats.batch_sizes:
+            add_chunks(size)
+        check(window == expected, f"serve {name}: launches {window}, the dispatches imply {expected}")
+        acc, mode = target.split(":")
+        cpu = repro_torch.compile(zoo.get_model(name).build(), repro_torch.Target(acc, mode=mode, device="cpu"))
+        check(len(result.outputs) == requests, f"serve {name}: {len(result.outputs)} responses")
+        for i, (feeds, got) in enumerate(zip(result.traffic, result.outputs)):
+            want = cpu.run(feeds)
+            check(len(got) == 1 and got[0].dtype == want[0].dtype and np.array_equal(got[0], want[0]),
+                  f"serve {name}: response {i} != per-request cpu result")
+        # where a dispatch's time goes: the same number of requests through
+        # run_many without the queue, and the largest bucket's plan alone
+        model = zoo.get_model(name)
+        chunk = result.traffic[:batch]
+        top = module.bucket_module(buckets[-1])
+        packed = model.feeds(0, batch=buckets[-1])
+        run_many_ms, plan_ms = [], []
+        for _ in range(PATH_LATENCY_SAMPLES):
+            t0 = time.perf_counter()
+            module.run_many(chunk)
+            t1 = time.perf_counter()
+            top.run(packed)
+            run_many_ms.append((t1 - t0) * 1e3)
+            plan_ms.append((time.perf_counter() - t1) * 1e3)
+        lat_ms = np.asarray(result.latencies_s) * 1e3
+        sizes = list(result.stats.batch_sizes)
+        summary[name] = {
+            "target": target, "batch": batch, "buckets": list(buckets), "requests": requests,
+            "boot_ms": result.boot_s * 1e3, "wall_s": result.wall_s,
+            "req_per_s": requests / result.wall_s,
+            "latency_ms_p50": float(np.percentile(lat_ms, 50)),
+            "latency_ms_p99": float(np.percentile(lat_ms, 99)),
+            "dispatches": result.stats.batches, "mean_batch": result.stats.mean_batch(),
+            "batch_sizes": sorted(set(sizes)), "launches": {v: c for v, c in window.items() if c},
+            "kernel_ms_per_bucket_run": {
+                str(b): kernel_ms_per_run(module.bucket_module(b), cases) for b in buckets
+            },
+            "dispatch_ms": result.wall_s * 1e3 / result.stats.batches,
+            f"run_many_{batch}_ms_p50": float(np.percentile(run_many_ms, 50)),
+            f"bucket_{buckets[-1]}_plan_ms_p50": float(np.percentile(plan_ms, 50)),
+        }
+        print(
+            f"serve {name} on {target} --batch {batch}: {requests} responses bit-equal to per-request "
+            f"cpu runs; {summary[name]['req_per_s']:.1f} req/s, p50 {summary[name]['latency_ms_p50']:.4f} ms, "
+            f"p99 {summary[name]['latency_ms_p99']:.4f} ms, {result.stats.batches} dispatches "
+            f"(sizes {summary[name]['batch_sizes']}); launches {summary[name]['launches']}; kernel device "
+            f"ms per bucket run {summary[name]['kernel_ms_per_bucket_run']} [{card_line}]"
+        )
+        print(
+            f"serve {name}: per dispatch {summary[name]['dispatch_ms']:.4f} ms through the queue; "
+            f"the same {batch} requests through run_many alone p50 {np.percentile(run_many_ms, 50):.4f} ms; "
+            f"the bucket-{buckets[-1]} plan alone p50 {np.percentile(plan_ms, 50):.4f} ms, its kernels "
+            f"{summary[name]['kernel_ms_per_bucket_run'][str(buckets[-1])]:.4f} ms device"
+        )
+    return summary
+
+
+def main(argv: list[str] | None = None) -> int:
+    ap = argparse.ArgumentParser(description="drive the port on one NVIDIA card")
+    ap.add_argument("--report", help="also write everything measured to this JSON file")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke.py: torch.cuda.is_available() is False: this needs an NVIDIA card",
               file=sys.stderr)
@@ -476,7 +782,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     path, log = build.build("gemm")
-    print(f"build: {path.name} in {time.perf_counter() - t0:.2f} s")
+    build_s = time.perf_counter() - t0
+    print(f"build: {path.name} in {build_s:.2f} s")
     usage = sorted({line.split(":", 1)[1].strip() for line in log.splitlines() if "Used" in line})
     print(f"build: ptxas per kernel: {usage}")
     spills = [line for line in log.splitlines() if "spill" in line]
@@ -488,15 +795,35 @@ def main() -> int:
         print("build: library built by an earlier run; no ptxas report to check")
 
     kernels = kernel_phase(dev)
-    summary = main_path(dev, card_line)
-    launches = dict(gemm.LAUNCHES)  # read just after the main path's run
+    compiled = compile_new_paths(dev)
+    case_modules = {path_label(*key): mods["cpu"] for key, mods in compiled.items()}
+    case_modules.update(serve_modules())
+    # row 2 (raw int32) at toycar's largest serving bucket, where
+    # torch._int_mm applies; no path of phases 6-7 serves naive at 64
+    case_modules["toycar_mlp@gemmini:naive b64"] = repro_torch.compile(
+        zoo.get_model("toycar_mlp").build(batch=64),
+        repro_torch.Target("gemmini", mode="naive", device="cpu"),
+    )
+    cases = path_case_phase(dev, case_modules)
+
+    windows = {}
+    summary = main_path(dev, card_line)  # sets the counts to 0 first
+    windows["toycar_mlp@gemmini"] = dict(gemm.LAUNCHES)  # read just after the main path's run
     for mode, s in summary.items():
         # the device time of one batch-16 forward's 8 kernels (kernel phase)
         # against the wall time of one batch-16 run
         s["kernel_ms_per_run_batch16"] = kernels[s["variant"]]["ms"]
         s["kernel_share_of_run_batch16"] = kernels[s["variant"]]["ms"] / s["run_ms_batch16_p50"]
-    for name in ("qgemm_requant", "gemm_int32"):
-        check(launches[name] > 0, f"kernel {name} of the main path never launched")
+    gemm.reset_launches()  # the new paths' run starts here
+    paths = new_paths_phase(compiled, cases, card_line)
+    windows["new paths"] = dict(gemm.LAUNCHES)  # read just after it
+    served = serve_phase(dev, cases, card_line, windows)
+    for window, counts in windows.items():
+        print(f"launch window {window}: {counts}")
+    for window in ("toycar_mlp@gemmini", "new paths"):
+        for name in ("qgemm_requant", "gemm_int32"):
+            check(windows[window][name] > 0, f"kernel {name} never launched in the {window} window")
+    launches = {name: sum(w[name] for w in windows.values()) for name in gemm.LAUNCHES}
 
     line = {"kernels": [
         {
@@ -505,7 +832,8 @@ def main() -> int:
             "source": SOURCE,
             "replaces": REPLACES[name],
             "launches": launches[name],
-            "max_abs_err": r["max_abs_err"],
+            "max_abs_err": max([r["max_abs_err"]] + [c["max_abs_err"] for c in cases.values()
+                                                    if c["variant"] == name]),
             "ms": r["ms"],
             "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"],
@@ -515,11 +843,23 @@ def main() -> int:
             "launch_floor_ms": r["launch_floor_ms"],
             "cluster8_floor_ms": r["cluster8_floor_ms"],
             "layer_ms": r["layer_ms"],
-            "shapes": "toycar_mlp batch 16, 8 layers, summed",
+            "shapes": "toycar_mlp batch 16, 8 layers, summed; each path case under cases",
+            "cases": [
+                {"shape": f"{c['m']}x{c['k']}x{c['n']}", "blocks": f"{c['blocks']} {c['dataflow']}",
+                 **{k: c[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err")},
+                 **({"attention": True} if c["attention"] else {})}
+                for c in cases.values() if c["variant"] == name
+            ],
         }
         for name, r in kernels.items()
     ]}
-    print(json.dumps({"main_path": summary, "card": card_line}))
+    report = {"card": card_line, "build_s": build_s, "main_path": summary, "paths": paths,
+              "serve": served, "launch_windows": windows}
+    if args.report:
+        Path(args.report).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.report).write_text(json.dumps({**report, **line}, indent=1))
+    # the per-path summary is long and printed above, path by path
+    print(json.dumps({k: v for k, v in report.items() if k != "paths"}))
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

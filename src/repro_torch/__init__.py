@@ -12,15 +12,26 @@ accelerator step on a hand-written CUDA kernel for sm_90a:
     outputs = module.run({"x": x})
     cycles = module.modeled_cycles()
 
+Serving goes through batch buckets and a micro-batching queue:
+``python -m repro_torch.launch.serve --zoo toycar_mlp --target
+gemmini:optimized --batch 64``.
+
 The target runs on the card by default; ``Target(..., device="cpu")``
 runs the kernels' plain PyTorch versions instead.  The package imports
 ``torch`` and numpy, never ``jax`` and nothing of ``repro``, whose
 modules it mirrors path for path.
 """
 
-from repro_torch.api import Target, TargetError, compile
+from repro_torch.api import (
+    DEFAULT_BATCH_BUCKETS,
+    CompileOptions,
+    Target,
+    TargetError,
+    compile,
+)
 from repro_torch.core.accel import AcceleratorDescription
 from repro_torch.core.arch_spec import ArchSpec, GemmWorkload
+from repro_torch.core.batching import BatchedModule
 from repro_torch.core.executor import CompiledModule, FeedError
 from repro_torch.core.pipeline import ScheduleError
 from repro_torch.core.registry import (
@@ -38,7 +49,10 @@ __all__ = [
     "AcceleratorDescription",
     "AcceleratorRegistry",
     "ArchSpec",
+    "BatchedModule",
+    "CompileOptions",
     "CompiledModule",
+    "DEFAULT_BATCH_BUCKETS",
     "FeedError",
     "GemmWorkload",
     "IntegrationError",

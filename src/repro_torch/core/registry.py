@@ -17,9 +17,9 @@ Out-of-tree accelerators use the same decorator as the in-tree ones:
     def make_my_npu():
         return AcceleratorDescription(...)
 
-Port of ``repro.core.registry``: ``REGISTRY`` holds ``gemmini`` (the
-``edge_npu`` and ``tpu_v5e`` descriptions wait for their slice); the
-schedule cache and the deprecated ``integrate()`` are not ported.
+Port of ``repro.core.registry``: ``REGISTRY`` holds ``edge_npu`` and
+``gemmini`` (the ``tpu_v5e`` description is not ported); the schedule
+cache and the deprecated ``integrate()`` are not ported.
 """
 
 from __future__ import annotations
@@ -151,7 +151,7 @@ class AcceleratorRegistry:
         import repro_torch.core.descriptions  # noqa: F401
 
 
-#: The process-global registry ``repro.integrate()`` resolves names against.
+#: The process-global registry ``repro_torch.compile()`` resolves names against.
 REGISTRY = AcceleratorRegistry()
 
 

@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from dataclasses import dataclass
 
 import torch
@@ -150,13 +151,23 @@ def copy_paths(x: torch.Tensor, w: torch.Tensor, cfg: GemmKernelConfig) -> tuple
 
 
 #: kernel launches per instantiation of ``csrc/gemm.cu``, counted where the
-#: kernel launches and nowhere else (the plain version never counts)
+#: kernel launches and nowhere else (the plain version never counts); a
+#: serving dispatcher thread launches beside the caller's, so the count
+#: moves under a lock
 LAUNCHES: dict[str, int] = {"qgemm_requant": 0, "gemm_int32": 0, "gemm_float": 0}
+_launches_lock = threading.Lock()
+
+
+def record_launch(cfg: GemmKernelConfig) -> None:
+    """Count one launch of the instantiation ``cfg`` selects."""
+    with _launches_lock:
+        LAUNCHES[variant(cfg)] += 1
 
 
 def reset_launches() -> None:
-    for key in LAUNCHES:
-        LAUNCHES[key] = 0
+    with _launches_lock:
+        for key in LAUNCHES:
+            LAUNCHES[key] = 0
 
 
 _IN_TYPES = {torch.int8: 0, torch.float32: 1, torch.bfloat16: 2}
@@ -318,7 +329,7 @@ def _launch(
     if rc != 0:
         msg = lib.repro_cuda_error_string(rc).decode()
         raise RuntimeError(f"scheduled GEMM kernel launch failed: CUDA error {rc} ({msg})")
-    LAUNCHES[variant(cfg)] += 1
+    record_launch(cfg)
     return out
 
 

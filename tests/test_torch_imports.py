@@ -1,8 +1,9 @@
 """The port stands alone and runs where its target says.
 
 ``repro_torch`` and ``chip_smoke.py`` import neither ``jax`` nor ``repro``;
-``Target()`` defaults to the card and a CUDA target without one fails at
-compile time instead of running on the CPU.
+``Target()``, ``Target.parse()`` and the serve CLI default to the card, and
+a CUDA target without one fails at compile time instead of running on the
+CPU.
 """
 
 import ast
@@ -18,6 +19,15 @@ import repro_torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+#: modules whose reference counterparts sit beside the JAX package's
+#: traced frontend and serving engines
+SERVING_MODULES = (
+    "repro_torch.core.batching",
+    "repro_torch.serve",
+    "repro_torch.serve.microbatch",
+    "repro_torch.launch.serve",
+    "repro_torch.core.descriptions.edge_npu",
+)
 
 
 def _imported_modules(path: Path) -> list[str]:
@@ -37,6 +47,35 @@ def test_port_imports_neither_jax_nor_the_reference(path):
         if m.split(".")[0] in ("jax", "jaxlib", "repro")
     ]
     assert not bad, f"{path.name} imports {bad}"
+
+
+def test_serving_modules_are_checked_files():
+    checked = {str(p.relative_to(ROOT / "src")) for p in PORT_FILES if p.is_relative_to(ROOT / "src")}
+    for module in SERVING_MODULES:
+        path = module.replace(".", "/")
+        assert f"{path}.py" in checked or f"{path}/__init__.py" in checked, module
+
+
+def test_serving_modules_run_with_jax_blocked():
+    code = (
+        "import sys, argparse\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "import importlib\n"
+        f"for name in {SERVING_MODULES!r}:\n"
+        "    importlib.import_module(name)\n"
+        "from repro_torch.launch.serve import serve_zoo\n"
+        "r = serve_zoo(argparse.Namespace(zoo='qcnn', target='edge_npu:optimized', batch=4,\n"
+        "    requests=6, deadline_ms=1.0, device='cpu'))\n"
+        "assert r.module.bucket_sizes() == (1, 4) and len(r.outputs) == 6\n"
+        "print('ok', [k for k in sys.modules if k.split('.')[0] in ('jax', 'repro')])\n"
+    )
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, env=env, timeout=120
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert "ok ['jax', 'repro']" in proc.stdout  # only the blocking entries
 
 
 def test_port_runs_with_jax_blocked():
@@ -63,6 +102,29 @@ def test_target_defaults_to_the_card():
     target = repro_torch.Target("gemmini")
     assert target.device == "cuda"
     assert target.mode == "optimized" and target.use_mip is True
+    parsed = repro_torch.Target.parse("edge_npu:naive", batch_size=16)
+    assert (parsed.accelerator, parsed.mode, parsed.device, parsed.batch_size) == (
+        "edge_npu", "naive", "cuda", 16
+    )
+
+
+def test_target_parse_lists_bad_specs():
+    for spec in ("a:b:c", ":optimized"):
+        with pytest.raises(repro_torch.TargetError, match="'accelerator:mode'"):
+            repro_torch.Target.parse(spec)
+    with pytest.raises(repro_torch.TargetError, match="mode='naive' was also passed"):
+        repro_torch.Target.parse("gemmini:optimized", mode="naive")
+    assert repro_torch.Target.parse("gemmini", mode="naive", device="cpu").describe() == "gemmini:naive@cpu"
+
+
+def test_serve_cli_defaults_to_the_card():
+    from repro_torch.launch import serve
+
+    assert serve.build_parser().parse_args(["--zoo", "mlp_tiny"]).device == "cuda"
+    if torch.cuda.is_available():
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device is available"):
+        serve.main(["--zoo", "mlp_tiny", "--requests", "1"])
 
 
 def test_mip_request_is_refused_where_the_reference_would_solve_it(monkeypatch):

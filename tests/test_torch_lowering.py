@@ -4,10 +4,11 @@
 fused pool and residual epilogues, and the per-instance batched matmul
 (with the folded ``transpose_b`` layout).  The reference's ``qcnn`` and
 ``transformer_block`` golden graphs exercise all of them, plus the
-softmax / dequantize / quantize host ops.  The port's zoo does not carry
-these models yet, so each reference graph is translated node for node
-into the port's IR (same ops, attrs, shapes, dtypes and constants) and
-both are compiled on gemmini.  Outputs must be bit-equal on the CPU.
+softmax / dequantize / quantize host ops.  Here each reference graph is
+translated node for node into the port's IR (same ops, attrs, shapes,
+dtypes and constants), independent of the port's own zoo builders
+(``tests/test_torch_zoo.py`` holds those), and both are compiled on
+gemmini.  Outputs must be bit-equal on the CPU.
 """
 
 import numpy as np

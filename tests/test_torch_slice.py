@@ -103,7 +103,7 @@ def test_zoo_name_compiles_the_golden_graph():
     feeds = zoo.get_model("mlp_tiny").feeds(1)
     _assert_bit_equal(by_name.run(feeds), by_graph.run(feeds), "zoo name")
     with pytest.raises(KeyError, match="available"):
-        repro_torch.compile("qcnn", repro_torch.Target("gemmini", device="cpu"))
+        repro_torch.compile("resnet50", repro_torch.Target("gemmini", device="cpu"))
 
 
 def test_feed_error_lists_every_problem():
