@@ -55,18 +55,46 @@ fails; nothing is caught and passed over:
      bit-equal to a per-request CPU run, and the launches equal to what
      the dispatched chunks imply.
 
-The launch counts are set to 0 just before each of phases 4, 6 and 7 and
-read just after; the ``launches`` of the kernels line are their sum.  It
-prints a ``{"kernels": [...]}`` line (the toycar@16 sums of phase 3, and
-every case of phase 5 under ``cases``), a summary of the paths, and as
-its last line ``{"ok": true, "device": {...}}``.  ``--report PATH``
-also writes everything measured to PATH as JSON.
+  8. measured DSE: ``repro_torch.compile(..., CompileOptions(
+     measure_top_k=8))`` on ``cuda`` with a fresh schedule cache, for
+     toycar_mlp, qcnn and transformer_block at bucket 16 on gemmini and
+     edge_npu (optimized): per node each candidate's modeled cycles, block
+     config, raster order, ``time_executor`` time (the device time of one
+     executor call, queued behind a device-side wait) and its kernel's
+     device time alone, and the winner.  The launch count must rise by (warmup +
+     repeats) x candidates x GEMM instances for every node measured (the
+     kernel was timed, not its plain version), outputs must be bit-equal
+     to the CPU run, and a recompile after ``clear_backend_cache()`` on the
+     same cache must do 0 sweeps and 0 measurements;
+  9. artifacts: the batched toycar module (``--batch 64``) compiled cold,
+     saved, and after ``clear_backend_cache()`` loaded on ``cuda`` with 0
+     sweeps, 0 measurements, 0 pass-manager runs and 0 rewrite fires;
+     launches per run equal the compiled module's, responses bit-equal to
+     per-request CPU runs; then ``serve_zoo`` boots from it through
+     ``--artifact``; load time beside the cold compile time;
+ 10. pipelined: ``run_many(pipelined=True)`` for every phase-6 module in
+     optimized and naive, bit-equal to the sequential ``run_many`` with
+     the same launch count, p50 of both; and a conv that a description
+     leaves on the host is refused on ``cuda`` at compile time (the port
+     runs no plain GEMM on the card).
+
+The launch counts are set to 0 just before each of phases 4 and 6-10 (and
+each serve call) and read just after; the ``launches`` of the kernels
+line are their sum.  It prints a ``{"kernels": [...]}`` line (the
+toycar@16 sums of phase 3, and every case of phase 5 under ``cases``), a
+summary of the paths, and as its last line ``{"ok": true, "device":
+{...}}``.  ``--report PATH`` also writes everything measured to PATH as
+JSON.  Schedule caches and artifacts are written under the checkout's
+``build/chip_smoke/``, made afresh by each run.
 """
 
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
+import os
+import shutil
 import subprocess
 import sys
 import time
@@ -81,9 +109,11 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 import repro_torch  # noqa: E402
-from repro_torch.core import zoo  # noqa: E402
+from repro_torch.core import measure, pass_manager, zoo  # noqa: E402
 from repro_torch.core.batching import pick_bucket, plan_chunks  # noqa: E402
-from repro_torch.core.strategy import gemm_instances  # noqa: E402
+from repro_torch.core.lowering import kernel_config_for  # noqa: E402
+from repro_torch.core.scheduler import ExtendedCosaScheduler, ScheduleResult  # noqa: E402
+from repro_torch.core.strategy import gemm_instances, workload_from_node  # noqa: E402
 from repro_torch.kernels import build, gemm  # noqa: E402
 from repro_torch.kernels.gemm import GemmKernelConfig, gemm_plain, scheduled_gemm  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
@@ -120,6 +150,16 @@ SERVES = (
     ("transformer_block", "gemmini:optimized", 16, 256),
 )
 SERVE_DEADLINE_MS = 2.0
+#: phase 8: (model, batch) x accelerator, optimized, measured at this K
+MEASURED_BUILDS = (("toycar_mlp", 16), ("qcnn", 16), ("transformer_block", 16))
+MEASURE_K = 8
+#: executor calls per timed candidate: time_executor's warmup + repeats
+MEASURE_CALLS = sum(
+    inspect.signature(measure.time_executor).parameters[p].default for p in ("warmup", "repeats")
+)
+#: phase 9: the batched module saved and booted, and its serve call
+ARTIFACT_SERVE = ("toycar_mlp", "gemmini:optimized", 64, 256)
+PIPELINED_SAMPLES = 10
 
 
 def check(cond: bool, what: str) -> None:
@@ -764,6 +804,313 @@ def serve_phase(dev: torch.device, cases: dict, card_line: str, windows: dict) -
     return summary
 
 
+# -- phases 8-10: the compile service ----------------------------------------
+
+
+class WorkCounter:
+    """Counts, while active, the compile work a restore must not do: DSE
+    sweeps, candidate timings, pass-manager runs and rewrite-rule fires."""
+
+    def __enter__(self):
+        self.counts = {"sweeps": 0, "measurements": 0, "pass_runs": 0, "rewrite_fires": 0}
+        self._saved = (ExtendedCosaScheduler._schedule_uncached, measure.time_executor,
+                       pass_manager.PassManager.run, pass_manager.apply_rules)
+        sweep, timer, pm_run, apply_rules = self._saved
+        counts = self.counts
+
+        def counted_sweep(sched, wl):
+            counts["sweeps"] += 1
+            return sweep(sched, wl)
+
+        def counted_timer(*a, **kw):
+            counts["measurements"] += 1
+            return timer(*a, **kw)
+
+        def counted_run(pm, graph, ctx=None):
+            counts["pass_runs"] += 1
+            return pm_run(pm, graph, ctx)
+
+        def counted_rules(*a, **kw):
+            fired = apply_rules(*a, **kw)
+            counts["rewrite_fires"] += fired
+            return fired
+
+        ExtendedCosaScheduler._schedule_uncached = counted_sweep
+        measure.time_executor = counted_timer
+        pass_manager.PassManager.run = counted_run
+        pass_manager.apply_rules = counted_rules
+        return self
+
+    def __exit__(self, *exc):
+        (ExtendedCosaScheduler._schedule_uncached, measure.time_executor,
+         pass_manager.PassManager.run, pass_manager.apply_rules) = self._saved
+        return False
+
+
+def int8_operands(dev, node, m: int, k: int, n: int, has_bias: bool, rng):
+    """Operands of one launch of ``node``'s GEMM, laid out as the wrapper
+    hands them to the kernel (the attention ``kᵀ`` as a contiguous copy)."""
+    def ints(shape, lo=-100, hi=100, dtype=np.int8):
+        return torch.from_numpy(rng.integers(lo, hi, shape).astype(dtype)).to(dev)
+
+    attention = bool(node.attrs.get("transpose_b")) and len(node.inputs[1].shape) == 3
+    w = ints((n, k)).T.contiguous() if attention else ints((k, n))
+    return ints((m, k)), w, (ints((n,), -2000, 2000, np.int32) if has_bias else None)
+
+
+def run_p50_ms(module, feeds_list, samples: int = PATH_LATENCY_SAMPLES) -> float:
+    lat = []
+    for i in range(samples):
+        t0 = time.perf_counter()
+        module.run(feeds_list[i % len(feeds_list)])
+        lat.append((time.perf_counter() - t0) * 1e3)
+    return float(np.percentile(lat, 50))
+
+
+def measured_dse_phase(dev: torch.device, card_line: str, work: Path, windows: dict) -> dict:
+    """Phase 8: measured DSE times the CUDA kernel, and a warm recompile
+    times nothing."""
+    cache_dir = work / "measured_cache"
+    options = repro_torch.CompileOptions(measure_top_k=MEASURE_K, fresh_backend=True)
+    rng = np.random.default_rng(2)
+    builds, measured_keys = {}, set()
+    gemm.reset_launches()  # the measured compiles' window starts here
+    for name, batch in MEASURED_BUILDS:
+        for acc in ("gemmini", "edge_npu"):
+            label = f"{name}@{acc}:optimized b{batch}"
+            target = repro_torch.Target(acc, device=str(dev), cache_dir=cache_dir)
+            before = dict(gemm.LAUNCHES)
+            t0 = time.perf_counter()
+            module = repro_torch.compile(zoo.get_model(name).build(batch=batch), target, options=options)
+            compile_s = time.perf_counter() - t0
+            # every node whose measured key is new was timed: MEASURE_CALLS
+            # executor calls per candidate, each a launch per GEMM instance
+            expected, n_timed = {v: 0 for v in gemm.LAUNCHES}, 0
+            for node, op in module.ops.items():
+                key = (acc, workload_from_node(node).key())
+                rec = op.strategy.schedule_result.measured
+                check(rec is not None and rec["k"] == len(rec["latencies_s"]), f"{label}: measured record")
+                if key in measured_keys:
+                    continue
+                measured_keys.add(key)
+                n_timed += rec["k"]
+                expected[gemm.variant(op.executor.kernel_config)] += (
+                    MEASURE_CALLS * rec["k"] * step_gemms(node)[1])
+            delta = {v: gemm.LAUNCHES[v] - before[v] for v in gemm.LAUNCHES}
+            check(module.backend.n_measurements == n_timed,
+                  f"{label}: {module.backend.n_measurements} measurements, {n_timed} candidates timed")
+            check(delta == expected, f"{label}: launches during the compile {delta}, "
+                  f"(warmup + repeats) x candidates x instances = {expected}")
+            builds[label] = (name, acc, batch, module, compile_s, delta)
+    windows["measured DSE compiles"] = dict(gemm.LAUNCHES)  # read just after them
+
+    summary, kernel_us = {}, {}  # kernel_us: one device time per (shape, layout, config)
+    for label, (name, acc, batch, module, compile_s, delta) in builds.items():
+        model = zoo.get_model(name)
+        feeds = [model.feeds(seed, batch=batch) for seed in range(PATH_FEEDS)]
+        cpu = repro_torch.compile(model.build(batch=batch),
+                                  repro_torch.Target(acc, device="cpu", cache=False))
+        for f in feeds:
+            got, want = module.run(f), cpu.run(f)
+            check(all(np.array_equal(g, w) and g.dtype == w.dtype for g, w in zip(got, want)),
+                  f"{label}: measured-winner output on cuda != cpu output")
+        modeled = repro_torch.compile(model.build(batch=batch),
+                                      repro_torch.Target(acc, device=str(dev), cache=False))
+        p50 = {"modeled": [], "measured": []}
+        for _ in range(2):  # alternate: modeled, measured, modeled, measured
+            p50["modeled"].append(run_p50_ms(modeled, feeds))
+            p50["measured"].append(run_p50_ms(module, feeds))
+        nodes, moved = [], 0
+        for node, op in module.ops.items():
+            sr = op.strategy.schedule_result
+            rec = sr.measured
+            (m, k, n), instances = step_gemms(node)
+            cands = []
+            for i, (sched, rep) in enumerate(sr.ranked()[:rec["k"]]):
+                strat = module.backend.strategy_gen.generate(
+                    node, ScheduleResult(best=sched, report=rep, n_candidates=sr.n_candidates,
+                                         n_infeasible=sr.n_infeasible))
+                cfg = kernel_config_for(module.desc, module.backend.mapping_gen, node, strat)
+                case = (m, k, n, bool(node.attrs.get("transpose_b")), cfg)
+                if case not in kernel_us:
+                    x, w, b = int8_operands(dev, node, m, k, n, cfg.has_bias, rng)
+                    kernel_us[case] = device_ms(lambda: scheduled_gemm(x, w, cfg, b)) * 1e3
+                cands.append({
+                    "modeled_cycles": rep.total_cycles, "blocks": f"{cfg.block_m}/{cfg.block_k}/{cfg.block_n}",
+                    "raster": cfg.dataflow, "time_executor_us": rec["latencies_s"][i] * 1e6,
+                    "kernel_us": kernel_us[case],
+                })
+            moved += rec["winner"] != 0
+            nodes.append({"node": f"{node.op} {m}x{k}x{n}" + (f" x{instances}" if instances > 1 else ""),
+                          "winner": rec["winner"], "candidates": cands})
+            print(f"measured DSE {label} {nodes[-1]['node']}: winner {rec['winner']} "
+                  f"({cands[rec['winner']]['blocks']} {cands[rec['winner']]['raster']})")
+            for i, c in enumerate(cands):
+                print(f"  candidate {i}: modeled {c['modeled_cycles']:.0f} cycles, blocks {c['blocks']} "
+                      f"{c['raster']}, time_executor {c['time_executor_us']:.2f} us, kernel alone "
+                      f"{c['kernel_us']:.3f} us{'  <- winner' if i == rec['winner'] else ''}")
+        summary[label] = {
+            "compile_s": compile_s, "launches_during_compile": {v: c for v, c in delta.items() if c},
+            "measurements": module.backend.n_measurements, "nodes_moved": moved,
+            "run_ms_p50_modeled_winner": p50["modeled"], "run_ms_p50_measured_winner": p50["measured"],
+            "nodes": nodes,
+        }
+        print(f"measured DSE {label}: {module.backend.n_measurements} candidates timed in "
+              f"{compile_s:.2f} s, {moved} of {len(nodes)} nodes moved off the modeled winner; "
+              f"bit-equal to cpu; run p50 modeled winner {p50['modeled']} ms, measured winner "
+              f"{p50['measured']} ms [{card_line}]")
+
+    # a fresh process-level backend over the same cache: zero work
+    gemm.reset_launches()
+    for label, (name, acc, batch, module, _, _) in builds.items():
+        repro_torch.clear_backend_cache()
+        warm = repro_torch.compile(
+            zoo.get_model(name).build(batch=batch),
+            repro_torch.Target(acc, device=str(dev), cache_dir=cache_dir),
+            options=repro_torch.CompileOptions(measure_top_k=MEASURE_K),
+        )
+        check(warm.backend.scheduler.n_solver_calls == 0 and warm.backend.n_measurements == 0,
+              f"{label}: warm recompile did {warm.backend.scheduler.n_solver_calls} sweeps, "
+              f"{warm.backend.n_measurements} measurements")
+        check([op.strategy.schedule for op in warm.ops.values()]
+              == [op.strategy.schedule for op in module.ops.values()], f"{label}: warm schedules differ")
+        summary[label]["warm_recompile"] = {"sweeps": 0, "measurements": 0}
+    check(sum(gemm.LAUNCHES.values()) == 0, f"warm recompiles launched {dict(gemm.LAUNCHES)}")
+    print(f"measured DSE: {len(builds)} warm recompiles after clear_backend_cache(): 0 sweeps, "
+          f"0 measurements, 0 launches")
+    return summary
+
+
+def artifact_phase(dev: torch.device, card_line: str, work: Path, windows: dict) -> dict:
+    """Phase 9: a batched artifact saved, booted with zero work, and served."""
+    name, target_spec, batch, requests = ARTIFACT_SERVE
+    acc, mode = target_spec.split(":")
+    model = zoo.get_model(name)
+    path = work / f"{name}_b{batch}.art"
+    t0 = time.perf_counter()
+    compiled = repro_torch.compile(
+        name,
+        repro_torch.Target(acc, mode=mode, device=str(dev), batch_size=batch,
+                           cache_dir=work / "artifact_cache"),
+        options=repro_torch.CompileOptions(fresh_backend=True),
+    )
+    cold_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    repro_torch.save(compiled, path)
+    save_s = time.perf_counter() - t0
+    repro_torch.clear_backend_cache()
+    with WorkCounter() as work_done:
+        t0 = time.perf_counter()
+        loaded = repro_torch.load(path, device=str(dev))
+        load_s = time.perf_counter() - t0
+    check(isinstance(loaded, repro_torch.BatchedModule), "artifact: not a batched module")
+    check(loaded.bucket_sizes() == compiled.bucket_sizes(), "artifact: buckets differ")
+    check(work_done.counts == {"sweeps": 0, "measurements": 0, "pass_runs": 0, "rewrite_fires": 0},
+          f"artifact load did compile work: {work_done.counts}")
+    subs = {f"b{b}": (loaded.bucket_module(b), compiled.bucket_module(b)) for b in loaded.bucket_sizes()}
+    subs["sample"] = (loaded.sample_module, compiled.sample_module)
+    gemm.reset_launches()  # the restored module's runs start here
+    per_run = {}
+    for label, (got, want) in subs.items():
+        check(got.backend.scheduler.n_solver_calls == 0 and got.backend.n_measurements == 0,
+              f"artifact {label}: restored backend counters")
+        feeds = model.feeds(0, batch=None if label == "sample" else int(label[1:]))
+        counts = []
+        for mod in (got, want):
+            before = dict(gemm.LAUNCHES)
+            mod.run(feeds)
+            counts.append({v: gemm.LAUNCHES[v] - before[v] for v in gemm.LAUNCHES})
+        check(counts[0] == counts[1] == plan_launches(want),
+              f"artifact {label}: launches per run {counts[0]}, compiled {counts[1]}")
+        per_run[label] = {v: c for v, c in counts[0].items() if c}
+    traffic = [model.feeds(seed) for seed in range(200, 300)]
+    cpu = repro_torch.compile(model.build(), repro_torch.Target(acc, mode=mode, device="cpu", cache=False))
+    for i, (feeds, got) in enumerate(zip(traffic, loaded.run_many(traffic))):
+        want = cpu.run(feeds)
+        check(np.array_equal(got[0], want[0]) and got[0].dtype == want[0].dtype,
+              f"artifact: response {i} != per-request cpu result")
+    windows["artifact module"] = dict(gemm.LAUNCHES)  # read just after its runs
+    print(f"artifact {name} --batch {batch}: cold compile {cold_s * 1e3:.1f} ms, save {save_s * 1e3:.1f} ms, "
+          f"load {load_s * 1e3:.1f} ms with {work_done.counts}; launches per run {per_run} equal the "
+          f"compiled module's; {len(traffic)} responses bit-equal to per-request cpu runs [{card_line}]")
+
+    args = argparse.Namespace(zoo=name, target=target_spec, batch=batch, requests=requests,
+                              deadline_ms=SERVE_DEADLINE_MS, device=str(dev), artifact=str(path))
+    repro_torch.clear_backend_cache()
+    gemm.reset_launches()  # the artifact-booted serve call's window starts here
+    with WorkCounter() as serve_work:
+        result = serve.serve_zoo(args)
+    windows[f"serve {name}@{target_spec} --artifact"] = dict(gemm.LAUNCHES)  # read just after it
+    check(result.boot_how == "loaded artifact", "serve --artifact compiled")
+    check(serve_work.counts == {"sweeps": 0, "measurements": 0, "pass_runs": 0, "rewrite_fires": 0},
+          f"serve --artifact did compile work: {serve_work.counts}")
+    for i, (feeds, got) in enumerate(zip(result.traffic, result.outputs)):
+        want = cpu.run(feeds)
+        check(np.array_equal(got[0], want[0]), f"serve --artifact: response {i} != per-request cpu result")
+    print(f"serve {name} --artifact: boot {result.boot_s * 1e3:.1f} ms (cold compile {cold_s * 1e3:.1f} ms); "
+          f"{requests} responses bit-equal to per-request cpu runs, "
+          f"{requests / result.wall_s:.1f} req/s [{card_line}]")
+    return {"model": name, "batch": batch, "buckets": list(loaded.bucket_sizes()), "cold_compile_ms": cold_s * 1e3,
+            "save_ms": save_s * 1e3, "load_ms": load_s * 1e3, "load_work": work_done.counts,
+            "launches_per_run": per_run, "serve_boot_ms": result.boot_s * 1e3,
+            "serve_req_per_s": requests / result.wall_s}
+
+
+def pipelined_phase(compiled: dict, card_line: str, windows: dict) -> dict:
+    """Phase 10: every phase-6 module in optimized and naive, pipelined
+    against sequential on the card."""
+    summary = {}
+    gemm.reset_launches()  # the pipelined runs' window starts here
+    for (name, acc, mode, batch), mods in compiled.items():
+        if mode not in ("optimized", "naive"):
+            continue
+        module = mods["cuda"]
+        label = path_label(name, acc, mode, batch)
+        feeds = [zoo.get_model(name).feeds(seed, batch=batch) for seed in range(PATH_FEEDS)]
+        counts, outs = {}, {}
+        for how in ("sequential", "pipelined"):
+            before = dict(gemm.LAUNCHES)
+            outs[how] = module.run_many(feeds, pipelined=how == "pipelined")
+            counts[how] = {v: gemm.LAUNCHES[v] - before[v] for v in gemm.LAUNCHES}
+        check(counts["pipelined"] == counts["sequential"],
+              f"{label}: pipelined launches {counts['pipelined']} != sequential {counts['sequential']}")
+        for a, b in zip(outs["pipelined"], outs["sequential"]):
+            check(all(np.array_equal(x, y) and x.dtype == y.dtype for x, y in zip(a, b)),
+                  f"{label}: pipelined output != sequential output")
+        ms = {"sequential": [], "pipelined": []}
+        for _ in range(PIPELINED_SAMPLES):
+            for how in ("sequential", "pipelined"):
+                t0 = time.perf_counter()
+                module.run_many(feeds, pipelined=how == "pipelined")
+                ms[how].append((time.perf_counter() - t0) * 1e3 / len(feeds))
+        lanes = module.finalize().lane_sizes()
+        summary[label] = {"lanes": lanes, **{f"{h}_ms_per_run_p50": float(np.percentile(v, 50))
+                                             for h, v in ms.items()}}
+        print(f"pipelined {label}: lanes {lanes}; bit-equal to sequential, launches equal "
+              f"{ {v: c for v, c in counts['sequential'].items() if c} }; per run p50 sequential "
+              f"{summary[label]['sequential_ms_per_run_p50']:.4f} ms, pipelined "
+              f"{summary[label]['pipelined_ms_per_run_p50']:.4f} ms")
+    windows["pipelined"] = dict(gemm.LAUNCHES)  # read just after the pipelined runs
+    print(f"pipelined: {len(summary)} modules bit-equal to sequential on cuda [{card_line}]")
+    return summary
+
+
+def host_gemm_refused(dev: torch.device) -> None:
+    """A conv that the description leaves on the host is refused on the
+    card when the plan is built: the port runs no plain GEMM there."""
+    desc = repro_torch.REGISTRY.get("gemmini")
+    for tag, cc in list(desc.core_computes.items()):
+        if cc.op == "conv2d":
+            del desc.core_computes[tag]
+    try:
+        repro_torch.compile("qcnn", repro_torch.Target(desc, device=str(dev), cache=False))
+    except NotImplementedError as e:
+        check("conv2d" in str(e) and "no plain GEMM" in str(e), f"host conv refused as {e}")
+        print(f"host GEMM on cuda: refused at compile time: {e}")
+        return
+    check(False, "a conv left on the host compiled for cuda")
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description="drive the port on one NVIDIA card")
     ap.add_argument("--report", help="also write everything measured to this JSON file")
@@ -772,6 +1119,11 @@ def main(argv: list[str] | None = None) -> int:
         print("chip_smoke.py: torch.cuda.is_available() is False: this needs an NVIDIA card",
               file=sys.stderr)
         return 1
+    # schedule caches and artifacts live in the checkout, made afresh
+    work = ROOT / "build" / "chip_smoke"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    os.environ["REPRO_TORCH_CACHE_DIR"] = str(work / "schedule_cache")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -818,10 +1170,17 @@ def main(argv: list[str] | None = None) -> int:
     paths = new_paths_phase(compiled, cases, card_line)
     windows["new paths"] = dict(gemm.LAUNCHES)  # read just after it
     served = serve_phase(dev, cases, card_line, windows)
+    measured = measured_dse_phase(dev, card_line, work, windows)
+    artifact = artifact_phase(dev, card_line, work, windows)
+    pipelined = pipelined_phase(compiled, card_line, windows)
+    host_gemm_refused(dev)
     for window, counts in windows.items():
         print(f"launch window {window}: {counts}")
-    for window in ("toycar_mlp@gemmini", "new paths"):
-        for name in ("qgemm_requant", "gemm_int32"):
+    both = ("qgemm_requant", "gemm_int32")
+    path_kernels = {"toycar_mlp@gemmini": both, "new paths": both, "measured DSE compiles": both,
+                    "artifact module": ("qgemm_requant",), "pipelined": both}
+    for window, names in path_kernels.items():
+        for name in names:
             check(windows[window][name] > 0, f"kernel {name} never launched in the {window} window")
     launches = {name: sum(w[name] for w in windows.values()) for name in gemm.LAUNCHES}
 
@@ -854,12 +1213,13 @@ def main(argv: list[str] | None = None) -> int:
         for name, r in kernels.items()
     ]}
     report = {"card": card_line, "build_s": build_s, "main_path": summary, "paths": paths,
-              "serve": served, "launch_windows": windows}
+              "serve": served, "measured_dse": measured, "artifact": artifact, "pipelined": pipelined,
+              "launch_windows": windows}
     if args.report:
         Path(args.report).parent.mkdir(parents=True, exist_ok=True)
         Path(args.report).write_text(json.dumps({**report, **line}, indent=1))
-    # the per-path summary is long and printed above, path by path
-    print(json.dumps({k: v for k, v in report.items() if k != "paths"}))
+    # the per-path summaries are long and printed above, path by path
+    print(json.dumps({k: v for k, v in report.items() if k not in ("paths", "measured_dse", "pipelined")}))
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

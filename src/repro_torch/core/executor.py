@@ -6,13 +6,29 @@ Everything a plan executes is torch on the module's device.  Constants
 plan is built; feeds are converted once, on entry; outputs come back as
 numpy arrays, as the reference returns them.
 
-Port of ``repro.core.executor``: ``ExecutionPlan``, ``build_plan``,
-``CompiledModule.run``/``run_many`` (sequential), ``FeedError``,
-``input_signature``, ``modeled_cycles`` and ``schedules``.  The two-lane
-pipelined mode, the per-node interpreter and the collective and KV-cache
-ops wait for their slices.  Host ops are torch ops with every cast written
-out: numpy 2 and torch promote differently, so each op computes in the
-dtype numpy's promotion would give, decided when the plan is built.
+Port of ``repro.core.executor``: ``ExecutionPlan`` with its build-time
+stage assignment, ``build_plan``, ``CompiledModule.run``/``run_many``
+(sequential; ``pipelined=True`` runs the same loop), ``FeedError``, ``input_signature``,
+``modeled_cycles`` and ``schedules``.  The per-node interpreter
+(``use_plan=False``) and the collective and KV-cache ops wait for their
+slices.  Host ops are torch ops with every cast written out: numpy 2 and
+torch promote differently, so each op computes in the dtype numpy's
+promotion would give, decided when the plan is built.
+
+``pipelined=True`` keeps the reference's signature and its build-time
+stage assignment (each step's lane and cross-lane watermark, which the
+artifact manifest records), and runs the sequential loop: the same fns on
+the same operands, so the same launches and bit-exact outputs.  The
+reference overlaps its two lanes on two threads; in the port both lanes
+issue work onto one card from GIL-bound Python, and a two-thread version
+of that design ran 1.8-3.9x slower than the sequential loop on an H100
+wherever both lanes had steps (``PERF.md``).  A lane design that wins
+(one stream per lane) is still open.
+
+A dense or conv that the description leaves on the host runs here, as
+the reference's ``ir.execute_node`` computes it, only on the CPU: on a
+card it would be a plain GEMM beside the kernel, so a module on ``cuda``
+refuses it when its plan is built, at compile or load time.
 """
 
 from __future__ import annotations
@@ -163,9 +179,59 @@ def compile_host_op(n: Node, device: torch.device) -> Callable[..., torch.Tensor
             return (e / torch.sum(e, dim=ax, keepdim=True)).to(dt)
 
         return _softmax
+    if op in ("dense", "conv2d") and device.type != "cpu":
+        raise NotImplementedError(
+            f"{n.name}: {op} {list(n.shape)} ({n.dtype}) is left on the host, "
+            f"and the port runs no plain GEMM on {device.type}: use a description "
+            f"that offloads it, or compile for the CPU"
+        )
+    if op == "dense":
+        transpose_b = bool(attrs.get("transpose_b"))
+
+        def _dense(x, w):
+            return _host_matmul(x, w.transpose(-2, -1) if transpose_b else w, dt)
+
+        return _dense
+    if op == "conv2d":
+        stride, padding = attrs["stride"], attrs["padding"]
+
+        def _conv(x, w):
+            kh, kw, ci, co = w.shape
+            cols = im2col(x, kh, kw, stride, padding)
+            out = _host_matmul(cols, w.reshape(kh * kw * ci, co), dt)
+            oh = (x.shape[1] + 2 * padding - kh) // stride + 1
+            ow = (x.shape[2] + 2 * padding - kw) // stride + 1
+            return out.reshape(x.shape[0], oh, ow, co)
+
+        return _conv
     raise NotImplementedError(
         f"{n.name}: host op {op!r} has no torch lowering in the port yet"
     )
+
+
+def _host_matmul(x: torch.Tensor, w: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    """A dense or conv left on the host (CPU tensors only), as the
+    reference's ``ir.execute_node`` computes it: integers accumulate
+    exactly in int64 and cast to the node's dtype; floats multiply in
+    their own dtype."""
+    if dt.is_floating_point:
+        return (x @ w).to(dt)
+    return (x.to(torch.int64) @ w.to(torch.int64)).to(dt)
+
+
+def im2col(x: torch.Tensor, kh: int, kw: int, stride: int, padding: int) -> torch.Tensor:
+    """NHWC patches as GEMM rows: row (b, i, j), columns (kh, kw, c) — the
+    reference's ``_im2col`` order — so the conv is exactly the scheduled
+    GEMM with HWIO weights flattened to (kh*kw*ci, co) (§3.2)."""
+    if padding:
+        n, h, wd, c = x.shape
+        xp = x.new_zeros((n, h + 2 * padding, wd + 2 * padding, c))
+        xp[:, padding : padding + h, padding : padding + wd, :] = x
+        x = xp
+    n, _, _, c = x.shape
+    cols = x.unfold(1, kh, stride).unfold(2, kw, stride)  # n, oh, ow, c, kh, kw
+    oh, ow = cols.shape[1], cols.shape[2]
+    return cols.permute(0, 1, 2, 4, 5, 3).reshape(n * oh * ow, kh * kw * c)
 
 
 class FeedError(KeyError, ValueError):
@@ -197,13 +263,18 @@ def to_tensor(value, device: torch.device) -> torch.Tensor:
 
 @dataclass
 class PlanStep:
-    """One computed node: write ``fn(*arena[arg_slots])`` into ``slot``."""
+    """One computed node: write ``fn(*arena[arg_slots])`` into ``slot``.
+
+    ``lane`` is the pipeline stage the step is assigned to at plan-build
+    time: ``"accel"`` for accelerator-offloaded steps, ``"host"`` for
+    everything else (see ``ExecutionPlan.stage_assignment``)."""
 
     slot: int
     fn: Callable[..., torch.Tensor]
     arg_slots: tuple[int, ...]
     op: str
     name: str
+    lane: str = "host"
 
 
 @dataclass
@@ -214,7 +285,13 @@ class ExecutionPlan:
     ``CompiledModule.run`` walks ``steps`` as a flat loop — no graph
     traversal, no dict-of-Node hashing, no per-call op dispatch.  The
     constants are device tensors made once, here, and every arena shares
-    them."""
+    them.
+
+    Steps additionally carry the reference's dependency-aware *stage
+    assignment*, computed here at build time: each step belongs to a lane
+    (``host`` / ``accel``) and records the cross-lane watermark a two-lane
+    executor would wait for (how many steps of the *other* lane must have
+    run before its operands exist)."""
 
     device: torch.device
     n_slots: int
@@ -227,6 +304,21 @@ class ExecutionPlan:
         # flat (slot, fn, arg_slots) triples: the hot loop avoids dataclass
         # attribute lookups entirely.
         self._fast_steps = tuple((s.slot, s.fn, s.arg_slots) for s in self.steps)
+        # stage assignment: split steps into the two lanes, preserving topo
+        # order within each, and compute per-step cross-lane watermarks.
+        producer: dict[int, tuple[str, int]] = {}  # slot -> (lane, ordinal)
+        lanes: dict[str, list[int]] = {"host": [], "accel": []}
+        for s in self.steps:
+            lane = s.lane if s.lane in lanes else "host"
+            other = "accel" if lane == "host" else "host"
+            need = 0
+            for a in s.arg_slots:
+                p = producer.get(a)
+                if p is not None and p[0] == other:
+                    need = max(need, p[1] + 1)
+            producer[s.slot] = (lane, len(lanes[lane]))
+            lanes[lane].append(need)
+        self._lane_waits = {k: tuple(v) for k, v in lanes.items()}
 
     def new_arena(self) -> list:
         arena: list = [None] * self.n_slots
@@ -243,6 +335,24 @@ class ExecutionPlan:
         for slot, fn, arg_slots in self._fast_steps:
             arena[slot] = fn(*[arena[i] for i in arg_slots])
         return [arena[i] for i in self.output_slots]
+
+    # -- stage assignment -----------------------------------------------------
+    def stage_assignment(self) -> tuple[dict, ...]:
+        """The build-time pipeline stage of every step: ``(name, op, lane,
+        cross-lane watermark)`` — introspection for tests, docs, and the
+        artifact manifest."""
+        out = []
+        counts = {"host": 0, "accel": 0}
+        for s in self.steps:
+            lane = s.lane if s.lane in counts else "host"
+            other = "accel" if lane == "host" else "host"
+            need = self._lane_waits[lane][counts[lane]]
+            counts[lane] += 1
+            out.append({"name": s.name, "op": s.op, "lane": lane, f"waits_{other}": need})
+        return tuple(out)
+
+    def lane_sizes(self) -> dict[str, int]:
+        return {k: len(v) for k, v in self._lane_waits.items()}
 
 
 def build_plan(
@@ -265,7 +375,8 @@ def build_plan(
                 _NONE_SLOT if i is None else slot_of[i] for i in n.inputs
             )
             fn = ops[n].executor if n in ops else compile_host_op(n, device)
-            steps.append(PlanStep(slot, fn, arg_slots, n.op, n.name))
+            lane = "accel" if n in ops else "host"
+            steps.append(PlanStep(slot, fn, arg_slots, n.op, n.name, lane))
     return ExecutionPlan(
         device=device,
         n_slots=len(order) + 1,
@@ -339,18 +450,26 @@ class CompiledModule:
             self.plan = build_plan(self.graph, self.ops, self.device)
         return self.plan
 
-    def run(self, feeds: dict[str, np.ndarray]) -> list[np.ndarray]:
-        """Execute the module on its device; outputs come back as numpy."""
+    def run(
+        self, feeds: dict[str, np.ndarray], *, pipelined: bool = False
+    ) -> list[np.ndarray]:
+        """Execute the module on its device; outputs come back as numpy.
+        ``pipelined=True`` runs the same sequential loop (see the module
+        docstring)."""
         self._check_feeds(feeds)
         plan = self.finalize()
         return [to_numpy(t) for t in plan.execute(feeds, plan.new_arena())]
 
     def run_many(
-        self, feeds_list: list[dict[str, np.ndarray]]
+        self,
+        feeds_list: list[dict[str, np.ndarray]],
+        *,
+        pipelined: bool = False,
     ) -> list[list[np.ndarray]]:
         """Repeated invocation over a list of feeds (serving-style traffic):
         one arena for the whole loop, every call enqueued before the first
-        result is copied back."""
+        result is copied back.  ``pipelined=True`` runs the same loop (see
+        the module docstring)."""
         for feeds in feeds_list:
             self._check_feeds(feeds)
         plan = self.finalize()

@@ -35,7 +35,7 @@ from typing import Callable
 import torch
 
 from repro_torch.core.accel import AcceleratorDescription
-from repro_torch.core.executor import max_pool2d, result_dtype
+from repro_torch.core.executor import im2col, max_pool2d, result_dtype
 from repro_torch.core.ir import Node
 from repro_torch.core.mapping import MappingGenerator
 from repro_torch.core.strategy import Strategy
@@ -113,21 +113,6 @@ def kernel_config_for(
         epilogue=epilogue,
         has_bias=len(node.inputs) > 2 and node.inputs[2] is not None,
     )
-
-
-def im2col(x: torch.Tensor, kh: int, kw: int, stride: int, padding: int) -> torch.Tensor:
-    """NHWC patches as GEMM rows: row (b, i, j), columns (kh, kw, c) — the
-    reference's ``_im2col`` order — so the conv is exactly the scheduled
-    GEMM with HWIO weights flattened to (kh*kw*ci, co) (§3.2)."""
-    if padding:
-        n, h, wd, c = x.shape
-        xp = x.new_zeros((n, h + 2 * padding, wd + 2 * padding, c))
-        xp[:, padding : padding + h, padding : padding + wd, :] = x
-        x = xp
-    n, _, _, c = x.shape
-    cols = x.unfold(1, kh, stride).unfold(2, kw, stride)  # n, oh, ow, c, kh, kw
-    oh, ow = cols.shape[1], cols.shape[2]
-    return cols.permute(0, 1, 2, 4, 5, 3).reshape(n * oh * ow, kh * kw * c)
 
 
 def _make_kernel_executor(

@@ -5,11 +5,18 @@ the compiler "without requiring in-depth knowledge of the underlying
 compiler".  This module is that claim made concrete, following the BYOC
 registration pattern: accelerator descriptions register under a name, and
 ``build_integrated_backend()`` turns a description (or a registered name)
-into a fully generated ``CompilerBackend``, after validating the
-description up front (required intrinsics, memory hierarchy sanity,
-dataflow coverage) and raising ``IntegrationError`` with every problem
-listed, instead of failing mid-compile.  Users reach it through the one
-front door, ``repro_torch.compile(model, repro_torch.Target(...))``.
+into a fully generated ``CompilerBackend``.  Users reach it through the
+one front door, ``repro_torch.compile(model, repro_torch.Target(...))``.
+``build_integrated_backend()`` additionally:
+
+  * validates the description up front (required intrinsics, memory
+    hierarchy sanity, dataflow coverage) and raises ``IntegrationError``
+    with every problem listed, instead of failing mid-compile;
+  * attaches a persistent schedule cache (see ``schedule_cache.py``) keyed
+    by (workload, arch fingerprint, mode), so recompiling the same layer —
+    even in a new process — performs zero extended-CoSA DSE sweeps;
+  * optionally parallelizes the cold-cache DSE over mapping candidates
+    (``parallel_dse=True``).
 
 Out-of-tree accelerators use the same decorator as the in-tree ones:
 
@@ -18,19 +25,22 @@ Out-of-tree accelerators use the same decorator as the in-tree ones:
         return AcceleratorDescription(...)
 
 Port of ``repro.core.registry``: ``REGISTRY`` holds ``edge_npu`` and
-``gemmini`` (the ``tpu_v5e`` description is not ported); the schedule
-cache and the deprecated ``integrate()`` are not ported.
+``gemmini`` (the ``tpu_v5e`` description is not ported); the deprecated
+``integrate()`` is not ported, and there is no ``use_pallas``: the route
+follows the module's device.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from pathlib import Path
 from typing import Callable
 
 from repro_torch.core.accel import AcceleratorDescription
 from repro_torch.core.arch_spec import GEMM_DIMS
 from repro_torch.core.configurators import build_backend
 from repro_torch.core.pipeline import CompilerBackend
+from repro_torch.core.schedule_cache import ScheduleCache, default_cache_dir
 
 
 class IntegrationError(ValueError):
@@ -170,6 +180,9 @@ def build_integrated_backend(
     accelerator: AcceleratorDescription | str,
     *,
     use_mip: bool = True,
+    cache: bool = True,
+    cache_dir: str | Path | None = None,
+    parallel_dse: bool = False,
 ) -> CompilerBackend:
     """Resolve, validate, and generate a backend — the integration machinery
     behind ``repro_torch.compile()``.
@@ -180,6 +193,9 @@ def build_integrated_backend(
         answered by the greedy heuristic where ``pulp`` is absent, as the
         reference does, and refused where it is installed (see
         ``repro_torch.core.scheduler``).
+      cache: attach the persistent schedule cache.  ``cache_dir`` defaults
+        to ``$REPRO_TORCH_CACHE_DIR`` or ``~/.cache/repro_torch``.
+      parallel_dse: evaluate cold-cache mapping candidates on a thread pool.
 
     Returns the generated ``CompilerBackend``.  Raises ``IntegrationError``
     when the description is invalid, ``KeyError`` for an unknown name.
@@ -188,4 +204,11 @@ def build_integrated_backend(
     problems = validate_description(desc)
     if problems:
         raise IntegrationError(desc.name, problems)
-    return build_backend(desc, use_mip=use_mip)
+    schedule_cache = (
+        ScheduleCache(Path(cache_dir) if cache_dir is not None else default_cache_dir())
+        if cache
+        else None
+    )
+    return build_backend(
+        desc, use_mip=use_mip, parallel_dse=parallel_dse, schedule_cache=schedule_cache
+    )

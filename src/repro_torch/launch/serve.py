@@ -9,12 +9,18 @@ front door, with a micro-batching request queue.
     PYTHONPATH=src python -m repro_torch.launch.serve --zoo transformer_block \
         --target gemmini:optimized --batch 16 --device cpu
 
-Port of ``repro.launch.serve``: ``serve_zoo`` and the ``--zoo`` CLI.
-``serve_zoo`` also returns what it served (``ZooServeResult``), so a
-caller can check the responses.  Booting from or saving a compile artifact
-(``--artifact``, ``--save-artifact``), sharded serving (``--devices``),
-the decode-zoo engine and LM serving (``--arch``) are not ported yet, and
-the CLI refuses them.
+    # compile once and save the batched module; boot replicas from it with
+    # no compile, no DSE and no pass pipeline
+    python -m repro_torch.launch.serve --zoo toycar_mlp --batch 64 \
+        --save-artifact toycar.art
+    python -m repro_torch.launch.serve --zoo toycar_mlp --batch 64 \
+        --artifact toycar.art
+
+Port of ``repro.launch.serve``: ``serve_zoo`` and the ``--zoo`` CLI with
+``--artifact`` / ``--save-artifact``.  ``serve_zoo`` also returns what it
+served (``ZooServeResult``), so a caller can check the responses.
+Sharded serving (``--devices``), the decode-zoo engine and LM serving
+(``--arch``) are not ported yet, and the CLI refuses them.
 """
 
 from __future__ import annotations
@@ -33,8 +39,6 @@ from repro_torch.serve import BatchStats, MicroBatcher
 #: reference flags whose serving paths the port does not have yet
 _NOT_PORTED = {
     "arch": "--arch (LM serving)",
-    "artifact": "--artifact (boot from a compile artifact)",
-    "save_artifact": "--save-artifact (save a compile artifact)",
     "devices": "--devices (sharded serving)",
 }
 
@@ -56,6 +60,8 @@ class ZooServeResult:
     latencies_s: list[float]
     wall_s: float
     boot_s: float
+    #: "compiled" or "loaded artifact"
+    boot_how: str
     stats: BatchStats
 
 
@@ -68,15 +74,35 @@ def serve_zoo(args) -> ZooServeResult:
     target = repro_torch.Target.parse(
         args.target, batch_size=args.batch, device=getattr(args, "device", "cuda")
     )
-    # batch_size=1 compiles the classic single-shape module; the serving
-    # loop always wants the batched surface, so pin an explicit unit bucket
-    options = (
-        repro_torch.CompileOptions(batch_buckets=(1,)) if args.batch <= 1 else None
-    )
-    t0 = time.perf_counter()
-    module = repro_torch.compile(args.zoo, target, options=options)
-    t_boot = time.perf_counter() - t0
+    artifact = getattr(args, "artifact", None)
+    if artifact:
+        # AOT boot: restore the batched module from a saved artifact — no
+        # compile, no DSE, no pass pipeline at startup
+        t0 = time.perf_counter()
+        module = repro_torch.load(artifact, device=target.device)
+        t_boot = time.perf_counter() - t0
+        if not isinstance(module, BatchedModule):
+            raise SystemExit(
+                f"--artifact {artifact} holds a single-shape module; the "
+                f"serving loop needs a batched artifact (save a module "
+                f"compiled with batch_buckets / Target(batch_size=...))"
+            )
+        boot_how = "loaded artifact"
+    else:
+        # batch_size=1 compiles the classic single-shape module; the
+        # serving loop always wants the batched surface, so pin an
+        # explicit unit bucket
+        options = (
+            repro_torch.CompileOptions(batch_buckets=(1,)) if args.batch <= 1 else None
+        )
+        t0 = time.perf_counter()
+        module = repro_torch.compile(args.zoo, target, options=options)
+        t_boot = time.perf_counter() - t0
+        boot_how = "compiled"
     buckets = module.bucket_sizes()
+    if getattr(args, "save_artifact", None):
+        repro_torch.save(module, args.save_artifact)
+        print(f"[serve] saved compile artifact to {args.save_artifact}")
 
     # warmup: run every bucket once (full chunks, so each bucket's plan is
     # touched) — the measured window never pays first-call costs, and a
@@ -101,7 +127,7 @@ def serve_zoo(args) -> ZooServeResult:
     n = max(len(outs), 1)
     cycles = module.modeled_cycles()  # largest bucket's plan
     print(
-        f"[serve] {model.name} on {target.describe()}: compiled "
+        f"[serve] {model.name} on {target.describe()}: {boot_how} "
         f"{len(buckets)} bucket plans {list(buckets)} in "
         f"{t_boot * 1e3:.1f} ms (cold start)"
     )
@@ -128,6 +154,7 @@ def serve_zoo(args) -> ZooServeResult:
         latencies_s=latencies,
         wall_s=dt,
         boot_s=t_boot,
+        boot_how=boot_how,
         stats=stats,
     )
 
@@ -159,8 +186,16 @@ def build_parser() -> argparse.ArgumentParser:
         help="torch device the compiled module runs on: cuda (default, the "
         "card) or cpu (the kernels' plain versions)",
     )
-    for flag in ("--arch", "--artifact", "--save-artifact"):
-        ap.add_argument(flag, help=argparse.SUPPRESS)
+    ap.add_argument(
+        "--artifact",
+        help="boot from a batched compile artifact (repro_torch.save) "
+        "instead of compiling",
+    )
+    ap.add_argument(
+        "--save-artifact",
+        help="save the served batched module as a compile artifact here",
+    )
+    ap.add_argument("--arch", help=argparse.SUPPRESS)
     ap.add_argument("--devices", type=int, help=argparse.SUPPRESS)
     return ap
 
@@ -171,7 +206,8 @@ def main(argv: list[str] | None = None) -> None:
     if refused:
         raise SystemExit(
             f"not available in repro_torch yet: {', '.join(refused)}; "
-            f"only --zoo serving of the model zoo is ported"
+            f"only --zoo serving of the model zoo (with --artifact / "
+            f"--save-artifact) is ported"
         )
     if not args.zoo:
         raise SystemExit("pass --zoo <model> (a zoo model to serve)")

@@ -45,7 +45,7 @@ def test_bucket_helpers_match_reference():
 @pytest.mark.parametrize("explicit", [None, (16, 1, 4, 4), (8,)])
 def test_bucket_resolution_matches_reference(batch_size, explicit):
     got = api._resolve_buckets(
-        repro_torch.Target("gemmini", device="cpu", batch_size=batch_size),
+        repro_torch.Target("gemmini", device="cpu", cache=False, batch_size=batch_size),
         repro_torch.CompileOptions(batch_buckets=explicit),
     )
     want = ref_api._resolve_buckets(
@@ -56,21 +56,21 @@ def test_bucket_resolution_matches_reference(batch_size, explicit):
 
 
 def test_invalid_buckets_and_batch_size_are_refused():
-    target = repro_torch.Target("gemmini", device="cpu")
+    target = repro_torch.Target("gemmini", device="cpu", cache=False)
     with pytest.raises(ValueError, match="bucket 0 must be a positive int") as e:
         repro_torch.compile("mlp_tiny", target, options=repro_torch.CompileOptions(batch_buckets=(0, 2.5)))
     assert "bucket 2.5" in str(e.value)
     with pytest.raises(ValueError, match="at least one bucket"):
         repro_torch.compile("mlp_tiny", target, options=repro_torch.CompileOptions(batch_buckets=()))
     with pytest.raises(repro_torch.TargetError, match="batch_size must be a positive int"):
-        repro_torch.Target("gemmini", device="cpu", batch_size=0)
+        repro_torch.Target("gemmini", device="cpu", cache=False, batch_size=0)
 
 
 def test_prebuilt_graph_with_buckets_raises():
     graph = zoo.get_model("mlp_tiny").build()
     with pytest.raises(ValueError, match="a prebuilt ir.Graph is fixed-shape"):
         repro_torch.compile(
-            graph, repro_torch.Target("gemmini", device="cpu", batch_size=4)
+            graph, repro_torch.Target("gemmini", device="cpu", cache=False, batch_size=4)
         )
 
 
@@ -93,7 +93,7 @@ def _ref_batched(name, mode, buckets):
 )
 def test_batched_module_matches_reference_and_per_request_runs(name, mode):
     gemm.reset_launches()
-    got = repro_torch.compile(name, repro_torch.Target("gemmini", mode=mode, device="cpu", batch_size=16))
+    got = repro_torch.compile(name, repro_torch.Target("gemmini", mode=mode, device="cpu", cache=False, batch_size=16))
     assert isinstance(got, repro_torch.BatchedModule)
     assert got.bucket_sizes() == (1, 4, 16)
     assert str(got.device) == "cpu"
@@ -106,7 +106,7 @@ def test_batched_module_matches_reference_and_per_request_runs(name, mode):
         assert got.modeled_cycles(bucket) == ref.modeled_cycles(bucket)
 
     model = zoo.get_model(name)
-    single = repro_torch.compile(name, repro_torch.Target("gemmini", mode=mode, device="cpu"))
+    single = repro_torch.compile(name, repro_torch.Target("gemmini", mode=mode, device="cpu", cache=False))
     traffic = [model.feeds(seed) for seed in range(23)]
     per_request = [single.run(f) for f in traffic]
     for n in (1, 3, 7, 23):
@@ -123,7 +123,7 @@ def test_batched_module_matches_reference_and_per_request_runs(name, mode):
 
 def test_single_requests_take_the_unpadded_plan(monkeypatch):
     module = repro_torch.compile(
-        "mlp_tiny", repro_torch.Target("gemmini", device="cpu"),
+        "mlp_tiny", repro_torch.Target("gemmini", device="cpu", cache=False),
         options=repro_torch.CompileOptions(batch_buckets=(4,)),
     )
     calls = []
@@ -139,7 +139,7 @@ def test_single_requests_take_the_unpadded_plan(monkeypatch):
 
 def test_batched_feed_validation_lists_every_problem():
     module = repro_torch.compile(
-        "transformer_block", repro_torch.Target("gemmini", device="cpu", batch_size=4)
+        "transformer_block", repro_torch.Target("gemmini", device="cpu", cache=False, batch_size=4)
     )
     with pytest.raises(repro_torch.FeedError) as e:
         module.run_many([{"y": np.zeros((16, 64), np.int8)}, {"x": np.zeros((1, 16, 64), np.int8)}])

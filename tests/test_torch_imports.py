@@ -30,6 +30,14 @@ SERVING_MODULES = (
 )
 
 
+#: the compile service's modules (schedule cache, measured DSE, artifacts)
+COMPILE_SERVICE_MODULES = (
+    "repro_torch.core.schedule_cache",
+    "repro_torch.core.measure",
+    "repro_torch.core.artifact",
+)
+
+
 def _imported_modules(path: Path) -> list[str]:
     names = []
     for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
@@ -56,7 +64,7 @@ def test_serving_modules_are_checked_files():
         assert f"{path}.py" in checked or f"{path}/__init__.py" in checked, module
 
 
-def test_serving_modules_run_with_jax_blocked():
+def test_serving_modules_run_with_jax_blocked(tmp_path):
     code = (
         "import sys, argparse\n"
         "sys.modules['jax'] = None\n"
@@ -70,12 +78,47 @@ def test_serving_modules_run_with_jax_blocked():
         "assert r.module.bucket_sizes() == (1, 4) and len(r.outputs) == 6\n"
         "print('ok', [k for k in sys.modules if k.split('.')[0] in ('jax', 'repro')])\n"
     )
-    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    # serve_zoo compiles with the default schedule cache: keep it in tmp_path
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "REPRO_TORCH_CACHE_DIR": str(tmp_path)}
     proc = subprocess.run(
         [sys.executable, "-c", code], capture_output=True, text=True, env=env, timeout=120
     )
     assert proc.returncode == 0, proc.stderr
     assert "ok ['jax', 'repro']" in proc.stdout  # only the blocking entries
+
+
+def test_compile_service_modules_are_checked_files():
+    checked = {str(p.relative_to(ROOT / "src")) for p in PORT_FILES if p.is_relative_to(ROOT / "src")}
+    for module in COMPILE_SERVICE_MODULES:
+        assert f"{module.replace('.', '/')}.py" in checked, module
+
+
+def test_compile_service_runs_with_jax_blocked(tmp_path):
+    """A measured compile through the schedule cache, a save and a load,
+    in a process where importing jax or repro fails."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "import importlib\n"
+        f"for name in {COMPILE_SERVICE_MODULES!r}:\n"
+        "    importlib.import_module(name)\n"
+        "import repro_torch\n"
+        "from repro_torch.core import zoo\n"
+        f"t = repro_torch.Target('edge_npu', device='cpu', cache_dir={str(tmp_path / 'cache')!r})\n"
+        "m = repro_torch.compile('qcnn', t, options=repro_torch.CompileOptions(measure_top_k=2))\n"
+        f"repro_torch.save(m, {str(tmp_path / 'art')!r})\n"
+        f"r = repro_torch.load({str(tmp_path / 'art')!r}, device='cpu')\n"
+        "f = zoo.get_model('qcnn').feeds(0)\n"
+        "assert (r.run(f)[0] == m.run(f)[0]).all() and m.backend.n_measurements > 0\n"
+        "print('ok', [k for k in sys.modules if k.split('.')[0] in ('jax', 'repro')])\n"
+    )
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, env=env, timeout=120
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert "ok ['jax', 'repro']" in proc.stdout
 
 
 def test_port_runs_with_jax_blocked():
@@ -84,7 +127,7 @@ def test_port_runs_with_jax_blocked():
         "sys.modules['jax'] = None\n"
         "sys.modules['repro'] = None\n"
         "import repro_torch\n"
-        "m = repro_torch.compile('mlp_tiny', repro_torch.Target('gemmini', device='cpu'))\n"
+        "m = repro_torch.compile('mlp_tiny', repro_torch.Target('gemmini', device='cpu', cache=False))\n"
         "from repro_torch.core import zoo\n"
         "out = m.run(zoo.get_model('mlp_tiny').feeds(0))[0]\n"
         "assert out.shape == (1, 16) and str(out.dtype) == 'int8'\n"
@@ -138,9 +181,9 @@ def test_mip_request_is_refused_where_the_reference_would_solve_it(monkeypatch):
         lambda name, *a: object() if name == "pulp" else real_find_spec(name, *a),
     )
     with pytest.raises(NotImplementedError, match="use_mip=False"):
-        repro_torch.compile("mlp_tiny", repro_torch.Target("gemmini", device="cpu"))
+        repro_torch.compile("mlp_tiny", repro_torch.Target("gemmini", device="cpu", cache=False))
     module = repro_torch.compile(
-        "mlp_tiny", repro_torch.Target("gemmini", use_mip=False, device="cpu")
+        "mlp_tiny", repro_torch.Target("gemmini", use_mip=False, device="cpu", cache=False)
     )
     assert module.modeled_cycles()["total"] == 2624.0
 

@@ -365,7 +365,7 @@ def test_launch_geometry_spreads_the_toycar_blocks():
     for mode in ("optimized", "baseline", "naive"):
         module = repro_torch.compile(
             zoo.get_model("toycar_mlp").build(batch=16),
-            repro_torch.Target("gemmini", mode=mode, device="cpu"),
+            repro_torch.Target("gemmini", mode=mode, device="cpu", cache=False),
         )
         geos = []
         for node, op in module.ops.items():

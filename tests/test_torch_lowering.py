@@ -49,7 +49,7 @@ def test_conv_pool_bmm_residual_match_reference(name, mode, batch):
     gemm.reset_launches()
     ref = repro.compile(_build(name, batch), repro.Target("gemmini", mode=mode, cache=False))
     got = repro_torch.compile(
-        _to_port(_build(name, batch)), repro_torch.Target("gemmini", mode=mode, device="cpu")
+        _to_port(_build(name, batch)), repro_torch.Target("gemmini", mode=mode, device="cpu", cache=False)
     )
     assert [n.op for n in got.graph.toposort()] == [n.op for n in ref.graph.toposort()]
     assert got.modeled_cycles() == ref.modeled_cycles()

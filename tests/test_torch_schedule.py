@@ -52,7 +52,7 @@ def _ref_module(name, mode, batch):
 
 def _port_module(name, mode, batch):
     graph = zoo.get_model(name).build(batch=batch)
-    return repro_torch.compile(graph, repro_torch.Target("gemmini", mode=mode, device="cpu"))
+    return repro_torch.compile(graph, repro_torch.Target("gemmini", mode=mode, device="cpu", cache=False))
 
 
 def _workload_shapes():

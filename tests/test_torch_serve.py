@@ -32,11 +32,18 @@ from repro_torch.launch import serve
 from repro_torch.serve import MicroBatcher
 
 
+@pytest.fixture(autouse=True)
+def _schedule_cache_in_tmp(tmp_path, monkeypatch):
+    """``serve_zoo`` compiles with the default schedule cache, as the CLI
+    does; keep that cache out of the home directory."""
+    monkeypatch.setenv("REPRO_TORCH_CACHE_DIR", str(tmp_path / "schedule_cache"))
+
+
 @pytest.fixture(scope="module")
 def batched_mlp():
     return repro_torch.compile(
         "mlp_tiny",
-        repro_torch.Target("gemmini", device="cpu"),
+        repro_torch.Target("gemmini", device="cpu", cache=False),
         options=repro_torch.CompileOptions(batch_buckets=(1, 4)),
     )
 
@@ -165,7 +172,7 @@ def test_serve_zoo_prints_its_lines_and_serves_per_request_results(capsys, name,
     assert result.stats.requests == 70 and len(result.latencies_s) == 70
     assert all(size <= batch for size in result.stats.batch_sizes)
     acc, mode = target.split(":")
-    single = repro_torch.compile(zoo.get_model(name).build(), repro_torch.Target(acc, mode=mode, device="cpu"))
+    single = repro_torch.compile(zoo.get_model(name).build(), repro_torch.Target(acc, mode=mode, device="cpu", cache=False))
     for feeds, got in zip(result.traffic, result.outputs):
         want = single.run(feeds)
         assert got[0].dtype == want[0].dtype
@@ -176,8 +183,6 @@ def test_serve_zoo_prints_its_lines_and_serves_per_request_results(capsys, name,
 @pytest.mark.parametrize(
     "argv,what",
     [
-        (["--zoo", "toycar_mlp", "--artifact", "a.bin"], "--artifact"),
-        (["--zoo", "toycar_mlp", "--save-artifact", "a.bin"], "--save-artifact"),
         (["--zoo", "toycar_mlp", "--devices", "2"], "--devices"),
         (["--arch", "musicgen_medium"], "--arch"),
         (["--zoo", "attn_decode"], "decode zoo"),
@@ -188,6 +193,53 @@ def test_serve_cli_refuses_what_is_not_ported(argv, what):
     with pytest.raises(SystemExit) as e:
         serve.main(argv)
     assert what in str(e.value.code)
+
+
+def test_serve_zoo_boots_from_artifact_without_compiling(capsys, tmp_path, monkeypatch):
+    """``--save-artifact`` writes the served batched module; ``--artifact``
+    boots the next server from it with no compile, no DSE and no pass
+    pipeline, serving the same responses.  The reference's version of this
+    test fails only because its first compile goes through the traced
+    frontend."""
+    path = tmp_path / "toycar.art"
+    first = serve.serve_zoo(_serve_args(zoo="toycar_mlp", batch=4, requests=9, save_artifact=str(path)))
+    assert f"[serve] saved compile artifact to {path}" in capsys.readouterr().out
+
+    def no_compile(*args, **kwargs):
+        raise AssertionError("serve_zoo compiled despite --artifact")
+
+    monkeypatch.setattr(repro_torch, "compile", no_compile)
+    booted = serve.serve_zoo(_serve_args(zoo="toycar_mlp", batch=4, requests=9, artifact=str(path)))
+    out = capsys.readouterr().out
+    assert "[serve] toycar_mlp on gemmini:optimized@cpu: loaded artifact 2 bucket plans [1, 4]" in out
+    assert booted.boot_how == "loaded artifact" and first.boot_how == "compiled"
+    assert booted.module.bucket_sizes() == (1, 4)
+    for b in booted.module.bucket_sizes():
+        backend = booted.module.bucket_module(b).backend
+        assert backend.scheduler.n_solver_calls == 0 and backend.n_measurements == 0
+    for got, want in zip(booted.outputs, first.outputs):
+        np.testing.assert_array_equal(got[0], want[0])
+
+
+def test_serve_zoo_rejects_single_shape_artifact(tmp_path):
+    path = tmp_path / "single.art"
+    repro_torch.save(
+        repro_torch.compile("mlp_tiny", repro_torch.Target("gemmini", device="cpu", cache=False)), path
+    )
+    with pytest.raises(SystemExit, match="single-shape module"):
+        serve.serve_zoo(_serve_args(zoo="mlp_tiny", batch=4, requests=2, artifact=str(path)))
+
+
+def test_serve_cli_saves_and_boots_artifacts(capsys, tmp_path):
+    path = tmp_path / "qcnn.art"
+    common = ["--zoo", "qcnn", "--target", "edge_npu:naive", "--requests", "3", "--batch", "4",
+              "--device", "cpu"]
+    serve.main(common + ["--save-artifact", str(path)])
+    assert (path / "manifest.json").exists()
+    serve.main(common + ["--artifact", str(path)])
+    assert "[serve] qcnn on edge_npu:naive@cpu: loaded artifact 2 bucket plans [1, 4]" in (
+        capsys.readouterr().out
+    )
 
 
 def test_serve_cli_serves_on_the_cpu_when_asked(capsys):

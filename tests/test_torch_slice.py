@@ -35,7 +35,7 @@ def _ref_module(name, mode, batch):
 
 def _port_module(name, mode, batch, **build_kw):
     graph = zoo.get_model(name).build(batch=batch, **build_kw)
-    return repro_torch.compile(graph, repro_torch.Target("gemmini", mode=mode, device="cpu"))
+    return repro_torch.compile(graph, repro_torch.Target("gemmini", mode=mode, device="cpu", cache=False))
 
 
 def _assert_bit_equal(got, want, context):
@@ -98,12 +98,12 @@ def test_parameter_mismatch_lists_every_problem():
 
 
 def test_zoo_name_compiles_the_golden_graph():
-    by_name = repro_torch.compile("mlp_tiny", repro_torch.Target("gemmini", device="cpu"))
+    by_name = repro_torch.compile("mlp_tiny", repro_torch.Target("gemmini", device="cpu", cache=False))
     by_graph = _port_module("mlp_tiny", "optimized", None)
     feeds = zoo.get_model("mlp_tiny").feeds(1)
     _assert_bit_equal(by_name.run(feeds), by_graph.run(feeds), "zoo name")
     with pytest.raises(KeyError, match="available"):
-        repro_torch.compile("resnet50", repro_torch.Target("gemmini", device="cpu"))
+        repro_torch.compile("resnet50", repro_torch.Target("gemmini", device="cpu", cache=False))
 
 
 def test_feed_error_lists_every_problem():
@@ -140,7 +140,7 @@ def test_host_ops_follow_numpy_semantics():
     feeds = {"x": np.random.default_rng(1).integers(-128, 128, (4, 6)).astype(np.int8)}
     want = ref_ir.execute_graph(_host_ops_graph(ref_ir), feeds)
     graph = _host_ops_graph(ir)
-    module = repro_torch.compile(graph, repro_torch.Target("gemmini", mode="naive", device="cpu"))
+    module = repro_torch.compile(graph, repro_torch.Target("gemmini", mode="naive", device="cpu", cache=False))
     got = module.run(feeds)
     np.testing.assert_array_equal(got[1], want[1])
     assert got[0].dtype == want[0].dtype
@@ -148,8 +148,10 @@ def test_host_ops_follow_numpy_semantics():
 
 
 def test_unported_host_op_fails_at_compile_time():
+    # a collective of the reference's sharded plans, which wait for their slice
     x = ir.input_((2, 4), "float32", name="x")
-    w = ir.const(np.ones((4, 3), np.float32))
-    graph = ir.Graph([ir.dense(x, w)], name="float_dense")  # float stays on the host
+    gathered = ir.Node("all_gather", [x], shape=(2, 4), dtype="float32",
+                       attrs={"group": 0, "rank": 0, "parts": 1, "axis": 0})
+    graph = ir.Graph([gathered], name="collective")
     with pytest.raises(NotImplementedError, match="no torch lowering"):
-        repro_torch.compile(graph, repro_torch.Target("gemmini", device="cpu"))
+        repro_torch.compile(graph, repro_torch.Target("gemmini", device="cpu", cache=False))

@@ -43,7 +43,7 @@ def _ref_module(acc, name, mode, batch, graph=None):
 
 def _port_module(acc, name, mode, batch, **build_kw):
     graph = zoo.get_model(name).build(batch=batch, **build_kw)
-    return repro_torch.compile(graph, repro_torch.Target(acc, mode=mode, device="cpu"))
+    return repro_torch.compile(graph, repro_torch.Target(acc, mode=mode, device="cpu", cache=False))
 
 
 def _schedule_dicts(module):
@@ -161,7 +161,7 @@ def test_registry_holds_gemmini_and_edge_npu():
     with pytest.raises(KeyError, match="unknown accelerator 'tpu_v5e'; registered: edge_npu, gemmini"):
         repro_torch.REGISTRY.get("tpu_v5e")
     with pytest.raises(repro_torch.TargetError, match="registered: edge_npu, gemmini"):
-        repro_torch.Target("tpu_v5e", device="cpu")
+        repro_torch.Target("tpu_v5e", device="cpu", cache=False)
 
 
 def test_edge_npu_schedules_are_weight_stationary_and_8_wide():
