@@ -76,16 +76,35 @@ fails; nothing is caught and passed over:
      optimized and naive, bit-equal to the sequential ``run_many`` with
      the same launch count, p50 of both; and a conv that a description
      leaves on the host is refused on ``cuda`` at compile time (the port
-     runs no plain GEMM on the card).
+     runs no plain GEMM on the card);
+ 11. decode: ``attn_decode`` on gemmini and edge_npu in every mode, as the
+     unbatched decode step (``LD`` caches), the batched step at B = 8
+     (``BLD``) and the prefill of 32 rows, on ``cuda``: all three outputs
+     bit-equal to the CPU run, modeled cycles equal, exactly 6 / 20 / 6
+     launches per call (4 projections + 2 attention GEMMs, the batched
+     attention replayed per slot), run p50 beside its kernels' device
+     time; then ``serve_decode`` (the CLI's function) at ``--batch 8
+     --requests 64`` with the default prompt and new-token lengths, every
+     request's tokens and vectors equal to the CPU engine's, launches
+     equal to 6 x prefills + 20 x decode steps, tok/s beside
+     ``sequential_generate``'s (same tokens), one decode step's p50 split
+     into its kernels' device time and the rest, and the state round trip
+     (uploading and downloading the two staging caches); an out-of-bounds
+     ``pos`` raises ``ValueError`` on ``cuda`` before any launch; a decode
+     artifact saved and loaded on ``cuda`` gives equal outputs;
+ 12. the verify gate: ``CompileOptions(verify="each")`` on ``cuda`` for every
+     phase-6 module and every phase-11 module, zero diagnostics, the time
+     spent in the verifier beside the compile's.
 
-The launch counts are set to 0 just before each of phases 4 and 6-10 (and
-each serve call) and read just after; the ``launches`` of the kernels
-line are their sum.  It prints a ``{"kernels": [...]}`` line (the
-toycar@16 sums of phase 3, and every case of phase 5 under ``cases``), a
-summary of the paths, and as its last line ``{"ok": true, "device":
-{...}}``.  ``--report PATH`` also writes everything measured to PATH as
-JSON.  Schedule caches and artifacts are written under the checkout's
-``build/chip_smoke/``, made afresh by each run.
+The launch counts are set to 0 just before each of phases 4, 6-10 and the
+paths of 11 (each serve call too) and read just after; the ``launches``
+of the kernels line are their sum.  It prints a ``{"kernels": [...]}``
+line (the toycar@16 sums of phase 3; the per-case times of phase 5 go to
+the report only, to keep the line short), a summary of the paths, and as
+its last line ``{"ok": true, "device": {...}}``.  ``--report PATH`` also
+writes everything measured to PATH as JSON.  Schedule caches and
+artifacts are written under the checkout's ``build/chip_smoke/``, made
+afresh by each run.
 """
 
 from __future__ import annotations
@@ -109,14 +128,16 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 import repro_torch  # noqa: E402
-from repro_torch.core import measure, pass_manager, zoo  # noqa: E402
+from repro_torch.core import measure, pass_manager, pipeline, verify, zoo  # noqa: E402
 from repro_torch.core.batching import pick_bucket, plan_chunks  # noqa: E402
+from repro_torch.core.executor import to_numpy, to_tensor  # noqa: E402
 from repro_torch.core.lowering import kernel_config_for  # noqa: E402
 from repro_torch.core.scheduler import ExtendedCosaScheduler, ScheduleResult  # noqa: E402
 from repro_torch.core.strategy import gemm_instances, workload_from_node  # noqa: E402
 from repro_torch.kernels import build, gemm  # noqa: E402
 from repro_torch.kernels.gemm import GemmKernelConfig, gemm_plain, scheduled_gemm  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.serve import EngineConfig, random_requests, sequential_generate  # noqa: E402
 
 #: published H100 SXM rates (dense, no sparsity), at the 700 W limit
 HBM_BYTES_PER_S = 3.35e12
@@ -160,6 +181,14 @@ MEASURE_CALLS = sum(
 #: phase 9: the batched module saved and booted, and its serve call
 ARTIFACT_SERVE = ("toycar_mlp", "gemmini:optimized", 64, 256)
 PIPELINED_SAMPLES = 10
+#: phase 11: the decode forms, (seq, batch) and launches per call, and the
+#: serve call (target, --batch, --requests; default prompt and new tokens)
+DECODE = zoo.get_decode_model("attn_decode")
+DECODE_SLOTS = 8
+DECODE_PROMPT = 32
+DECODE_FORMS = {"step LD": ((1, None), 6), f"step BLD b{DECODE_SLOTS}": ((1, DECODE_SLOTS), 4 + 2 * DECODE_SLOTS),
+                f"prefill {DECODE_PROMPT}": ((DECODE_PROMPT, None), 6)}
+DECODE_SERVE = ("gemmini:optimized", DECODE_SLOTS, 64)
 
 
 def check(cond: bool, what: str) -> None:
@@ -1111,6 +1140,260 @@ def host_gemm_refused(dev: torch.device) -> None:
     check(False, "a conv left on the host compiled for cuda")
 
 
+# -- phases 11-12: the decode path and the verify gate ------------------------
+
+
+def decode_label(acc: str, mode: str, form: str) -> str:
+    return f"attn_decode@{acc}:{mode} {form}"
+
+
+def decode_feeds(seq: int, batch, seed: int) -> dict[str, np.ndarray]:
+    if seq == 1:
+        return DECODE.feeds(seed=seed, batch=batch)
+    rng = np.random.default_rng(seed)
+    return {**DECODE.example_inputs(seq=seq),
+            "x": rng.integers(-128, 128, (seq, DECODE.d_model)).astype(np.int8),
+            "mask": zoo.prefill_mask(seq, DECODE.max_len)}
+
+
+def compile_decode_paths(dev: torch.device) -> dict[tuple, dict]:
+    """Every module of phase 11, on the card and on the CPU, keyed by
+    (accelerator, mode, form)."""
+    out = {}
+    for acc in DECODE.accelerators:
+        for mode in MODES:
+            for form, ((seq, batch), _) in DECODE_FORMS.items():
+                out[acc, mode, form] = {
+                    where: repro_torch.compile(
+                        DECODE.build(seq=seq, batch=batch),
+                        repro_torch.Target(acc, mode=mode, device=str(dev) if where == "cuda" else "cpu"),
+                    )
+                    for where in ("cuda", "cpu")
+                }
+    return out
+
+
+def decode_modules_phase(compiled: dict, cases: dict, card_line: str) -> dict:
+    """Phase 11, modules: each decode form on the card, held to the CPU run."""
+    summary = {}
+    for (acc, mode, form), mods in compiled.items():
+        (seq, batch), launches = DECODE_FORMS[form]
+        got_m, want_m = mods["cuda"], mods["cpu"]
+        label = decode_label(acc, mode, form)
+        check(got_m.modeled_cycles() == want_m.modeled_cycles(), f"{label}: modeled cycles differ")
+        per_run = plan_launches(got_m)
+        check(sum(per_run.values()) == launches, f"{label}: the plan implies {per_run}, not {launches}")
+        feeds = [decode_feeds(seq, batch, seed) for seed in range(PATH_FEEDS)]
+        want = [want_m.run(f) for f in feeds]
+        before = dict(gemm.LAUNCHES)
+        got = [got_m.run(f) for f in feeds]
+        for v, count in per_run.items():
+            check(gemm.LAUNCHES[v] - before[v] == count * len(feeds),
+                  f"{label}: {gemm.LAUNCHES[v] - before[v]} {v} launches for {len(feeds)} calls, "
+                  f"the plan implies {count} per call")
+        for g, w in zip(got, want):
+            check(len(g) == len(w) == 3, f"{label}: outputs")
+            for name, a, b in zip(("out", "k_cache", "v_cache"), g, w):
+                check(a.shape == b.shape and a.dtype == b.dtype and np.array_equal(a, b),
+                      f"{label}: {name} on cuda != cpu")
+        summary[label] = {
+            "launches_per_call": {v: c for v, c in per_run.items() if c},
+            "modeled_cycles": got_m.modeled_cycles()["total"],
+            "run_ms_p50": run_p50_ms(got_m, feeds),
+            "kernel_ms_per_run": kernel_ms_per_run(got_m, cases),
+        }
+        print(f"decode {label}: 3 outputs bit-equal to cpu; launches per call "
+              f"{summary[label]['launches_per_call']}; run p50 {summary[label]['run_ms_p50']:.4f} ms "
+              f"(kernels {summary[label]['kernel_ms_per_run']:.4f} ms device)")
+    print(f"decode: {len(summary)} modules bit-equal to cpu on cuda [{card_line}]")
+    return summary
+
+
+def step_split(module, feeds_list, samples: int) -> dict:
+    """Where one plan run's host time goes, p50 over ``samples`` runs of
+    the plan's own steps: feed validation, the feed upload, each op's
+    calls (host time to issue; an accelerator step is its kernel wrapper,
+    which returns before the kernel ends), and the output download (which
+    waits for the device)."""
+    plan = module.finalize()
+    parts: dict[str, list[float]] = {}
+    for i in range(samples):
+        feeds = feeds_list[i % len(feeds_list)]
+        arena = plan.new_arena()
+        took: dict[str, float] = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        module._check_feeds(feeds)
+        t1 = time.perf_counter()
+        for name, slot in plan.input_slots:
+            arena[slot] = to_tensor(feeds[name], plan.device)
+        took["validate feeds"], took["upload feeds"] = t1 - t0, time.perf_counter() - t1
+        for s in plan.steps:
+            key = f"{s.lane}: {s.op}"
+            t = time.perf_counter()
+            arena[s.slot] = s.fn(*[arena[a] for a in s.arg_slots])
+            took[key] = took.get(key, 0.0) + time.perf_counter() - t
+        t = time.perf_counter()
+        for o in plan.output_slots:
+            to_numpy(arena[o])
+        took["download outputs"] = time.perf_counter() - t
+        for k, v in took.items():
+            parts.setdefault(k, []).append(v * 1e3)
+    return {k: float(np.percentile(v, 50)) for k, v in sorted(parts.items(), key=lambda kv: -np.median(kv[1]))}
+
+
+def decode_serve_phase(dev: torch.device, cases: dict, card_line: str, windows: dict) -> dict:
+    """Phase 11, serving: ``serve_decode`` on the card against the CPU
+    engine, then ``sequential_generate`` and the decode step's split."""
+    target, slots, requests = DECODE_SERVE
+    parser = serve.build_parser()
+    args = parser.parse_args(["--zoo", DECODE.name, "--target", target, "--batch", str(slots),
+                              "--requests", str(requests), "--device", str(dev)])
+    check((args.prompt_len, args.new_tokens) == (32, 16), "serve defaults changed")
+    gemm.reset_launches()  # the decode serve call's window starts here
+    result = serve.serve_decode(args)
+    window = dict(gemm.LAUNCHES)  # read just after it
+    windows[f"serve {DECODE.name}@{target} --batch {slots}"] = window
+    report, engine = result.report, result.engine
+    expected = {v: 0 for v in gemm.LAUNCHES}
+    for mod, calls in ((engine.prefill_mod, report.prefills), (engine.decode_mod, report.decode_steps)):
+        for v, c in plan_launches(mod).items():
+            expected[v] += c * calls
+    check(window == expected, f"serve {DECODE.name}: launches {window}, "
+          f"{report.prefills} prefills and {report.decode_steps} steps imply {expected}")
+    cpu_args = parser.parse_args(["--zoo", DECODE.name, "--target", target, "--batch", str(slots),
+                                  "--requests", str(requests), "--device", "cpu"])
+    cpu = serve.serve_decode(cpu_args).report
+    check(len(report.requests) == requests and report.total_new_tokens == requests * args.new_tokens,
+          f"serve {DECODE.name}: {report.total_new_tokens} tokens")
+    for got, want in zip(report.requests, cpu.requests):
+        check(got.done and got.tokens == want.tokens
+              and all(np.array_equal(a, b) for a, b in zip(got.vectors, want.vectors)),
+              f"serve {DECODE.name}: request {got.rid} differs from the cpu engine")
+    check((report.decode_steps, report.prefills) == (cpu.decode_steps, cpu.prefills), "engine schedule differs")
+
+    acc, mode = target.split(":")
+    cfg = engine.cfg
+    gemm.reset_launches()  # the sequential baseline's window starts here
+    seq_reqs = random_requests(DECODE, requests, cfg.prompt_len, seed=0)
+    seq = sequential_generate(DECODE, repro_torch.Target(acc, mode=mode, device=str(dev)), seq_reqs, cfg)
+    windows[f"sequential {DECODE.name}@{target}"] = dict(gemm.LAUNCHES)
+    for got, want in zip(seq_reqs, report.requests):
+        check(got.tokens == want.tokens, f"sequential {DECODE.name}: request {got.rid} tokens differ")
+
+    # one decode step of the engine's module, and what moves the state
+    step_feeds = [DECODE.feeds(seed=s, batch=slots) for s in range(PATH_FEEDS)]
+    step_p50 = run_p50_ms(engine.decode_mod, step_feeds, samples=LATENCY_SAMPLES)
+    kernel_ms = kernel_ms_per_run(engine.decode_mod, cases)
+    split = step_split(engine.decode_mod, step_feeds, LATENCY_SAMPLES)
+    state = {k: step_feeds[0][k] for k in ("k_cache", "v_cache")}
+    on_card = {k: to_tensor(v, dev) for k, v in state.items()}
+    trips = []
+    for _ in range(LATENCY_SAMPLES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        up = [to_tensor(v, dev) for v in state.values()]
+        down = [to_numpy(t) for t in on_card.values()]
+        trips.append((time.perf_counter() - t0) * 1e3)
+    check(all(np.array_equal(to_numpy(u), state[k]) for u, k in zip(up, state)) and len(down) == 2,
+          "state round trip")
+    out = {
+        "target": target, "slots": slots, "requests": requests, "prompt_len": cfg.prompt_len,
+        "new_tokens": cfg.max_new_tokens, "boot_ms": result.boot_s * 1e3,
+        "tokens": report.total_new_tokens, "wall_s": report.wall_s, "tok_per_s": report.tokens_per_s,
+        "decode_steps": report.decode_steps, "prefills": report.prefills,
+        "peak_occupancy": report.peak_occupancy, "launches": {v: c for v, c in window.items() if c},
+        "sequential_tok_per_s": seq.tokens_per_s, "sequential_wall_s": seq.wall_s,
+        "sequential_decode_steps": seq.decode_steps,
+        "step_ms_p50": step_p50, "step_kernel_ms": kernel_ms, "step_rest_ms": step_p50 - kernel_ms,
+        "state_round_trip_ms_p50": float(np.percentile(trips, 50)),
+        "step_host_split_ms_p50": split,
+    }
+    print(f"serve {DECODE.name} on {target} --batch {slots} --requests {requests}: every request's "
+          f"tokens and vectors equal the cpu engine's; {report.total_new_tokens} tokens in "
+          f"{report.wall_s:.3f} s ({report.tokens_per_s:.1f} tok/s), {report.decode_steps} decode steps, "
+          f"{report.prefills} prefills, peak pool occupancy {report.peak_occupancy:.3f}; launches "
+          f"{out['launches']} [{card_line}]")
+    print(f"sequential_generate {DECODE.name}: {seq.tokens_per_s:.1f} tok/s ({seq.decode_steps} batch-1 steps, "
+          f"same tokens) against continuous {report.tokens_per_s:.1f} tok/s")
+    print(f"decode step b{slots}: run p50 {step_p50:.4f} ms = kernels {kernel_ms:.4f} ms device + rest "
+          f"{step_p50 - kernel_ms:.4f} ms; state round trip (2 caches up, 2 down) p50 "
+          f"{out['state_round_trip_ms_p50']:.4f} ms")
+    print(f"decode step b{slots} host split, p50 ms over {LATENCY_SAMPLES} runs: "
+          + "; ".join(f"{k} {v:.4f}" for k, v in split.items()))
+    return out
+
+
+def decode_bounds_and_artifact(dev: torch.device, work: Path, card_line: str) -> dict:
+    """Phase 11: an out-of-bounds append raises on the card before any
+    launch; a decode artifact round-trips on the card."""
+    module = repro_torch.compile(DECODE.build(batch=DECODE_SLOTS), repro_torch.Target("gemmini", device=str(dev)))
+    feeds = DECODE.feeds(seed=4, batch=DECODE_SLOTS)
+    bad = {**feeds, "pos": feeds["pos"].copy()}
+    bad["pos"][3] = DECODE.max_len
+    before = dict(gemm.LAUNCHES)
+    try:
+        module.run(bad)
+    except ValueError as e:
+        check("kv_cache_append out of bounds" in str(e) and "(slot 3)" in str(e), f"bounds error: {e}")
+        message = str(e)
+    else:
+        check(False, "an out-of-bounds pos ran on cuda")
+    check(gemm.LAUNCHES == before, "the out-of-bounds call launched kernels")
+    path = work / "attn_decode_b8.art"
+    repro_torch.save(module, path)
+    loaded = repro_torch.load(path, device=str(dev))
+    check(loaded.graph.cache_spec == module.graph.cache_spec, "decode artifact: cache_spec")
+    for seed in range(PATH_FEEDS):
+        f = DECODE.feeds(seed=seed, batch=DECODE_SLOTS)
+        check(all(np.array_equal(a, b) for a, b in zip(loaded.run(f), module.run(f))),
+              "decode artifact: outputs differ from the compiled module's")
+    print(f"decode bounds on cuda: {message}; decode artifact saved and loaded on cuda, outputs equal "
+          f"[{card_line}]")
+    return {"bounds_error": message, "artifact": "equal"}
+
+
+def verify_gate_phase(dev: torch.device, card_line: str) -> dict:
+    """Phase 12: ``verify="each"`` on every phase-6 and phase-11 module on
+    the card, zero diagnostics, and the verifier's share of the compile."""
+    spent = {"ms": 0.0}
+    graph_fn, plan_fn = verify.verify_graph, pipeline.verify_plan
+
+    def timed(fn):
+        def wrapper(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                spent["ms"] += (time.perf_counter() - t0) * 1e3
+        return wrapper
+
+    builds = [(f"{path_label(n, acc, mode, b)}", acc, mode, lambda n=n, b=b: zoo.get_model(n).build(batch=b))
+              for n, acc in NEW_PATHS for mode in MODES for b in (None, MAIN_BUCKET)]
+    builds += [(decode_label(acc, mode, form), acc, mode,
+                lambda sb=sb: DECODE.build(seq=sb[0], batch=sb[1]))
+               for acc in DECODE.accelerators for mode in MODES for form, (sb, _) in DECODE_FORMS.items()]
+    compile_ms, modules = 0.0, []
+    verify.verify_graph, pipeline.verify_plan = timed(graph_fn), timed(plan_fn)
+    try:
+        for label, acc, mode, build_graph in builds:
+            t0 = time.perf_counter()
+            modules.append((label, repro_torch.compile(
+                build_graph(), repro_torch.Target(acc, mode=mode, device=str(dev)),
+                options=repro_torch.CompileOptions(verify="each"))))
+            compile_ms += (time.perf_counter() - t0) * 1e3
+    finally:
+        verify.verify_graph, pipeline.verify_plan = graph_fn, plan_fn
+    gate_ms = spent["ms"]
+    for label, module in modules:
+        diags = verify.collect(module)
+        check(diags == [], f"verify gate {label}: {[str(d) for d in diags]}")
+    print(f"verify gate: {len(builds)} modules compiled on cuda with verify='each', 0 diagnostics; "
+          f"{gate_ms:.1f} ms in the verifier of {compile_ms:.1f} ms of compiles "
+          f"({gate_ms / compile_ms:.1%}) [{card_line}]")
+    return {"modules": len(builds), "diagnostics": 0, "gate_ms": gate_ms, "compile_ms": compile_ms}
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description="drive the port on one NVIDIA card")
     ap.add_argument("--report", help="also write everything measured to this JSON file")
@@ -1156,6 +1439,8 @@ def main(argv: list[str] | None = None) -> int:
         zoo.get_model("toycar_mlp").build(batch=64),
         repro_torch.Target("gemmini", mode="naive", device="cpu"),
     )
+    decode_compiled = compile_decode_paths(dev)
+    case_modules.update({decode_label(*key): mods["cpu"] for key, mods in decode_compiled.items()})
     cases = path_case_phase(dev, case_modules)
 
     windows = {}
@@ -1174,11 +1459,19 @@ def main(argv: list[str] | None = None) -> int:
     artifact = artifact_phase(dev, card_line, work, windows)
     pipelined = pipelined_phase(compiled, card_line, windows)
     host_gemm_refused(dev)
+    gemm.reset_launches()  # the decode modules' runs start here
+    decode_paths = decode_modules_phase(decode_compiled, cases, card_line)
+    windows["decode modules"] = dict(gemm.LAUNCHES)  # read just after them
+    decode_served = decode_serve_phase(dev, cases, card_line, windows)
+    decode_checks = decode_bounds_and_artifact(dev, work, card_line)
+    gate = verify_gate_phase(dev, card_line)
     for window, counts in windows.items():
         print(f"launch window {window}: {counts}")
     both = ("qgemm_requant", "gemm_int32")
     path_kernels = {"toycar_mlp@gemmini": both, "new paths": both, "measured DSE compiles": both,
-                    "artifact module": ("qgemm_requant",), "pipelined": both}
+                    "artifact module": ("qgemm_requant",), "pipelined": both, "decode modules": both,
+                    f"serve {DECODE.name}@{DECODE_SERVE[0]} --batch {DECODE_SLOTS}": both,
+                    f"sequential {DECODE.name}@{DECODE_SERVE[0]}": both}
     for window, names in path_kernels.items():
         for name in names:
             check(windows[window][name] > 0, f"kernel {name} never launched in the {window} window")
@@ -1202,24 +1495,28 @@ def main(argv: list[str] | None = None) -> int:
             "launch_floor_ms": r["launch_floor_ms"],
             "cluster8_floor_ms": r["cluster8_floor_ms"],
             "layer_ms": r["layer_ms"],
-            "shapes": "toycar_mlp batch 16, 8 layers, summed; each path case under cases",
-            "cases": [
-                {"shape": f"{c['m']}x{c['k']}x{c['n']}", "blocks": f"{c['blocks']} {c['dataflow']}",
-                 **{k: c[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err")},
-                 **({"attention": True} if c["attention"] else {})}
-                for c in cases.values() if c["variant"] == name
-            ],
+            "shapes": "toycar_mlp batch 16, 8 layers, summed; every path case in the report",
+            "path_cases": sum(c["variant"] == name for c in cases.values()),
         }
         for name, r in kernels.items()
     ]}
+    path_cases = [
+        {"variant": c["variant"], "shape": f"{c['m']}x{c['k']}x{c['n']}",
+         "blocks": f"{c['blocks']} {c['dataflow']}",
+         **{k: c[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err")},
+         **({"attention": True} if c["attention"] else {})}
+        for c in cases.values()
+    ]
     report = {"card": card_line, "build_s": build_s, "main_path": summary, "paths": paths,
               "serve": served, "measured_dse": measured, "artifact": artifact, "pipelined": pipelined,
-              "launch_windows": windows}
+              "decode_paths": decode_paths, "decode_serve": decode_served, "decode_checks": decode_checks,
+              "verify_gate": gate, "launch_windows": windows, "path_cases": path_cases}
     if args.report:
         Path(args.report).parent.mkdir(parents=True, exist_ok=True)
         Path(args.report).write_text(json.dumps({**report, **line}, indent=1))
     # the per-path summaries are long and printed above, path by path
-    print(json.dumps({k: v for k, v in report.items() if k not in ("paths", "measured_dse", "pipelined")}))
+    long = ("paths", "measured_dse", "pipelined", "decode_paths", "path_cases")
+    print(json.dumps({k: v for k, v in report.items() if k not in long}))
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -14,7 +14,11 @@ accelerator step on a hand-written CUDA kernel for sm_90a:
 
 Serving goes through batch buckets and a micro-batching queue:
 ``python -m repro_torch.launch.serve --zoo toycar_mlp --target
-gemmini:optimized --batch 64``.  Schedules persist in a cross-process
+gemmini:optimized --batch 64``; the decode zoo (``attn_decode``) through
+the continuous-batching engine (``repro_torch.serve.
+ContinuousBatchingEngine``; ``--zoo attn_decode``).  ``repro_torch.verify``
+statically checks a graph or a compiled module, and ``CompileOptions(
+verify="each")`` gates every pass.  Schedules persist in a cross-process
 cache (``~/.cache/repro_torch``), and ``repro_torch.save`` /
 ``repro_torch.load`` turn a compiled module into an AOT artifact that
 boots with no DSE and no passes.
@@ -42,7 +46,6 @@ from repro_torch.core.artifact import ArtifactError
 from repro_torch.core.arch_spec import ArchSpec, GemmWorkload
 from repro_torch.core.batching import BatchedModule
 from repro_torch.core.executor import CompiledModule, FeedError
-from repro_torch.core.pipeline import ScheduleError
 from repro_torch.core.registry import (
     REGISTRY,
     AcceleratorRegistry,
@@ -52,6 +55,8 @@ from repro_torch.core.registry import (
     validate_description,
 )
 from repro_torch.core.schedule_cache import ScheduleCache, default_cache_dir
+from repro_torch.core.verify import Diagnostic, VerifyError, verify
+from repro_torch.core.zoo import DECODE_ZOO, decode_model_names, get_decode_model
 
 __version__ = "0.1.0"
 
@@ -64,23 +69,28 @@ __all__ = [
     "CapabilityError",
     "CompileOptions",
     "CompiledModule",
+    "DECODE_ZOO",
     "DEFAULT_BATCH_BUCKETS",
+    "Diagnostic",
     "FeedError",
     "GemmWorkload",
     "IntegrationError",
     "REGISTRY",
     "ScheduleCache",
-    "ScheduleError",
     "Target",
     "TargetError",
+    "VerifyError",
     "backend_for",
     "build_integrated_backend",
     "clear_backend_cache",
     "compile",
+    "decode_model_names",
     "default_cache_dir",
+    "get_decode_model",
     "load",
     "register_accelerator",
     "save",
     "validate_description",
+    "verify",
     "__version__",
 ]

@@ -37,9 +37,10 @@ best modeled schedules by timing the kernel on the target's device.
 Port of ``repro.api``: ``Target`` (without ``use_pallas``, ``devices`` and
 ``mesh``: the route follows the device, and sharded plans wait for their
 slice), ``CompileOptions``, the backend memo, ``compile`` for a graph or
-a zoo name, ``save`` and ``load``.  A zoo name's bucket graphs are its
-golden graphs, ``build(batch=b)``: the port has no traced frontend yet.
-The ``verify`` gate waits for the port of ``repro.core.verify``.
+a zoo name (the decode zoo's names included: their decode-step form),
+``save`` and ``load``, and the ``verify`` gate.  A zoo name's graphs are
+its golden graphs, ``build(batch=b)``: the port has no traced frontend
+yet.
 """
 
 from __future__ import annotations
@@ -60,7 +61,7 @@ from repro_torch.core import pipeline
 from repro_torch.core.pipeline import PUBLIC_MODES, CompilerBackend, resolve_mode
 from repro_torch.core.registry import REGISTRY, build_integrated_backend
 from repro_torch.core.scheduler import mip_installable
-from repro_torch.core.zoo import get_model
+from repro_torch.core.zoo import DECODE_ZOO, get_decode_model, get_model
 
 #: serving bucket ladder used when only ``Target.batch_size`` is given:
 #: the buckets are the ladder entries below it, plus the batch itself.
@@ -255,8 +256,10 @@ class CompileOptions:
     #: Ignored when ``passes`` overrides the per-mode pipeline (custom
     #: pipelines are not part of the key).  See also ``save`` / ``load``.
     artifact_dir: str | Path | None = None
-    #: the reference's static-verification gate; only None and 'off' are
-    #: accepted until ``repro.core.verify`` is ported
+    #: static-verification gate (``repro_torch.core.verify``): 'each'
+    #: re-verifies the graph after every pass, 'final' once after the
+    #: pipeline, 'off' never; both gated modes also check the built plan.
+    #: None (default) reads ``REPRO_VERIFY``.
     verify: str | None = None
 
     def __post_init__(self):
@@ -265,17 +268,10 @@ class CompileOptions:
             raise ValueError(
                 f"measure_top_k must be a positive int or None, got {k!r}"
             )
-        if self.verify not in (None, "each", "final", "off"):
-            raise ValueError(
-                f"verify must be 'each', 'final', 'off', or None, got "
-                f"{self.verify!r}"
-            )
-        if self.verify in ("each", "final"):
-            raise NotImplementedError(
-                f"verify={self.verify!r}: the static-verification gate "
-                f"(repro.core.verify) is not ported to repro_torch yet; "
-                f"pass verify=None or 'off'"
-            )
+        if self.verify is not None:
+            from repro_torch.core.verify import resolve_verify
+
+            resolve_verify(self.verify)
 
 
 # one backend per (accelerator fingerprint, backend options): repeated
@@ -394,7 +390,10 @@ def compile(
 
     Args:
       model: an ``ir.Graph`` (mutated by the pass pipeline: build a fresh
-        one per compile) or a zoo model name (``repro_torch.core.zoo``).
+        one per compile) or a zoo model name (``repro_torch.core.zoo``; a
+        decode-zoo name compiles its decode step, ``build()``: prefill and
+        batched steps compile as ``get_decode_model(name).build(seq=P)`` /
+        ``build(batch=B)`` graphs).
       target: a ``Target``.
       options: ``CompileOptions``.
 
@@ -416,6 +415,14 @@ def compile(
     # integration work or cache-dir side effect
     device = target.torch_device()
     buckets = _resolve_buckets(target, options)
+    is_decode = isinstance(model, str) and model in DECODE_ZOO
+    if buckets is not None and is_decode:
+        raise ValueError(
+            "stateful decode models do not use batch buckets: the decode "
+            "batch is the engine's static slot count — compile "
+            "get_decode_model(name).build(batch=B) directly, or serve via "
+            "repro_torch.serve.ContinuousBatchingEngine"
+        )
     if buckets is not None and isinstance(model, Graph):
         raise ValueError(
             "batch buckets need a model that can be rebuilt per bucket "
@@ -423,6 +430,8 @@ def compile(
             "the model by its zoo name instead, or compile the graph "
             "without batch_buckets"
         )
+    if is_decode:
+        model = get_decode_model(model).build()
     zoo_model = get_model(model) if isinstance(model, str) else None
     backend = backend_for(target, fresh=options.fresh_backend)
     store = None
@@ -460,6 +469,7 @@ def compile(
             passes=options.passes,
             pass_context=options.pass_context,
             measure_top_k=options.measure_top_k,
+            verify=options.verify,
         )
         if not options.allow_host_fallback:
             _check_offload(module)
@@ -509,9 +519,10 @@ def load(path, device: str = "cuda"):
     or ``"cpu"``).
 
     Raises ``ArtifactError`` naming the mismatch if the artifact is torn
-    or was built for a different schema version, architecture, or graph.
-    The accelerator the artifact targets must be registered in this
-    process (built-ins always are)."""
+    or was built for a different schema version, architecture, or graph,
+    and ``VerifyError`` if the restored graph or plan fails static
+    verification.  The accelerator the artifact targets must be registered
+    in this process (built-ins always are)."""
     from repro_torch.core.artifact import load_any
 
     return load_any(path, device=torch_device(device, f"artifact {str(path)!r}"))

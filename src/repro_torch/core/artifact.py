@@ -46,13 +46,15 @@ the restored module runs.  Two manifest keys describe the port's route:
     fields, the schedule's exact tiles); load re-derives configs from the
     schedules in both packages and never reads them.
 
-Sharded artifacts (``save_sharded``/``load_sharded``) and a graph's
-``cache_spec`` wait for the sharded and decode slices: a manifest that
-holds either is refused with an ``ArtifactError`` naming the slice.  The
-reference's static verification of a restored module (``repro.core.
-verify``) waits for its slice too; the checks here are the schema, the
-npz hash, the graph and architecture fingerprints, the schedules and the
-rebuilt plan's skeleton.
+A graph's decode-state contract (``cache_spec``) travels with it and is
+part of its fingerprint, as in the reference, so decode artifacts
+cross-load too.  Sharded artifacts (``save_sharded``/``load_sharded``)
+wait for the sharded slice: a sharded manifest is refused with an
+``ArtifactError`` naming the slice.  Beyond the schema, the npz hash, the
+graph and architecture fingerprints, the schedules and the rebuilt plan's
+skeleton, ``load`` runs the static verifier (``verify_graph`` +
+``verify_plan``) on every restored module and raises ``VerifyError`` on a
+finding; the write-through store treats that as a miss.
 """
 
 from __future__ import annotations
@@ -74,11 +76,12 @@ import torch
 from repro_torch.core.batching import BatchedModule, _IOSpec
 from repro_torch.core.configurators import build_backend
 from repro_torch.core.executor import CompiledModule, CompiledOp
-from repro_torch.core.ir import Graph, Node
+from repro_torch.core.ir import CacheSpec, Graph, Node
 from repro_torch.core.lowering import kernel_config_for
 from repro_torch.core.pass_manager import PassStats, PipelineReport
 from repro_torch.core.registry import REGISTRY
 from repro_torch.core.schedule_cache import result_from_dict, result_to_dict
+from repro_torch.core.verify import VerifyError, verify_graph, verify_plan
 
 #: bump on any incompatible change to the manifest or npz layout; load
 #: rejects other versions with a clear error instead of misreading them.
@@ -161,15 +164,36 @@ def graph_to_dict(graph: Graph) -> tuple[dict, dict[str, np.ndarray]]:
         "nodes": nodes,
         "outputs": [idx[o] for o in graph.outputs],
     }
+    # the decode-state contract travels with the graph: without it a loaded
+    # decode artifact cannot feed cache outputs back as next-step inputs
+    if graph.cache_spec is not None:
+        d["cache_spec"] = _cache_spec_to_dict(graph.cache_spec)
     return d, arrays
 
 
+def _cache_spec_to_dict(spec: CacheSpec) -> dict:
+    return {
+        "max_len": spec.max_len,
+        "dtype": spec.dtype,
+        "layout": spec.layout,
+        "state": [[name, idx] for name, idx in spec.state],
+        "pos_input": spec.pos_input,
+        "mask_input": spec.mask_input,
+    }
+
+
+def _cache_spec_from_dict(d: dict) -> CacheSpec:
+    return CacheSpec(
+        max_len=d["max_len"],
+        dtype=d["dtype"],
+        layout=d["layout"],
+        state=tuple((name, idx) for name, idx in d["state"]),
+        pos_input=d["pos_input"],
+        mask_input=d["mask_input"],
+    )
+
+
 def graph_from_dict(d: dict, arrays) -> Graph:
-    if d.get("cache_spec"):
-        raise ArtifactError(
-            "the artifact's graph carries a KV-cache contract (cache_spec), "
-            "which waits for the port's decode slice"
-        )
     nodes: list[Node] = []
     for i, nd in enumerate(d["nodes"]):
         nodes.append(
@@ -184,7 +208,11 @@ def graph_from_dict(d: dict, arrays) -> Graph:
                 value=arrays[f"const_{i}"] if nd["op"] == "const" else None,
             )
         )
-    return Graph(outputs=[nodes[j] for j in d["outputs"]], name=d["name"])
+    return Graph(
+        outputs=[nodes[j] for j in d["outputs"]],
+        name=d["name"],
+        cache_spec=_cache_spec_from_dict(d["cache_spec"]) if d.get("cache_spec") else None,
+    )
 
 
 def graph_fingerprint(graph: Graph) -> str:
@@ -213,6 +241,10 @@ def graph_fingerprint(graph: Graph) -> str:
             h.update(f"{v.dtype}{v.shape}".encode())
             h.update(v.tobytes())
     h.update(json.dumps([idx[o] for o in graph.outputs]).encode())
+    # the decode-state contract is part of the graph's identity; stateless
+    # graphs hash exactly as before (no material added)
+    if graph.cache_spec is not None:
+        h.update(json.dumps(_cache_spec_to_dict(graph.cache_spec), sort_keys=True).encode())
     return h.hexdigest()
 
 
@@ -408,8 +440,9 @@ def load_module(path: str | Path, *, device: torch.device, desc=None) -> Compile
 
     Validation is strict and every failure is an :class:`ArtifactError`
     naming the mismatch: schema version, npz content hash, architecture
-    fingerprint, stored-graph fingerprint, and the rebuilt-plan skeleton.
-    Restoration performs zero DSE sweeps, zero measurements, and zero
+    fingerprint, stored-graph fingerprint, and the rebuilt-plan skeleton;
+    then the static verifier runs on the restored graph and plan, and any
+    finding raises :class:`VerifyError`.  Restoration performs zero DSE sweeps, zero measurements, and zero
     pass-pipeline rewrites: executors are re-derived from the persisted
     schedules and the plan is rebuilt deterministically."""
     path = Path(path)
@@ -462,6 +495,12 @@ def load_module(path: str | Path, *, device: torch.device, desc=None) -> Compile
             f"from the stored graph/schedules does not match the stored "
             f"skeleton (compiler drift across versions?)"
         )
+    # static verification of the restored graph + plan: the skeleton check
+    # above proves the plan matches the manifest, the verifier proves both
+    # are internally consistent (shapes, dtypes, targets, slot lifetimes)
+    diags = verify_graph(graph, desc) + verify_plan(plan)
+    if diags:
+        raise VerifyError(f"artifact at {path}", diags)
     return module
 
 
@@ -619,7 +658,9 @@ class ArtifactStore:
             return None
         try:
             module = load_module(p, device=device, desc=desc)
-        except ArtifactError as e:
+        except (ArtifactError, VerifyError) as e:
+            # VerifyError included: a cached entry that fails static
+            # verification is as unusable as a torn one — recompile
             warnings.warn(
                 f"ignoring unusable compile artifact at {p}: {e}",
                 RuntimeWarning,

@@ -9,8 +9,8 @@ numpy arrays, as the reference returns them.
 Port of ``repro.core.executor``: ``ExecutionPlan`` with its build-time
 stage assignment, ``build_plan``, ``CompiledModule.run``/``run_many``
 (sequential; ``pipelined=True`` runs the same loop), ``FeedError``, ``input_signature``,
-``modeled_cycles`` and ``schedules``.  The per-node interpreter
-(``use_plan=False``) and the collective and KV-cache ops wait for their
+``modeled_cycles``, ``schedules`` and the KV-cache ops.  The per-node
+interpreter (``use_plan=False``) and the collective ops wait for their
 slices.  Host ops are torch ops with every cast written out: numpy 2 and
 torch promote differently, so each op computes in the dtype numpy's
 promotion would give, decided when the plan is built.
@@ -29,6 +29,14 @@ A dense or conv that the description leaves on the host runs here, as
 the reference's ``ir.execute_node`` computes it, only on the CPU: on a
 card it would be a plain GEMM beside the kernel, so a module on ``cuda``
 refuses it when its plan is built, at compile or load time.
+
+``kv_cache_append`` writes the update's rows into a copy of the cache with
+one indexed write on the module's device, bit-equal to ``ir.kv_append_ref``.
+Its bounds are checked on the host without a device sync: where ``pos`` is
+a graph input, the plan checks the numpy feed on entry, before any step
+runs; a ``pos`` computed inside the plan is checked when the append runs
+(on a card, one sync).  An out-of-bounds write raises the reference's
+``ValueError`` and is never clamped.
 """
 
 from __future__ import annotations
@@ -41,7 +49,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.accel import AcceleratorDescription
-from repro_torch.core.ir import Graph, Node
+from repro_torch.core.ir import Graph, Node, check_append_bounds
 from repro_torch.core.simulator import simulate
 from repro_torch.core.strategy import Strategy, dtype_bytes, gemm_instances
 from repro_torch.kernels.ref import torch_dtype
@@ -110,11 +118,28 @@ class CompiledOp:
     executor: Callable[..., torch.Tensor]
 
 
-def compile_host_op(n: Node, device: torch.device) -> Callable[..., torch.Tensor]:
+def kv_append(cache: torch.Tensor, update: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """``ir.kv_append_ref`` on tensors, without its bounds check: a copy of
+    ``cache`` with ``update``'s rows written at each slot's ``pos``, as one
+    indexed write on the cache's device (no host round trip)."""
+    s = update.shape[-2]
+    out = cache.clone()
+    rows = pos.to(torch.int64).unsqueeze(-1) + torch.arange(s, device=cache.device)
+    if pos.dim() == 0:
+        return out.index_copy_(-2, rows, update)
+    slots = torch.arange(pos.shape[0], device=cache.device).unsqueeze(-1)
+    out[slots, ..., rows, :] = update
+    return out
+
+
+def compile_host_op(
+    n: Node, device: torch.device, *, pos_checked: bool = False
+) -> Callable[..., torch.Tensor]:
     """Specialize one host op into a torch closure on ``device``, with the
     semantics of the reference's ``compile_host_op`` (numpy): scalars are
     device tensors of the dtype numpy would compute in, and every result
-    is cast to the dtype the numpy expression yields."""
+    is cast to the dtype the numpy expression yields.  ``pos_checked``
+    says that the plan checks a ``kv_cache_append``'s bounds on entry."""
     op, attrs = n.op, n.attrs
     dt = torch_dtype(n.dtype)
     in_dtypes = [i.dtype for i in n.inputs if i is not None]
@@ -170,6 +195,18 @@ def compile_host_op(n: Node, device: torch.device) -> Callable[..., torch.Tensor
             return lambda x, b: (x.to(torch.int64) + b.to(torch.int64)).to(dt)
         rt = result_dtype(*in_dtypes)
         return lambda x, b: x.to(rt) + b.to(rt)
+    if op == "kv_cache_read":
+        return lambda cache: cache
+    if op == "kv_cache_append":
+        s, limit = n.inputs[1].shape[-2], n.inputs[0].shape[-2]
+        if pos_checked:
+            return kv_append
+
+        def _append(cache, update, pos):
+            check_append_bounds(to_numpy(pos), s, limit)  # on a card, one sync
+            return kv_append(cache, update, pos)
+
+        return _append
     if op == "softmax":
         ax = attrs.get("axis", -1)
 
@@ -299,6 +336,9 @@ class ExecutionPlan:
     const_slots: tuple[tuple[int, torch.Tensor], ...]
     steps: tuple[PlanStep, ...]
     output_slots: tuple[int, ...]
+    #: (feed name, rows, cache rows) of every ``kv_cache_append`` whose pos
+    #: is a graph input: checked on the numpy feed before any step runs
+    append_checks: tuple[tuple[str, int, int], ...] = ()
 
     def __post_init__(self):
         # flat (slot, fn, arg_slots) triples: the hot loop avoids dataclass
@@ -307,7 +347,7 @@ class ExecutionPlan:
         # stage assignment: split steps into the two lanes, preserving topo
         # order within each, and compute per-step cross-lane watermarks.
         producer: dict[int, tuple[str, int]] = {}  # slot -> (lane, ordinal)
-        lanes: dict[str, list[int]] = {"host": [], "accel": []}
+        lanes: dict[str, list] = {"host": [], "accel": []}
         for s in self.steps:
             lane = s.lane if s.lane in lanes else "host"
             other = "accel" if lane == "host" else "host"
@@ -317,8 +357,8 @@ class ExecutionPlan:
                 if p is not None and p[0] == other:
                     need = max(need, p[1] + 1)
             producer[s.slot] = (lane, len(lanes[lane]))
-            lanes[lane].append(need)
-        self._lane_waits = {k: tuple(v) for k, v in lanes.items()}
+            lanes[lane].append((s.slot, s.fn, s.arg_slots, need))
+        self._lane_steps = {k: tuple(v) for k, v in lanes.items()}
 
     def new_arena(self) -> list:
         arena: list = [None] * self.n_slots
@@ -327,6 +367,9 @@ class ExecutionPlan:
         return arena
 
     def execute(self, feeds: dict[str, np.ndarray], arena: list) -> list[torch.Tensor]:
+        for name, rows, limit in self.append_checks:
+            if name in feeds:
+                check_append_bounds(feeds[name], rows, limit)
         for name, slot in self.input_slots:
             try:
                 arena[slot] = to_tensor(feeds[name], self.device)
@@ -346,13 +389,20 @@ class ExecutionPlan:
         for s in self.steps:
             lane = s.lane if s.lane in counts else "host"
             other = "accel" if lane == "host" else "host"
-            need = self._lane_waits[lane][counts[lane]]
+            need = self._lane_steps[lane][counts[lane]][3]
             counts[lane] += 1
             out.append({"name": s.name, "op": s.op, "lane": lane, f"waits_{other}": need})
         return tuple(out)
 
     def lane_sizes(self) -> dict[str, int]:
-        return {k: len(v) for k, v in self._lane_waits.items()}
+        return {k: len(v) for k, v in self._lane_steps.items()}
+
+    def recorded_lane_steps(self) -> dict[str, tuple]:
+        """The precomputed per-lane ``(slot, fn, arg_slots, watermark)``
+        tuples of the stage assignment, in the reference's shape, so
+        ``repro_torch.core.verify`` can re-derive the watermarks
+        independently and check dominance (the static race detector)."""
+        return self._lane_steps
 
 
 def build_plan(
@@ -364,6 +414,7 @@ def build_plan(
     input_slots: list[tuple[str, int]] = []
     const_slots: list[tuple[int, torch.Tensor]] = []
     steps: list[PlanStep] = []
+    append_checks: list[tuple[str, int, int]] = []
     for n in order:
         slot = slot_of[n]
         if n.op == "input":
@@ -374,7 +425,14 @@ def build_plan(
             arg_slots = tuple(
                 _NONE_SLOT if i is None else slot_of[i] for i in n.inputs
             )
-            fn = ops[n].executor if n in ops else compile_host_op(n, device)
+            pos_checked = n.op == "kv_cache_append" and n.inputs[2].op == "input"
+            if pos_checked:
+                cache, update, pos = n.inputs
+                append_checks.append((pos.name, update.shape[-2], cache.shape[-2]))
+            if n in ops:
+                fn = ops[n].executor
+            else:
+                fn = compile_host_op(n, device, pos_checked=pos_checked)
             lane = "accel" if n in ops else "host"
             steps.append(PlanStep(slot, fn, arg_slots, n.op, n.name, lane))
     return ExecutionPlan(
@@ -384,6 +442,7 @@ def build_plan(
         const_slots=tuple(const_slots),
         steps=tuple(steps),
         output_slots=tuple(slot_of[o] for o in graph.outputs),
+        append_checks=tuple(append_checks),
     )
 
 
@@ -499,6 +558,16 @@ class CompiledModule:
                 # per batch instance; everything else folds batch into M
                 # and is already covered by the schedule itself.
                 accel += rep.total_cycles * gemm_instances(n)
+            elif n.op == "kv_cache_read":
+                # streams the whole cache once into the attention GEMMs
+                nbytes = math.prod(n.shape) * dtype_bytes(n.dtype)
+                host += nbytes * arch.host_preproc_cycles_per_byte
+            elif n.op == "kv_cache_append":
+                # modeled as an in-place row write: only the update payload
+                # moves (the functional copy is an emulation artifact)
+                upd = n.inputs[1]
+                nbytes = math.prod(upd.shape) * dtype_bytes(upd.dtype)
+                host += nbytes * arch.host_epilogue_cycles_per_byte
             elif n.op in _LAYOUT_OPS and n.op not in FREE_VIEW_OPS:
                 nbytes = math.prod(n.shape) * dtype_bytes(n.dtype)
                 host += nbytes * arch.host_preproc_cycles_per_byte

@@ -12,10 +12,10 @@ preprocessing (transpose / reshape / im2col / quantize), elementwise ops
 the host executes, and the *generalized* fused operators the legalization
 pass introduces.
 
-Port of ``repro.core.ir``: the graph, the builders and the numpy reference
-executor, which constant folding runs at compile time.  The collective,
-shard and KV-cache ops (and ``CacheSpec``) wait for the sharded and decode
-slices of the port.
+Port of ``repro.core.ir``: the graph, the builders (the KV-cache ops and
+``CacheSpec`` included), ``clone_graph`` and the numpy reference executor,
+which constant folding runs at compile time.  The collective and shard ops
+wait for the sharded slice of the port.
 """
 
 from __future__ import annotations
@@ -50,6 +50,33 @@ HOST_OPS = {
 
 # Multi-op sequences the legalizer fuses into these generalized operators.
 GENERALIZED_OPS = {"generalized_dense", "generalized_conv2d"}
+
+# Stateful KV-cache ops for LM decode.  The IR stays functional: the cache
+# is an ordinary graph input and ``kv_cache_append`` returns the updated
+# cache as an ordinary output — the serve engine threads outputs back into
+# the next step's feeds (``CacheSpec.state`` names the wiring).  They are
+# host-resident by contract: the partitioner never offloads them.
+CACHE_OPS = {"kv_cache_read", "kv_cache_append"}
+HOST_OPS |= CACHE_OPS
+
+
+@dataclass(frozen=True)
+class CacheSpec:
+    """Decode-state contract carried on a :class:`Graph`.
+
+    ``state`` maps each cache *input* name to the graph *output* index that
+    carries its updated value, so a runtime can feed step N's cache outputs
+    straight back as step N+1's cache inputs without knowing the model.
+    ``layout`` is ``"LD"`` (``[max_len, d]`` per sample) or ``"BLD"`` with a
+    leading batch dim; ``dtype`` is the stored KV dtype (int8 by default).
+    """
+
+    max_len: int
+    dtype: str = "int8"
+    layout: str = "LD"
+    state: tuple[tuple[str, int], ...] = ()
+    pos_input: str = "pos"
+    mask_input: str = "mask"
 
 
 @dataclass
@@ -98,6 +125,8 @@ class Graph:
 
     outputs: list[Node]
     name: str = "graph"
+    # decode-state contract for stateful (KV-cache) graphs; None otherwise
+    cache_spec: CacheSpec | None = None
     _order: list[Node] | None = field(
         default=None, init=False, repr=False, compare=False
     )
@@ -304,6 +333,77 @@ def softmax(x: Node, axis: int = -1) -> Node:
     return Node("softmax", [x], {"axis": axis}, shape=x.shape, dtype=out_dtype)
 
 
+def kv_cache_read(cache: Node) -> Node:
+    """Materialize the full cache for attention (identity payload; marks the
+    state consumption so it is costed and never folded into accel regions)."""
+    return Node("kv_cache_read", [cache], shape=cache.shape, dtype=cache.dtype)
+
+
+def kv_cache_append(cache: Node, update: Node, pos: Node) -> Node:
+    """Functional append: write ``update``'s rows into ``cache`` along the
+    sequence axis (-2) starting at ``pos``, returning the updated cache.
+
+    Shapes: ``cache[..., L, D]``, ``update[..., S, D]`` with ``S <= L`` and
+    matching leading/feature dims; ``pos`` is a scalar int32, or ``[B]`` for
+    per-request positions on batched ``[B, L, D]`` caches (continuous
+    batching appends each slot at its own length).  Writes must stay in
+    bounds — the executor raises rather than clamping.
+    """
+    if update.dtype != cache.dtype:
+        raise ValueError(
+            f"kv_cache_append dtype mismatch: cache {cache.dtype} vs update {update.dtype}"
+        )
+    if (
+        len(update.shape) != len(cache.shape)
+        or update.shape[:-2] != cache.shape[:-2]
+        or update.shape[-1] != cache.shape[-1]
+        or update.shape[-2] > cache.shape[-2]
+    ):
+        raise ValueError(
+            f"kv_cache_append shape mismatch: cache {cache.shape} vs update {update.shape}"
+        )
+    if pos.shape not in ((), cache.shape[:-2]):
+        raise ValueError(
+            f"kv_cache_append pos shape {pos.shape} for cache {cache.shape}"
+        )
+    return Node(
+        "kv_cache_append", [cache, update, pos], shape=cache.shape, dtype=cache.dtype
+    )
+
+
+def check_append_bounds(pos: np.ndarray, s: int, limit: int) -> None:
+    """Raise ``ValueError`` unless every append of ``s`` rows at ``pos``
+    stays inside a cache of ``limit`` rows (the reference's messages)."""
+    pos = np.asarray(pos)
+    if pos.ndim == 0:
+        p = int(pos)
+        if p < 0 or p + s > limit:
+            raise ValueError(f"kv_cache_append out of bounds: pos {p} + {s} > {limit}")
+        return
+    for b, p in enumerate(pos.astype(np.int64).ravel()):
+        p = int(p)
+        if p < 0 or p + s > limit:
+            raise ValueError(
+                f"kv_cache_append out of bounds: pos {p} + {s} > {limit} (slot {b})"
+            )
+
+
+def kv_append_ref(cache: np.ndarray, update: np.ndarray, pos: np.ndarray) -> np.ndarray:
+    """The single append definition every execution path shares (the
+    interpreter here, and the planned host closure bit for bit)."""
+    s = update.shape[-2]
+    check_append_bounds(pos, s, cache.shape[-2])
+    out = np.array(cache)
+    pos = np.asarray(pos)
+    if pos.ndim == 0:
+        p = int(pos)
+        out[..., p : p + s, :] = update
+    else:
+        for b, p in enumerate(pos.astype(np.int64).ravel()):
+            out[b, ..., int(p) : int(p) + s, :] = update[b]
+    return out
+
+
 def add(a: Node, b: Node) -> Node:
     return Node("add", [a, b], shape=_binary_shape(a, b), dtype=a.dtype)
 
@@ -405,6 +505,10 @@ def execute_node(n: Node, inputs: list[np.ndarray]) -> np.ndarray:
         x = inputs[0].astype(np.float64)
         e = np.exp(x - np.max(x, axis=ax, keepdims=True))
         return (e / np.sum(e, axis=ax, keepdims=True)).astype(n.dtype)
+    if op == "kv_cache_read":
+        return np.asarray(inputs[0])
+    if op == "kv_cache_append":
+        return kv_append_ref(inputs[0], inputs[1], inputs[2])
     if op == "add":
         return inputs[0] + inputs[1]
     if op == "sub":
@@ -439,6 +543,33 @@ def execute_node(n: Node, inputs: list[np.ndarray]) -> np.ndarray:
         # evaluated through its dense form after im2col by the executor
         raise NotImplementedError("generalized_conv2d executes via backend lowering")
     raise NotImplementedError(f"execute_node: {op}")
+
+
+def clone_graph(graph: Graph) -> Graph:
+    """A structural deep copy: fresh ``Node`` objects wired like the
+    originals, in the SAME topological order and with the SAME names, and
+    the same ``cache_spec``.  Attr dicts are copied deep enough to mutate
+    independently; const arrays are shared (read-only by convention)."""
+    import copy
+
+    mapping: dict[Node, Node] = {}
+    for n in graph.toposort():
+        c = Node(
+            n.op,
+            [mapping[i] if i is not None else None for i in n.inputs],
+            copy.deepcopy(n.attrs),
+            shape=n.shape,
+            dtype=n.dtype,
+            name=n.name,
+            target=n.target,
+            value=n.value,
+        )
+        mapping[n] = c
+    return Graph(
+        [mapping[o] for o in graph.outputs],
+        name=graph.name,
+        cache_spec=graph.cache_spec,
+    )
 
 
 def execute_graph(graph: Graph, feeds: dict[str, np.ndarray]) -> list[np.ndarray]:

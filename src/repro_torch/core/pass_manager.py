@@ -17,8 +17,9 @@ The resulting ``PipelineReport`` is attached to every ``CompiledModule``
 (``module.pass_report``), so "what did the optimizer actually do" is
 always one attribute away.
 
-Port of ``repro.core.pass_manager``: plain Python, without the reference's
-static-verification gate (``repro.core.verify`` is not ported yet).
+Port of ``repro.core.pass_manager``: plain Python, with the reference's
+static-verification gate (``PassManager(verify=...)``, env
+``REPRO_VERIFY``; see ``repro_torch.core.verify``).
 """
 
 from __future__ import annotations
@@ -153,17 +154,42 @@ class PipelineReport:
 
 @dataclass
 class PassManager:
-    """Runs a pass list over a graph with per-pass instrumentation."""
+    """Runs a pass list over a graph with per-pass instrumentation.
+
+    ``verify`` is the pass-invariant gate: ``'each'`` re-verifies the graph
+    after every pass (and once before the first, so a broken *input* graph
+    is attributed to the frontend rather than to pass 0), ``'final'``
+    verifies once after the pipeline, ``'off'`` disables the gate.  ``None``
+    defers to the ``REPRO_VERIFY`` environment variable (default off).
+    A violation raises ``repro_torch.core.verify.VerifyError`` whose subject
+    names the offending pass and the rewrite rules it fired."""
 
     passes: list[GraphPass]
+    verify: str | None = None
+
+    def resolved_verify(self) -> str:
+        from repro_torch.core.verify import resolve_verify
+
+        return resolve_verify(self.verify)
+
+    @staticmethod
+    def _verify_graph(graph: Graph, ctx: PassContext, subject: str) -> None:
+        from repro_torch.core.verify import VerifyError, verify_graph
+
+        diags = verify_graph(graph, ctx.desc)
+        if diags:
+            raise VerifyError(subject, diags)
 
     def run(self, graph: Graph, ctx: PassContext | None = None) -> PipelineReport:
         ctx = ctx or PassContext()
         trace = ctx.resolved_trace()
+        verify = self.resolved_verify()
         dump_dir = ctx.resolved_dump_dir()
         if dump_dir is not None:
             dump_dir.mkdir(parents=True, exist_ok=True)
         report = PipelineReport(graph_name=graph.name, mode=ctx.mode)
+        if verify == "each":
+            self._verify_graph(graph, ctx, f"graph {graph.name!r} before any pass ran")
         for i, p in enumerate(self.passes):
             nodes_before = len(graph.toposort())
             if dump_dir is not None:
@@ -190,6 +216,19 @@ class PassManager:
                     f"nodes {nodes_before}->{nodes_after} {dt_ms:.2f}ms",
                     file=sys.stderr,
                 )
+            if verify == "each":
+                fired = (
+                    " (rules fired: "
+                    + ", ".join(f"{k} x{v}" for k, v in sorted(detail.items()))
+                    + ")"
+                    if detail
+                    else ""
+                )
+                self._verify_graph(
+                    graph, ctx, f"graph {graph.name!r} after pass {p.name!r}{fired}"
+                )
+        if verify == "final":
+            self._verify_graph(graph, ctx, f"graph {graph.name!r} after the pass pipeline")
         return report
 
     @staticmethod

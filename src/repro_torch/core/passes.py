@@ -42,6 +42,7 @@ from __future__ import annotations
 import numpy as np
 
 from repro_torch.core.accel import AcceleratorDescription
+from repro_torch.core import ir
 from repro_torch.core.ir import Graph, Node, const, execute_node
 from repro_torch.core.pass_manager import GraphPass, PassContext, rewrite_pass
 from repro_torch.core.rewrite import Match, P, any_, rule
@@ -369,6 +370,7 @@ def _partition(graph: Graph, ctx: PassContext) -> int:
         if (
             base in supported
             and n.op != "input"
+            and n.op not in ir.CACHE_OPS  # state stays host-resident
             and desc.supports_dtype(n.op, operand_dtype)
         ):
             n.target = "accel"

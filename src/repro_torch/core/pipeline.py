@@ -25,12 +25,13 @@ Three modes reproduce the paper's evaluation matrix (§4, Table 2):
                       run per inference), naive schedules, per-tile
                       instruction issue.
 
-Port of ``repro.core.pipeline``, without the verify gate, the shard
-pass and the deprecated two-step ``compile``.  A selected schedule that
-violates a hardware constraint raises ``ScheduleError`` where the
-reference raises its ``VerifyError``.  Measured DSE times the executor on
-the module's device, and its cache entries name that device
-(``schedule_cache.measured_selector``).
+Port of ``repro.core.pipeline``, with the verify gate (``compile_graph(
+verify=...)``: the pass-invariant gate plus ``verify_plan`` of the built
+plan) and without the shard pass and the deprecated two-step ``compile``.
+A selected schedule that violates a hardware constraint raises
+``VerifyError`` with ``S_SCHEDULE`` diagnostics, as the reference does.
+Measured DSE times the executor on the module's device, and its cache
+entries name that device (``schedule_cache.measured_selector``).
 """
 
 from __future__ import annotations
@@ -52,6 +53,7 @@ from repro_torch.core.schedule_cache import ScheduleCache, measured_selector
 from repro_torch.core.scheduler import ExtendedCosaScheduler, ScheduleResult
 from repro_torch.core.simulator import simulate
 from repro_torch.core.strategy import StrategyGenerator, workload_from_node
+from repro_torch.core.verify import Diagnostic, VerifyError, verify_plan
 
 MODES = ("proposed", "c_toolchain", "naive")
 
@@ -78,16 +80,6 @@ def resolve_mode(mode: str) -> str:
             f"unknown mode {mode!r}; expected one of {PUBLIC_MODES} "
             f"(or internal {MODES})"
         ) from None
-
-
-class ScheduleError(ValueError):
-    """A selected schedule violates a hardware constraint; ``.problems``
-    lists every violation."""
-
-    def __init__(self, subject: str, problems: list[str]):
-        self.problems = problems
-        bullet = "\n  - ".join(problems)
-        super().__init__(f"{subject}:\n  - {bullet}")
 
 
 def device_tag(device: torch.device) -> str:
@@ -167,9 +159,9 @@ class CompilerBackend:
         instead of lowering to a kernel."""
         errors = validate_schedule(result.best, self.desc.arch)
         if errors:
-            raise ScheduleError(
+            raise VerifyError(
                 f"selected schedule for node {node.name!r} on {self.desc.name!r}",
-                list(errors),
+                [Diagnostic("S_SCHEDULE", node.name, e) for e in errors],
             )
         return result
 
@@ -259,6 +251,7 @@ class CompilerBackend:
         passes: list | None = None,
         pass_context: PassContext | None = None,
         measure_top_k: int | None = None,
+        verify: str | None = None,
     ) -> CompiledModule:
         """Compile a graph: run the mode's pass pipeline, schedule every
         accelerator node, lower executors, and build the execution plan on
@@ -272,11 +265,17 @@ class CompilerBackend:
         ``REPRO_PASS_DUMP``).  ``measure_top_k`` enables measured DSE: the
         K best modeled candidates per node are timed on the lowered
         executor on ``device`` and the wall-clock winner is selected
-        (cached under a ``measured_selector`` key).
+        (cached under a ``measured_selector`` key).  ``verify`` is the
+        static-verification gate (``'each'``/``'final'``/``'off'``; ``None``
+        reads ``REPRO_VERIFY``): the pass-invariant gate inside the
+        ``PassManager`` plus a lifetime/race analysis of the built
+        ``ExecutionPlan``.
         """
         mode = resolve_mode(mode)
         device = torch.device(device)
-        pm = PassManager(passes_for_mode(self.desc, mode) if passes is None else passes)
+        pm = PassManager(
+            passes_for_mode(self.desc, mode) if passes is None else passes, verify=verify
+        )
         # never mutate a caller-supplied context: it may be shared across
         # backends or concurrent compiles
         ctx = replace(pass_context or PassContext(), desc=self.desc, mode=mode)
@@ -301,5 +300,9 @@ class CompilerBackend:
             self.schedule_cache.flush()
         # precompute the execution plan (topo order, slot indices, device
         # constants) once here, so every run() is a flat loop over steps.
-        module.finalize()
+        plan = module.finalize()
+        if pm.resolved_verify() != "off":
+            diags = verify_plan(plan)
+            if diags:
+                raise VerifyError(f"execution plan for graph {graph.name!r}", diags)
         return module

@@ -21,8 +21,14 @@ and graph builders, with the same numpy generators and draw orders, so
 the weights are the reference's.  ``build(batch, params)`` also takes the
 reference's parameter dict — numpy arrays as ``repro.core.zoo.mlp_params``,
 ``qcnn_params`` or ``transformer_params`` return them — after checking
-every name, shape and dtype.  The traced-frontend twins
-(``jnp_fn``/``trace``) and the decode zoo wait for their slices.
+every name, shape and dtype.
+
+The decode zoo (``DECODE_ZOO``, ``attn_decode``) is the stateful form: a
+quantized attention step over an int8 KV cache, whose ``build(seq, batch,
+params)`` gives the decode step (``seq=1``, optionally batched) or the
+prefill (``seq=P``), both carrying the same ``CacheSpec``.  The
+traced-frontend twins (``jnp_fn``/``trace``) of both zoos wait for the
+port's frontend.
 """
 
 from __future__ import annotations
@@ -57,6 +63,20 @@ TF_PROBS_SCALE = 1.0 / 128.0
 TF_D_MODEL = 64
 TF_D_FF = 128
 TF_SEQ = 16
+
+# attn_decode width: d_model of the xlstm_125m smoke config
+# (``repro.configs.xlstm_125m.smoke_config``), which the reference reads
+# at build time; the port keeps it as a constant
+DECODE_D_MODEL = 64
+
+#: default KV capacity of the decode zoo entry (rows per request)
+DECODE_MAX_LEN = 64
+
+#: additive attention-mask values: masking keeps every plan shape static
+#: (decode always attends the full ``max_len`` cache); exp(-1e9) underflows
+#: to exactly 0.0 in the float64 host softmax, so masked rows never perturb
+#: bit-exactness.
+MASK_BLOCKED = -1e9
 
 
 def check_params(expected: dict[str, np.ndarray], params: dict) -> dict[str, np.ndarray]:
@@ -261,6 +281,232 @@ def transformer_block_graph(
     f = proj(f, "f2")
     out = ir.add(f, h)
     return ir.Graph([out], name="transformer_block")
+
+
+def decode_mask(pos, max_len: int) -> np.ndarray:
+    """Decode-step mask: the new token (just appended at ``pos``) attends
+    cache rows ``[0, pos]``.  Scalar ``pos`` -> ``(1, L)``; a ``[B]`` vector
+    of per-request positions -> ``(B, 1, L)``."""
+    pos = np.asarray(pos)
+    j = np.arange(max_len)
+    if pos.ndim == 0:
+        valid = j <= int(pos)
+        return np.where(valid, 0.0, MASK_BLOCKED).astype(np.float32)[None, :]
+    valid = j[None, :] <= pos.astype(np.int64)[:, None]
+    return np.where(valid, 0.0, MASK_BLOCKED).astype(np.float32)[:, None, :]
+
+
+def prefill_mask(seq: int, max_len: int) -> np.ndarray:
+    """Causal prefill mask ``(seq, L)``: row ``i`` attends rows ``[0, i]``.
+    Padding rows beyond the true prompt get the same causal treatment —
+    their outputs are ignored and their cache rows are overwritten by later
+    decode appends, so no validity column is needed."""
+    i = np.arange(seq)[:, None]
+    j = np.arange(max_len)[None, :]
+    return np.where(j <= i, 0.0, MASK_BLOCKED).astype(np.float32)
+
+
+def decode_params(seed: int = 0) -> dict[str, np.ndarray]:
+    d_model = DECODE_D_MODEL
+    rng = np.random.default_rng(seed)
+    params: dict[str, np.ndarray] = {}
+    # draw order is part of the golden parameterization: q, k, v, attn
+    for tag in ("q", "k", "v", "attn"):
+        params[f"w_{tag}"] = (
+            rng.normal(size=(d_model, d_model)) * 0.05
+        ).astype(np.float32)
+        params[f"b_{tag}"] = rng.integers(-64, 64, size=(d_model,)).astype(np.int32)
+    return params
+
+
+def attn_decode_graph(
+    seed: int = 0,
+    seq: int = 1,
+    max_len: int = DECODE_MAX_LEN,
+    batch: int | None = None,
+    params: dict[str, np.ndarray] | None = None,
+) -> ir.Graph:
+    """Quantized single-head attention step against an int8 KV cache.
+
+    ``seq=1`` is the decode step; ``seq=P`` is prefill — the SAME structure
+    (project, append to the cache at ``pos``, attend the full cache under an
+    additive mask), so prefill and decode compile to distinct
+    ``ExecutionPlan``s sharing one weight set.  The cache stores the
+    post-requantize int8 K/V activations directly, appended via the
+    stateful ``kv_cache_append`` op and threaded out as graph outputs 1 and
+    2 per the graph's ``CacheSpec``.
+
+    ``batch`` (decode only) prepends a batch dim: projections fold it into
+    GEMM M, the attention GEMMs become batched matmuls, and ``pos`` becomes
+    a ``[B]`` vector of per-request lengths — the continuous-batching shape.
+    """
+    if batch is not None and seq != 1:
+        raise ValueError("batched attn_decode supports seq=1 (decode) only")
+    d_model = DECODE_D_MODEL
+    p = decode_params(seed) if params is None else params
+    if batch is None:
+        x = ir.input_((seq, d_model), "int8", name="x")
+        k_cache = ir.input_((max_len, d_model), "int8", name="k_cache")
+        v_cache = ir.input_((max_len, d_model), "int8", name="v_cache")
+        pos = ir.input_((), "int32", name="pos")
+        mask = ir.input_((seq, max_len), "float32", name="mask")
+    else:
+        x = ir.input_((batch, 1, d_model), "int8", name="x")
+        k_cache = ir.input_((batch, max_len, d_model), "int8", name="k_cache")
+        v_cache = ir.input_((batch, max_len, d_model), "int8", name="v_cache")
+        pos = ir.input_((batch,), "int32", name="pos")
+        mask = ir.input_((batch, 1, max_len), "float32", name="mask")
+
+    def proj(h, tag):
+        return _qdense(h, p[f"w_{tag}"], p[f"b_{tag}"],
+                       w_scale=TF_W_SCALE, rq_scale=TF_RQ_SCALE)
+
+    q = proj(x, "q")
+    kc = ir.kv_cache_append(k_cache, proj(x, "k"), pos)
+    vc = ir.kv_cache_append(v_cache, proj(x, "v"), pos)
+    k_all = ir.kv_cache_read(kc)
+    v_all = ir.kv_cache_read(vc)
+    swap_last_two = (1, 0) if batch is None else (0, 2, 1)
+    scores = ir.dense(q, ir.transpose(k_all, swap_last_two))  # (.., seq, L) int32
+    masked = ir.add(ir.dequantize(scores, scale=1.0 / (64.0 * d_model)), mask)
+    probs = ir.quantize(ir.softmax(masked), scale=TF_PROBS_SCALE)
+    ctx = ir.requantize(ir.dense(probs, v_all), scale=TF_RQ_SCALE)
+    out = ir.add(proj(ctx, "attn"), x)
+    name = "attn_decode" if seq == 1 else "attn_prefill"
+    return ir.Graph(
+        [out, kc, vc],
+        name=name,
+        cache_spec=decode_cache_spec(max_len, batch),
+    )
+
+
+def decode_cache_spec(max_len: int, batch: int | None) -> ir.CacheSpec:
+    """The decode-state contract of ``attn_decode_graph``: the two caches
+    fed back from outputs 1 and 2."""
+    return ir.CacheSpec(
+        max_len=max_len,
+        dtype="int8",
+        layout="LD" if batch is None else "BLD",
+        state=(("k_cache", 1), ("v_cache", 2)),
+        pos_input="pos",
+        mask_input="mask",
+    )
+
+
+@dataclass(frozen=True)
+class DecodeModel:
+    """A stateful decode workload: two graph forms (prefill at ``seq=P``,
+    decode at ``seq=1``, optionally batched) sharing one parameter set —
+    the zoo contract extended with KV-cache state."""
+
+    name: str
+    description: str
+    d_model: int
+    max_len: int
+    #: golden graph builder: ``graph(seq, batch, params)``
+    graph: Callable[[int, int | None, dict], ir.Graph]
+    params: Callable[[], dict]
+    accelerators: tuple[str, ...]
+    n_gemms: int
+
+    def build(
+        self, seq: int = 1, batch: int | None = None, params: dict | None = None
+    ) -> ir.Graph:
+        """The golden graph: the decode step (``seq=1``; ``batch`` slots
+        with a ``[B]`` pos, or one request without) or the prefill of
+        ``seq`` rows, with the model's own parameters unless ``params``
+        supplies them (checked by ``check_params``)."""
+        expected = self.params()
+        p = expected if params is None else check_params(expected, params)
+        return self.graph(seq, batch, p)
+
+    def example_inputs(
+        self, seq: int = 1, batch: int | None = None
+    ) -> dict[str, np.ndarray]:
+        d, ml = self.d_model, self.max_len
+        if batch is None:
+            return {
+                "x": np.zeros((seq, d), np.int8),
+                "k_cache": np.zeros((ml, d), np.int8),
+                "v_cache": np.zeros((ml, d), np.int8),
+                "pos": np.zeros((), np.int32),
+                "mask": np.zeros((seq, ml), np.float32),
+            }
+        if seq != 1:
+            raise ValueError("batched attn_decode supports seq=1 (decode) only")
+        return {
+            "x": np.zeros((batch, 1, d), np.int8),
+            "k_cache": np.zeros((batch, ml, d), np.int8),
+            "v_cache": np.zeros((batch, ml, d), np.int8),
+            "pos": np.zeros((batch,), np.int32),
+            "mask": np.zeros((batch, 1, ml), np.float32),
+        }
+
+    def feeds(
+        self, seed: int = 0, pos=None, batch: int | None = None
+    ) -> dict[str, np.ndarray]:
+        """Decode-step feeds with a PRE-FILLED cache: rows ``[0, pos)`` hold
+        random int8 K/V (as if written by a prior prefill), the rest zeros.
+        Same generator and draw order as the reference."""
+        d, ml = self.d_model, self.max_len
+        rng = np.random.default_rng(seed)
+        if batch is None:
+            pos = np.asarray(ml // 2 if pos is None else pos, np.int32)
+            kc = np.zeros((ml, d), np.int8)
+            vc = np.zeros((ml, d), np.int8)
+            kc[: int(pos)] = rng.integers(-128, 128, (int(pos), d))
+            vc[: int(pos)] = rng.integers(-128, 128, (int(pos), d))
+            x = rng.integers(-128, 128, (1, d)).astype(np.int8)
+        else:
+            pos = (
+                rng.integers(0, ml - 1, (batch,)).astype(np.int32)
+                if pos is None
+                else np.asarray(pos, np.int32)
+            )
+            kc = np.zeros((batch, ml, d), np.int8)
+            vc = np.zeros((batch, ml, d), np.int8)
+            for b in range(batch):
+                kc[b, : int(pos[b])] = rng.integers(-128, 128, (int(pos[b]), d))
+                vc[b, : int(pos[b])] = rng.integers(-128, 128, (int(pos[b]), d))
+            x = rng.integers(-128, 128, (batch, 1, d)).astype(np.int8)
+        mask = decode_mask(pos, ml)
+        return {"x": x, "k_cache": kc, "v_cache": vc, "pos": pos, "mask": mask}
+
+
+DECODE_ZOO: dict[str, DecodeModel] = {
+    m.name: m
+    for m in (
+        DecodeModel(
+            name="attn_decode",
+            description=(
+                "stateful single-head decode step over an int8 KV cache "
+                "(xlstm_125m smoke shapes)"
+            ),
+            d_model=DECODE_D_MODEL,
+            max_len=DECODE_MAX_LEN,
+            graph=lambda seq, batch, params: attn_decode_graph(
+                seq=seq, batch=batch, params=params
+            ),
+            params=decode_params,
+            accelerators=("gemmini", "edge_npu"),
+            n_gemms=6,
+        ),
+    )
+}
+
+
+def decode_model_names() -> list[str]:
+    return sorted(DECODE_ZOO)
+
+
+def get_decode_model(name: str) -> DecodeModel:
+    try:
+        return DECODE_ZOO[name]
+    except KeyError:
+        known = ", ".join(decode_model_names())
+        raise KeyError(
+            f"unknown decode zoo model {name!r}; available: {known}"
+        ) from None
 
 
 def _mlp_model(name: str, description: str, layers: tuple[int, ...]) -> ZooModel:

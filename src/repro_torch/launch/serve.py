@@ -16,11 +16,17 @@ front door, with a micro-batching request queue.
     python -m repro_torch.launch.serve --zoo toycar_mlp --batch 64 \
         --artifact toycar.art
 
-Port of ``repro.launch.serve``: ``serve_zoo`` and the ``--zoo`` CLI with
-``--artifact`` / ``--save-artifact``.  ``serve_zoo`` also returns what it
-served (``ZooServeResult``), so a caller can check the responses.
-Sharded serving (``--devices``), the decode-zoo engine and LM serving
-(``--arch``) are not ported yet, and the CLI refuses them.
+    # a decode-zoo model through the continuous-batching engine: --batch
+    # decode slots, prompts up to --prompt-len rows, --new-tokens each
+    python -m repro_torch.launch.serve --zoo attn_decode --batch 8 \
+        --requests 64 --prompt-len 32 --new-tokens 16
+
+Port of ``repro.launch.serve``: ``serve_zoo`` and ``serve_decode``, and
+the ``--zoo`` CLI with ``--artifact`` / ``--save-artifact`` (zoo serving)
+and ``--prompt-len`` / ``--new-tokens`` (decode serving).  Both functions
+also return what they served (``ZooServeResult``, ``DecodeServeResult``),
+so a caller can check the responses.  Sharded serving (``--devices``) and
+LM serving (``--arch``) are not ported yet, and the CLI refuses them.
 """
 
 from __future__ import annotations
@@ -33,8 +39,15 @@ import numpy as np
 
 import repro_torch
 from repro_torch.core.batching import BatchedModule
-from repro_torch.core.zoo import ZOO, get_model, model_names
-from repro_torch.serve import BatchStats, MicroBatcher
+from repro_torch.core.zoo import ZOO, decode_model_names, get_decode_model, get_model, model_names
+from repro_torch.serve import (
+    BatchStats,
+    ContinuousBatchingEngine,
+    EngineConfig,
+    MicroBatcher,
+    ServeReport,
+    random_requests,
+)
 
 #: reference flags whose serving paths the port does not have yet
 _NOT_PORTED = {
@@ -159,6 +172,58 @@ def serve_zoo(args) -> ZooServeResult:
     )
 
 
+@dataclass
+class DecodeServeResult:
+    """What one ``serve_decode`` call served: the engine (its two compiled
+    modules and its block pool), the target, the report (every request
+    with its tokens and vectors) and the engine's compile time."""
+
+    engine: ContinuousBatchingEngine
+    target: repro_torch.Target
+    report: ServeReport
+    boot_s: float
+
+
+def serve_decode(args) -> DecodeServeResult:
+    """Serve a decode-zoo model through the continuous-batching engine:
+    two compiled ExecutionPlans (prefill + batched decode step) over a
+    block-based KV pool, finished slots backfilled from the queue."""
+    model = get_decode_model(args.zoo)
+    target = repro_torch.Target.parse(args.target, device=getattr(args, "device", "cuda"))
+    prompt_len = min(args.prompt_len, model.max_len - args.new_tokens)
+    if prompt_len < 1:
+        raise SystemExit(
+            f"--new-tokens {args.new_tokens} leaves no room for a prompt "
+            f"inside the {model.max_len}-row KV cache"
+        )
+    cfg = EngineConfig(
+        batch=args.batch,
+        prompt_len=prompt_len,
+        max_new_tokens=args.new_tokens,
+    )
+    t0 = time.perf_counter()
+    engine = ContinuousBatchingEngine(model, target, cfg)
+    t_boot = time.perf_counter() - t0
+    requests = random_requests(model, args.requests, cfg.prompt_len, seed=0)
+    report = engine.run(requests)
+    print(
+        f"[serve] {model.name} on {target.describe()}: continuous batching, "
+        f"{cfg.batch} decode slots, compiled prefill+decode plans in "
+        f"{t_boot * 1e3:.1f} ms (cold start)"
+    )
+    print(
+        f"[serve] {len(report.requests)} requests, {report.total_new_tokens} tokens "
+        f"in {report.wall_s:.3f}s ({report.tokens_per_s:.0f} tok/s); "
+        f"{report.decode_steps} decode steps, {report.prefills} prefills"
+    )
+    print(
+        f"[serve] block pool: {report.n_blocks} blocks x {report.block_size} "
+        f"rows, peak occupancy {report.peak_occupancy:.1%}"
+    )
+    print("[serve] sample tokens:", requests[0].tokens[:8])
+    return DecodeServeResult(engine=engine, target=target, report=report, boot_s=t_boot)
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.launch.serve",
@@ -195,6 +260,18 @@ def build_parser() -> argparse.ArgumentParser:
         "--save-artifact",
         help="save the served batched module as a compile artifact here",
     )
+    ap.add_argument(
+        "--prompt-len",
+        type=int,
+        default=32,
+        help="decode zoo: static prefill length (prompts up to this many rows)",
+    )
+    ap.add_argument(
+        "--new-tokens",
+        type=int,
+        default=16,
+        help="decode zoo: tokens generated per request",
+    )
     ap.add_argument("--arch", help=argparse.SUPPRESS)
     ap.add_argument("--devices", type=int, help=argparse.SUPPRESS)
     return ap
@@ -206,21 +283,28 @@ def main(argv: list[str] | None = None) -> None:
     if refused:
         raise SystemExit(
             f"not available in repro_torch yet: {', '.join(refused)}; "
-            f"only --zoo serving of the model zoo (with --artifact / "
-            f"--save-artifact) is ported"
+            f"only --zoo serving of the model zoo and the decode zoo is ported"
         )
     if not args.zoo:
         raise SystemExit("pass --zoo <model> (a zoo model to serve)")
-    if args.zoo not in ZOO:
+    if args.zoo not in ZOO and args.zoo not in decode_model_names():
         raise SystemExit(
-            f"unknown zoo model {args.zoo!r}; available: {', '.join(model_names())} "
-            f"(the decode zoo is not available in repro_torch yet)"
+            f"unknown zoo model {args.zoo!r}; available: "
+            f"{', '.join(model_names() + decode_model_names())}"
         )
     if args.requests < 1:
         raise SystemExit("--requests must be >= 1")
     if args.batch < 1:
         raise SystemExit("--batch must be >= 1")
-    serve_zoo(args)
+    if args.zoo in decode_model_names():
+        if args.artifact or args.save_artifact:
+            raise SystemExit(
+                "--artifact / --save-artifact boot batched zoo serving; the decode "
+                "zoo compiles its prefill and decode plans inside the engine"
+            )
+        serve_decode(args)
+    else:
+        serve_zoo(args)
 
 
 if __name__ == "__main__":

@@ -330,11 +330,14 @@ def test_sharded_manifest_is_refused(tmp_path):
 
 
 def test_cache_spec_graph_is_refused(saved):
+    """A cache_spec is part of the graph's fingerprint: one slipped into a
+    manifest is refused (decode artifacts themselves load: see
+    test_torch_decode.py)."""
     path, man = saved
     man["graph"]["cache_spec"] = {"max_len": 8, "dtype": "int8", "layout": "bshd", "state": [],
                                   "pos_input": "pos", "mask_input": None}
     _rewrite(path, man)
-    with pytest.raises(repro_torch.ArtifactError, match="decode slice"):
+    with pytest.raises(repro_torch.ArtifactError, match="graph verification"):
         repro_torch.load(path, device="cpu")
 
 

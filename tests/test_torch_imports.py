@@ -37,6 +37,12 @@ COMPILE_SERVICE_MODULES = (
     "repro_torch.core.artifact",
 )
 
+#: the decode path's modules and the static verifier
+DECODE_MODULES = (
+    "repro_torch.core.verify",
+    "repro_torch.serve.continuous",
+)
+
 
 def _imported_modules(path: Path) -> list[str]:
     names = []
@@ -114,6 +120,45 @@ def test_compile_service_runs_with_jax_blocked(tmp_path):
         "print('ok', [k for k in sys.modules if k.split('.')[0] in ('jax', 'repro')])\n"
     )
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, env=env, timeout=120
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert "ok ['jax', 'repro']" in proc.stdout
+
+
+def test_decode_modules_are_checked_files():
+    checked = {str(p.relative_to(ROOT / "src")) for p in PORT_FILES if p.is_relative_to(ROOT / "src")}
+    for module in DECODE_MODULES:
+        assert f"{module.replace('.', '/')}.py" in checked, module
+
+
+def test_decode_path_and_verifier_run_with_jax_blocked(tmp_path):
+    """The decode engine, a decode artifact's save and verified load, and
+    the verifier's sweep, in a process where importing jax or repro fails."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "import importlib\n"
+        f"for name in {DECODE_MODULES!r}:\n"
+        "    importlib.import_module(name)\n"
+        "import repro_torch\n"
+        "from repro_torch.core import verify\n"
+        "from repro_torch.serve import ContinuousBatchingEngine, EngineConfig, random_requests\n"
+        "model = repro_torch.get_decode_model('attn_decode')\n"
+        "t = repro_torch.Target('gemmini', device='cpu', cache=False)\n"
+        "eng = ContinuousBatchingEngine(model, t, EngineConfig(batch=2, prompt_len=4, max_new_tokens=3))\n"
+        "rep = eng.run(random_requests(model, 3, 4, seed=0))\n"
+        "assert rep.total_new_tokens == 9\n"
+        f"repro_torch.save(eng.decode_mod, {str(tmp_path / 'art')!r})\n"
+        f"m = repro_torch.load({str(tmp_path / 'art')!r}, device='cpu')\n"
+        "assert m.graph.cache_spec == eng.decode_mod.graph.cache_spec\n"
+        "assert verify.main(['--sweep', '--device', 'cpu', '--accelerators', 'edge_npu',\n"
+        "                    '--modes', 'naive']) == 0\n"
+        "print('ok', [k for k in sys.modules if k.split('.')[0] in ('jax', 'repro')])\n"
+    )
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "REPRO_TORCH_CACHE_DIR": str(tmp_path)}
     proc = subprocess.run(
         [sys.executable, "-c", code], capture_output=True, text=True, env=env, timeout=120
     )

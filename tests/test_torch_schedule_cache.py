@@ -35,7 +35,7 @@ from repro_torch.core import ir, zoo
 from repro_torch.core.arch_spec import GemmWorkload
 from repro_torch.core.executor import compile_host_op
 from repro_torch.core.passes import frontend_passes
-from repro_torch.core.pass_manager import PassContext
+from repro_torch.core.pass_manager import GraphPass, PassContext
 from repro_torch.core.schedule_cache import (
     ScheduleCache,
     default_cache_dir,
@@ -543,8 +543,25 @@ def test_allow_host_fallback_false_raises_capability_error():
 
 
 def test_verify_gate_is_refused_until_ported():
-    with pytest.raises(NotImplementedError, match="repro.core.verify"):
-        repro_torch.CompileOptions(verify="each")
-    with pytest.raises(ValueError, match="verify must be"):
+    """The gate is ported: 'each' and 'final' compile and verify (a clean
+    module passes, a broken pass is refused); an unknown mode is refused."""
+    for mode in ("each", "final", "off"):
+        assert repro_torch.CompileOptions(verify=mode).verify == mode
+        module = repro_torch.compile(
+            "qcnn", repro_torch.Target("edge_npu", device="cpu", cache=False),
+            options=repro_torch.CompileOptions(verify=mode),
+        )
+        assert repro_torch.verify(module) == []
+
+    def breaker(graph, ctx):
+        graph.outputs[0].shape = (1, 3)
+        return 1
+
+    with pytest.raises(repro_torch.VerifyError, match="after pass 'breaker'"):
+        repro_torch.compile(
+            zoo.get_model("mlp_tiny").build(), repro_torch.Target("gemmini", device="cpu", cache=False),
+            options=repro_torch.CompileOptions(
+                verify="each", passes=[GraphPass(name="breaker", fn=breaker)]),
+        )
+    with pytest.raises(ValueError, match="invalid verify mode 'sometimes'"):
         repro_torch.CompileOptions(verify="sometimes")
-    assert repro_torch.CompileOptions(verify="off").verify == "off"

@@ -185,7 +185,7 @@ def test_serve_zoo_prints_its_lines_and_serves_per_request_results(capsys, name,
     [
         (["--zoo", "toycar_mlp", "--devices", "2"], "--devices"),
         (["--arch", "musicgen_medium"], "--arch"),
-        (["--zoo", "attn_decode"], "decode zoo"),
+        (["--zoo", "attn_decode", "--artifact", "dec.art"], "decode zoo"),
         ([], "pass --zoo"),
     ],
 )
