@@ -95,13 +95,32 @@ fails; nothing is caught and passed over:
  12. the verify gate: ``CompileOptions(verify="each")`` on ``cuda`` for every
      phase-6 module and every phase-11 module, zero diagnostics, the time
      spent in the verifier beside the compile's.
+ 13. the LM: every host op the port lowers x 8 dtypes on ``cuda`` against
+     the CPU run (integers bit-equal, gelu and softmax within
+     ``CARD_ULP_BOUND``); then codeqwen1.5-7b at its published config (32
+     layers, d_model 4096, 32 heads with QKV bias, d_ff 13440, vocab
+     92416, bf16; 8.19 B weights drawn from seed 0 on the card) with every
+     GEMM of at least 8 rows routed through ``scheduled_kernels`` on the
+     gemmini backend: 225 row-3 launches per prefill and per decode step
+     (7 per layer and the head), 0 unrouted, 0 for a decode step at
+     batch 4; routed against unrouted prefill logits within
+     ``LM_LOGIT_TOL`` of the largest |logit|; ``ServingEngine`` at batch
+     8 (16 prompts of 128 tokens, 16 new) routed and not, tok/s and
+     launches; the four dense archs at their smoke configs (f32) on
+     ``cuda`` under the policy against the CPU (logits within F32_TOL,
+     greedy tokens of a prefill and 4 decode steps equal); every (m, k,
+     n, dtype, config) those runs launched against its plain version,
+     timed beside ``bound`` and ``torch.matmul``; the prefill and decode
+     step times at batch 8 with their kernels' share, and the peak of
+     ``torch.cuda.max_memory_allocated``.
 
-The launch counts are set to 0 just before each of phases 4, 6-10 and the
-paths of 11 (each serve call too) and read just after; the ``launches``
-of the kernels line are their sum.  It prints a ``{"kernels": [...]}``
-line (the toycar@16 sums of phase 3; the per-case times of phase 5 go to
-the report only, to keep the line short), a summary of the paths, and as
-its last line ``{"ok": true, "device": {...}}``.  ``--report PATH`` also
+The launch counts are set to 0 just before each of phases 4, 6-10, the
+paths of 11 (each serve call too) and the LM's served runs and smoke
+archs of 13, and read just after; the ``launches`` of the kernels line
+are their sum.  It prints a ``{"kernels": [...]}`` line (the toycar@16
+sums of phase 3; the per-case times of phases 5 and 13 go to the report
+only, to keep the line short), a summary of the paths, and as its last
+line ``{"ok": true, "device": {...}}``.  ``--report PATH`` also
 writes everything measured to PATH as JSON.  Schedule caches and
 artifacts are written under the checkout's ``build/chip_smoke/``, made
 afresh by each run.
@@ -110,6 +129,7 @@ afresh by each run.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import inspect
 import json
 import os
@@ -117,6 +137,7 @@ import shutil
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -128,16 +149,27 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 import repro_torch  # noqa: E402
-from repro_torch.core import measure, pass_manager, pipeline, verify, zoo  # noqa: E402
+from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
+from repro_torch.core import ir, measure, pass_manager, pipeline, verify, zoo  # noqa: E402
 from repro_torch.core.batching import pick_bucket, plan_chunks  # noqa: E402
-from repro_torch.core.executor import to_numpy, to_tensor  # noqa: E402
+from repro_torch.core.configurators import build_backend  # noqa: E402
+from repro_torch.core.deprecation import ReproDeprecationWarning  # noqa: E402
+from repro_torch.core.descriptions import make_gemmini_description  # noqa: E402
+from repro_torch.core.executor import compile_host_op, to_numpy, to_tensor  # noqa: E402
 from repro_torch.core.lowering import kernel_config_for  # noqa: E402
 from repro_torch.core.scheduler import ExtendedCosaScheduler, ScheduleResult  # noqa: E402
 from repro_torch.core.strategy import gemm_instances, workload_from_node  # noqa: E402
-from repro_torch.kernels import build, gemm  # noqa: E402
+from repro_torch.kernels import build, gemm, ops  # noqa: E402
 from repro_torch.kernels.gemm import GemmKernelConfig, gemm_plain, scheduled_gemm  # noqa: E402
+from repro_torch.kernels.policy import scheduled_kernels  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
-from repro_torch.serve import EngineConfig, random_requests, sequential_generate  # noqa: E402
+from repro_torch.models import lm  # noqa: E402
+from repro_torch.serve import (  # noqa: E402
+    ServeConfig,
+    ServingEngine,
+    random_requests,
+    sequential_generate,
+)
 
 #: published H100 SXM rates (dense, no sparsity), at the 700 W limit
 HBM_BYTES_PER_S = 3.35e12
@@ -204,16 +236,16 @@ def card() -> str:
     return out
 
 
-def device_ms(fn) -> float:
+def device_ms(fn, launches: int = GRAPH_LAUNCHES) -> float:
     """Device time per call of ``fn``: CUDA events around one replay of a
-    CUDA graph holding ``GRAPH_LAUNCHES`` back-to-back calls (so host
-    overhead between launches is not in the number)."""
+    CUDA graph holding ``launches`` back-to-back calls (so host overhead
+    between launches is not in the number)."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        for _ in range(GRAPH_LAUNCHES):
+        for _ in range(launches):
             fn()
     graph.replay()
     torch.cuda.synchronize()
@@ -222,7 +254,7 @@ def device_ms(fn) -> float:
     graph.replay()
     end.record()
     end.synchronize()
-    return start.elapsed_time(end) / GRAPH_LAUNCHES
+    return start.elapsed_time(end) / launches
 
 
 def eager_ms(fn, iters: int = 200) -> float:
@@ -1394,6 +1426,405 @@ def verify_gate_phase(dev: torch.device, card_line: str) -> dict:
     return {"modules": len(builds), "diagnostics": 0, "gate_ms": gate_ms, "compile_ms": compile_ms}
 
 
+# -- phase 13: the LM substrate on the card -----------------------------------
+
+#: host ops of the port's plan, each dtype, on the card against the CPU;
+#: float gelu and softmax within these ulp of the output dtype (gelu's at
+#: 0.5 |x|): twice the CPU tests' bound against the reference, for the
+#: card's own tanh/exp and reduction order
+HOST_OP_DTYPES = ("int8", "int16", "int32", "int64", "uint8", "float16", "float32", "float64")
+CARD_ULP_BOUND = {"gelu": 2, "softmax": 4}
+
+
+def host_op_case(op: str, dtype: str):
+    """(node, feeds) of one host op at one dtype, as ``tests/test_torch_host_ops.py``
+    builds them."""
+    rng = np.random.default_rng(0)
+
+    def data(shape):
+        if dtype.startswith(("int", "uint")):
+            info = np.iinfo(dtype)
+            return rng.integers(max(int(info.min), -300), min(int(info.max), 300) + 1, shape).astype(dtype)
+        return (rng.normal(size=shape) * 3).astype(dtype)
+
+    def inp(shape, name, dt=dtype):
+        return ir.input_(shape, dt, name=name)
+
+    shapes = {"transpose": (2, 3, 4), "reshape": (2, 3, 4), "flatten": (2, 3, 4),
+              "max_pool2d": (2, 6, 6, 3), "kv_cache_read": (16, 8), "kv_cache_append": (16, 8)}
+    x = inp(shapes.get(op, (3, 8)), "x")
+    feeds = {"x": data(x.shape)}
+    if op in ("add", "sub", "mul"):
+        node = getattr(ir, op)(x, inp((3, 8), "y"))
+        feeds["y"] = data((3, 8))
+    elif op == "bias_add":
+        node = ir.bias_add(x, inp((8,), "b"))
+        feeds["b"] = data((8,))
+    elif op == "kv_cache_append":
+        node = ir.kv_cache_append(x, inp((2, 8), "u"), inp((), "pos", "int32"))
+        feeds["u"], feeds["pos"] = data((2, 8)), np.asarray(5, np.int32)
+    else:
+        node = {
+            "relu": lambda: ir.relu(x), "gelu": lambda: ir.gelu(x), "softmax": lambda: ir.softmax(x),
+            "clip": lambda: ir.clip(x, lo=3, hi=100), "requantize": lambda: ir.requantize(x, scale=0.37),
+            "quantize": lambda: ir.quantize(x, scale=0.05), "dequantize": lambda: ir.dequantize(x, scale=0.05),
+            "transpose": lambda: ir.transpose(x, (2, 0, 1)), "reshape": lambda: ir.reshape(x, (4, 6)),
+            "flatten": lambda: ir.Node("flatten", [x], {}, shape=(2, 12), dtype=dtype),
+            "max_pool2d": lambda: ir.max_pool2d(x, 2, 2), "kv_cache_read": lambda: ir.kv_cache_read(x),
+        }[op]()
+    return node, feeds
+
+
+def host_ops_phase(dev: torch.device, card_line: str) -> dict:
+    """Phase 13, host ops: every op the port lowers x 8 dtypes on the card
+    against the port's CPU run (which the CPU tests hold to the
+    reference): integers and every other float op bit-equal, gelu and
+    softmax within ``CARD_ULP_BOUND``."""
+    worst = {}
+    ops = sorted(ir.HOST_OPS - {"im2col"})
+    for op in ops:
+        for dtype in HOST_OP_DTYPES:
+            node, feeds = host_op_case(op, dtype)
+            args = [feeds[i.name] for i in node.inputs]
+            want = to_numpy(compile_host_op(node, torch.device("cpu"))(*(to_tensor(a, torch.device("cpu")) for a in args)))
+            got = to_numpy(compile_host_op(node, dev)(*(to_tensor(a, dev) for a in args)))
+            check(got.dtype == want.dtype and got.shape == want.shape, f"host op {op} {dtype}: dtype/shape")
+            if want.dtype.kind == "f" and op in CARD_ULP_BOUND:
+                at = 0.5 * feeds["x"].astype(np.float64) if op == "gelu" else want.astype(np.float64)
+                scale = np.maximum(np.abs(at), np.finfo(want.dtype).tiny) * np.finfo(want.dtype).eps
+                ulp = float(np.max(np.abs(got.astype(np.float64) - want.astype(np.float64)) / scale))
+                check(ulp <= CARD_ULP_BOUND[op], f"host op {op} {dtype}: {ulp} ulp from the cpu run")
+                worst[f"{op} {dtype}"] = ulp
+            else:
+                check(np.array_equal(got, want), f"host op {op} {dtype}: cuda != cpu")
+    print(f"host ops: {len(ops)} ops x {len(HOST_OP_DTYPES)} dtypes on cuda equal the cpu run "
+          f"(gelu, softmax ulp: {worst}) [{card_line}]")
+    return {"cases": len(ops) * len(HOST_OP_DTYPES), "ulp": worst}
+
+
+LM_ARCH = "codeqwen1_5_7b"
+LM_BATCH, LM_PROMPT, LM_NEW, LM_REQUESTS = 8, 128, 16, 16
+LM_MAX_LEN = LM_PROMPT + LM_NEW + 1
+#: routed against unrouted bf16 logits, |diff| / max |logit| at the last
+#: prompt position: bf16 keeps 8 bits (2**-8 = 0.4 %) and the two round
+#: the bias and the product differently in each of 225 GEMMs
+LM_LOGIT_TOL = 5e-2
+LM_SMOKE_ARCHS = ("qwen1_5_32b", "yi_34b", "granite_34b", "codeqwen1_5_7b")
+LM_SMOKE_BATCH, LM_SMOKE_PROMPT, LM_SMOKE_STEPS = 8, 16, 4
+LM_GRAPH_LAUNCHES = 10  # a head launch streams 757 MB
+LM_DECODE_SAMPLES = 16
+
+
+def routed_per_call(cfg) -> int:
+    """Scheduled-kernel launches of one prefill or decode step with at
+    least ``min_m`` rows at the head: q, k, v, o and the MLP's matrices
+    per layer, and the head."""
+    return cfg.n_layers * (4 + (3 if cfg.mlp_kind == "swiglu" else 2)) + (not cfg.tie_embeddings)
+
+
+class GemmRecorder:
+    """Records every (m, k, n, dtype, config) that reaches
+    ``scheduled_gemm`` through ``kernels.ops`` while active (the calls
+    pass straight through; the launch count stays the wrapper's)."""
+
+    def __init__(self):
+        self.calls: list[tuple] = []
+
+    def __enter__(self):
+        self._real = ops.scheduled_gemm
+
+        def recording(x, w, cfg, bias=None):
+            self.calls.append((x.shape[0], x.shape[1], w.shape[1], x.dtype, cfg))
+            return self._real(x, w, cfg, bias)
+
+        ops.scheduled_gemm = recording
+        return self
+
+    def __exit__(self, *exc):
+        ops.scheduled_gemm = self._real
+        return False
+
+
+def lm_tokens(rng, vocab: int, count: int, length: int) -> list[np.ndarray]:
+    return [rng.integers(0, vocab, size=(length,)).astype(np.int32) for _ in range(count)]
+
+
+def lm_wave(prompts, dev) -> torch.Tensor:
+    return torch.from_numpy(np.stack(prompts)).to(dev)
+
+
+def lm_kernel_cases(dev: torch.device, calls: set[tuple], card_line: str) -> dict[tuple, dict]:
+    """Each distinct (m, k, n, dtype, config) the LM launched, against its
+    plain version (bf16: one bf16 ulp of the plain result at every K, the
+    rounding of an f32 sum that differs in order; f32: F32_TOL), timed by
+    CUDA-graph replay beside ``bound`` and ``torch.matmul``."""
+    rng = np.random.default_rng(2)
+    results = {}
+    for key in sorted(calls, key=lambda c: (str(c[3]), c[0], c[1], c[2], c[4].has_bias)):
+        m, k, n, dt, cfg = key
+        x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)).to(dev).to(dt)
+        w = (torch.randn((k, n), device=dev) * (2.0 / (k + n)) ** 0.5).to(dt)
+        b = torch.randn((n,), device=dev) if cfg.has_bias else None
+        run = lambda: scheduled_gemm(x, w, cfg, b)  # noqa: E731
+        plain = lambda: gemm_plain(x, w, cfg, b)  # noqa: E731
+        label = (f"lm case {str(dt).removeprefix('torch.')} {m}x{k}x{n} {cfg.block_m}/{cfg.block_k}/"
+                 f"{cfg.block_n} {cfg.dataflow}{' bias' if b is not None else ''}")
+        err = compare(label, run(), plain())
+        ms = device_ms(run, LM_GRAPH_LAUNCHES)
+        p_ms = device_ms(plain, LM_GRAPH_LAUNCHES)
+        lib = device_ms(lambda: torch.matmul(x, w), LM_GRAPH_LAUNCHES)
+        in_dtype = str(dt).removeprefix("torch.")
+        b_ms, by = bound(m, k, n, in_dtype, x.element_size(), 0 if b is None else 4 * n)
+        geo = gemm.launch_geometry(m, k, n, cfg)
+        results[key] = {"m": m, "k": k, "n": n, "dtype": in_dtype, "bias": b is not None,
+                        "blocks": f"{cfg.block_m}/{cfg.block_k}/{cfg.block_n}", "dataflow": cfg.dataflow,
+                        "ms": ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": by, "library_ms": lib,
+                        "max_abs_err": err}
+        print(f"{label}: us {ms * 1e3:.3f} bound_us {b_ms * 1e3:.3f} ({by}) torch.matmul_us {lib * 1e3:.3f} "
+              f"plain_us {p_ms * 1e3:.3f} max_abs_err {err}; clusters {geo.grid[0]}x{geo.grid[1]} of "
+              f"{geo.cluster} CTAs (col_split {geo.col_split} x k_split {geo.k_split}) [{card_line}]")
+        del x, w, b
+    torch.cuda.synchronize()
+    print(f"lm cases: {len(results)} (m, k, n, dtype, config) cases equal their plain versions")
+    return results
+
+
+def tree_map(fn, tree):
+    """``fn`` of each tensor of a parameter or cache tree."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v) for v in tree]
+    return fn(tree) if isinstance(tree, torch.Tensor) else tree
+
+
+def tree_leaves(tree, path=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from tree_leaves(v, (*path, k))
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from tree_leaves(v, (*path, i))
+    else:
+        yield path, tree
+
+
+def lm_smoke_phase(dev: torch.device, backend, windows: dict, card_line: str) -> set[tuple]:
+    """Phase 13, step 4: the four dense archs at their smoke configs (f32)
+    on the card under the policy against the same parameters on the CPU:
+    forward logits within F32_TOL (the kernel's 3xTF32 against an f32
+    product), greedy tokens of a prefill and LM_SMOKE_STEPS decode steps
+    equal, launches per call as the policy implies."""
+    calls = set()
+    rng = np.random.default_rng(3)
+    gemm.reset_launches()  # the smoke archs' window starts here
+    for arch in LM_SMOKE_ARCHS:
+        cfg = get_smoke_config(arch)
+        cpu_params = lm.init_lm(0, cfg, device="cpu")
+        params = tree_map(lambda t: t.to(dev), cpu_params)
+        toks = lm_wave(lm_tokens(rng, cfg.vocab, LM_SMOKE_BATCH, LM_SMOKE_PROMPT), "cpu")
+        per_call = routed_per_call(cfg)
+        tokens = {}
+        with scheduled_kernels(backend), torch.inference_mode(), GemmRecorder() as rec:
+            before = gemm.LAUNCHES["gemm_float"]
+            got, _ = lm.forward(params, cfg, toks.to(dev))
+            torch.cuda.synchronize()
+            check(gemm.LAUNCHES["gemm_float"] - before == per_call,
+                  f"{arch} smoke forward: {gemm.LAUNCHES['gemm_float'] - before} launches, not {per_call}")
+            want, _ = lm.forward(cpu_params, cfg, toks)
+            err = max_err(got.cpu(), want)
+            check(torch.allclose(got.cpu(), want, **F32_TOL), f"{arch} smoke forward: cuda vs cpu, max |err| {err}")
+            for where, p in (("cuda", params), ("cpu", cpu_params)):
+                d = dev if where == "cuda" else torch.device("cpu")
+                c = lm.init_cache(cfg, LM_SMOKE_BATCH, LM_SMOKE_PROMPT + LM_SMOKE_STEPS, device=d)
+                before = gemm.LAUNCHES["gemm_float"]
+                logits, c = lm.prefill(p, cfg, toks.to(d), c)
+                out = [torch.argmax(logits[:, -1:], -1)]
+                for _ in range(LM_SMOKE_STEPS):
+                    logits, c = lm.decode_step(p, cfg, c, out[-1])
+                    out.append(torch.argmax(logits[:, -1:], -1))
+                tokens[where] = torch.cat(out, 1).cpu()
+                if where == "cuda":
+                    launched = gemm.LAUNCHES["gemm_float"] - before
+                    check(launched == per_call * (1 + LM_SMOKE_STEPS),
+                          f"{arch} smoke prefill + {LM_SMOKE_STEPS} steps: {launched} launches")
+        check(torch.equal(tokens["cuda"], tokens["cpu"]), f"{arch} smoke greedy tokens: cuda != cpu")
+        calls |= set(rec.calls)
+        print(f"lm smoke {arch}: forward logits cuda vs cpu max |err| {err:.3e} (rtol 1e-4, atol 1e-3); "
+              f"greedy tokens of prefill + {LM_SMOKE_STEPS} steps equal ({tokens['cuda'].numel()}); "
+              f"{per_call} launches per call [{card_line}]")
+    windows["LM smoke archs"] = dict(gemm.LAUNCHES)  # read just after them
+    return calls
+
+
+def lm_phase(dev: torch.device, card_line: str, windows: dict, cfg=None) -> dict:
+    """Phase 13: codeqwen1.5-7b at its published config, full width and
+    depth, bf16, weights from seed 0 on the card, served through
+    ``ServingEngine`` with and without ``scheduled_kernels`` on the port's
+    gemmini backend; the LM's kernel cases; the four smoke archs on the
+    card against the CPU."""
+    cfg = cfg or get_config(LM_ARCH)
+    backend = build_backend(make_gemmini_description())
+    per_call = routed_per_call(cfg)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = lm.init_lm(0, cfg, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights = sum(t.numel() for path, t in tree_leaves(params) if path[-1] in ("w", "table"))
+    check(weights == cfg.param_count(), f"{cfg.name}: {weights} weights, param_count {cfg.param_count()}")
+    print(f"lm {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} heads "
+          f"({cfg.n_kv_heads} kv), d_ff {cfg.d_ff}, vocab {cfg.vocab}, {cfg.param_dtype}: {weights:,} "
+          f"weights drawn on {dev} in {init_s:.2f} s [{card_line}]")
+    rng = np.random.default_rng(0)
+    prompts = lm_tokens(rng, cfg.vocab, LM_REQUESTS, LM_PROMPT)
+    waves = [prompts[i : i + LM_BATCH] for i in range(0, LM_REQUESTS, LM_BATCH)]
+
+    # each wave's prefill and one decode step, routed and not: the shapes,
+    # the launches per call, the logits and the first tokens
+    calls: dict[str, list] = {"prefill": [], "decode": []}
+    firsts, worst_rel, margin_rows, agree_rows = [], 0.0, 0, 0
+    with torch.inference_mode():
+        for wave in waves:
+            toks = lm_wave(wave, dev)
+            logits = {}
+            for routed in (True, False):
+                c = lm.init_cache(cfg, LM_BATCH, LM_MAX_LEN, device=dev)
+                policy = scheduled_kernels(backend) if routed else contextlib.nullcontext()
+                with policy, GemmRecorder() as rec:
+                    gemm.reset_launches()
+                    logits[routed], c = lm.prefill(params, cfg, toks, c)
+                    torch.cuda.synchronize()
+                    pf = dict(gemm.LAUNCHES)
+                    n_pf = len(rec.calls)
+                    gemm.reset_launches()
+                    lm.decode_step(params, cfg, c, torch.argmax(logits[routed][:, -1:], -1))
+                    torch.cuda.synchronize()
+                    dc = dict(gemm.LAUNCHES)
+                want = {v: (per_call if routed and v == "gemm_float" else 0) for v in gemm.LAUNCHES}
+                check(pf == want and dc == want,
+                      f"lm {'routed' if routed else 'unrouted'} prefill / decode step launches {pf} / {dc}, "
+                      f"want {want} each")
+                if routed and not calls["prefill"]:
+                    calls["prefill"], calls["decode"] = rec.calls[:n_pf], rec.calls[n_pf:]
+            p, u = logits[True][:, -1], logits[False][:, -1]
+            scale = u.abs().max()
+            rel = float((p - u).abs().max() / scale)
+            worst_rel = max(worst_rel, rel)
+            check(bool(torch.isfinite(p).all()) and rel <= LM_LOGIT_TOL,
+                  f"lm routed vs unrouted prefill logits: {rel:.4f} of max |logit| > {LM_LOGIT_TOL}")
+            top2 = torch.topk(u, 2, dim=-1).values
+            clear = (top2[:, 0] - top2[:, 1]) / scale > LM_LOGIT_TOL
+            same = torch.argmax(p, -1) == torch.argmax(u, -1)
+            check(bool(same[clear].all()), "lm first tokens differ on a row whose top-2 margin exceeds the tolerance")
+            margin_rows += int(clear.sum())
+            agree_rows += int(same.sum())
+            firsts.append(torch.argmax(p, -1).tolist())
+    print(f"lm prefill launches: {per_call} per prefill and per decode step routed, 0 unrouted; routed vs "
+          f"unrouted last-position logits within {worst_rel:.4f} of max |logit| (tolerance {LM_LOGIT_TOL}); "
+          f"first tokens agree on {agree_rows}/{LM_REQUESTS} rows, on all {margin_rows} rows whose top-2 "
+          f"margin exceeds the tolerance")
+
+    # one decode step at batch 4 under the policy launches nothing (m < min_m)
+    with torch.inference_mode():
+        c4 = lm.init_cache(cfg, 4, LM_MAX_LEN, device=dev)
+        logits4, c4 = lm.prefill(params, cfg, lm_wave(waves[0][:4], dev), c4)
+        nxt = torch.argmax(logits4[:, -1:], -1)
+        copy = tree_map(torch.clone, c4)
+        want4, _ = lm.decode_step(params, cfg, c4, nxt)
+        gemm.reset_launches()
+        with scheduled_kernels(backend):
+            got4, _ = lm.decode_step(params, cfg, copy, nxt)
+        torch.cuda.synchronize()
+        check(sum(gemm.LAUNCHES.values()) == 0, f"lm decode step at batch 4 launched {gemm.LAUNCHES}")
+        check(torch.equal(got4, want4), "lm decode step at batch 4: routed policy changed the logits")
+    print("lm decode step at batch 4 under the policy: 0 launches (m = 4 < min_m = 8), logits equal the "
+          "unrouted step's")
+
+    # the served runs: the engine as the CLI builds it, with and without the policy
+    scfg = ServeConfig(batch=LM_BATCH, max_len=LM_MAX_LEN, max_new_tokens=LM_NEW)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", ReproDeprecationWarning)
+        engine = ServingEngine(cfg, params, scfg)
+    served = {}
+    for routed in (True, False):
+        gemm.reset_launches()  # the served window starts here
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with scheduled_kernels(backend) if routed else contextlib.nullcontext():
+            done = engine.generate(prompts)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        window = dict(gemm.LAUNCHES)  # read just after it
+        calls_per_wave = 1 + LM_NEW
+        want = {v: (per_call * calls_per_wave * len(waves) if routed and v == "gemm_float" else 0)
+                for v in gemm.LAUNCHES}
+        check(window == want, f"lm served {'routed' if routed else 'unrouted'}: launches {window}, want {want}")
+        windows[f"LM served {'routed' if routed else 'unrouted'}"] = window
+        tokens = [r.output for r in done]
+        check(len(tokens) == LM_REQUESTS and all(len(t) == LM_NEW for t in tokens)
+              and all(0 <= tok < cfg.vocab for t in tokens for tok in t), "lm served tokens")
+        served[routed] = {"wall_s": wall, "tok_per_s": LM_REQUESTS * LM_NEW / wall, "tokens": tokens}
+    routed_firsts = [t[0] for t in served[True]["tokens"]]
+    check(routed_firsts == [tok for wave in firsts for tok in wave], "lm served first tokens differ from the prefill's")
+    agree = sum(a == b for ra, rb in zip(served[True]["tokens"], served[False]["tokens"]) for a, b in zip(ra, rb))
+    print(f"lm served {cfg.name} batch {LM_BATCH}, {LM_REQUESTS} prompts of {LM_PROMPT} tokens, {LM_NEW} new: "
+          f"routed {served[True]['tok_per_s']:.1f} tok/s ({served[True]['wall_s']:.3f} s, "
+          f"{windows['LM served routed']['gemm_float']} launches), unrouted {served[False]['tok_per_s']:.1f} "
+          f"tok/s ({served[False]['wall_s']:.3f} s, 0 launches); {agree}/{LM_REQUESTS * LM_NEW} tokens agree "
+          f"[{card_line}]")
+
+    # kernel cases at the LM's shapes, and the smoke archs (which add their own)
+    smoke_calls = lm_smoke_phase(dev, backend, windows, card_line)
+    cases = lm_kernel_cases(dev, set(calls["prefill"]) | set(calls["decode"]) | smoke_calls, card_line)
+
+    # prefill and decode step times at batch 8, routed and not
+    timing = {}
+    with torch.inference_mode():
+        toks = lm_wave(waves[0], dev)
+        for routed in (True, False):
+            with scheduled_kernels(backend) if routed else contextlib.nullcontext():
+                pf_ms, step_ms = [], []
+                for _ in range(3):
+                    c = lm.init_cache(cfg, LM_BATCH, LM_MAX_LEN, device=dev)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    logits, c = lm.prefill(params, cfg, toks, c)
+                    torch.cuda.synchronize()
+                    pf_ms.append((time.perf_counter() - t0) * 1e3)
+                nxt = torch.argmax(logits[:, -1:], -1)
+                for _ in range(LM_DECODE_SAMPLES):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    logits, c = lm.decode_step(params, cfg, c, nxt)
+                    torch.cuda.synchronize()
+                    step_ms.append((time.perf_counter() - t0) * 1e3)
+                    nxt = torch.argmax(logits[:, -1:], -1)
+            timing[routed] = {"prefill_ms": float(np.median(pf_ms)), "decode_step_ms_p50": float(np.percentile(step_ms, 50))}
+    k_prefill = sum(cases[c]["ms"] for c in calls["prefill"])
+    k_step = sum(cases[c]["ms"] for c in calls["decode"])
+    r = timing[True]
+    print(f"lm batch {LM_BATCH} routed: prefill of {LM_PROMPT} tokens {r['prefill_ms']:.3f} ms (median of 3), "
+          f"kernels {k_prefill:.3f} ms device ({k_prefill / r['prefill_ms']:.1%}); decode step p50 "
+          f"{r['decode_step_ms_p50']:.3f} ms over {LM_DECODE_SAMPLES}, kernels {k_step:.3f} ms device "
+          f"({k_step / r['decode_step_ms_p50']:.1%}); unrouted: prefill {timing[False]['prefill_ms']:.3f} ms, "
+          f"decode step p50 {timing[False]['decode_step_ms_p50']:.3f} ms [{card_line}]")
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"lm peak device memory: {peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated) [{card_line}]")
+    return {
+        "arch": cfg.name, "weights": weights, "init_s": init_s, "per_call": per_call,
+        "logit_rel_diff": worst_rel, "logit_tol": LM_LOGIT_TOL, "first_token_rows_agree": agree_rows,
+        "margin_rows": margin_rows,
+        "served": {("routed" if k else "unrouted"): {kk: vv for kk, vv in v.items() if kk != "tokens"}
+                   for k, v in served.items()},
+        "tokens_agree": agree, "tokens": LM_REQUESTS * LM_NEW,
+        "timing": {("routed" if k else "unrouted"): v for k, v in timing.items()},
+        "prefill_kernel_ms": k_prefill, "decode_step_kernel_ms": k_step,
+        "peak_bytes": peak,
+        "cases": [{k: v for k, v in c.items()} for c in cases.values()],
+    }
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description="drive the port on one NVIDIA card")
     ap.add_argument("--report", help="also write everything measured to this JSON file")
@@ -1465,13 +1896,16 @@ def main(argv: list[str] | None = None) -> int:
     decode_served = decode_serve_phase(dev, cases, card_line, windows)
     decode_checks = decode_bounds_and_artifact(dev, work, card_line)
     gate = verify_gate_phase(dev, card_line)
+    host_ops = host_ops_phase(dev, card_line)
+    lm_run = lm_phase(dev, card_line, windows)  # sets the counts to 0 before each LM window
     for window, counts in windows.items():
         print(f"launch window {window}: {counts}")
     both = ("qgemm_requant", "gemm_int32")
     path_kernels = {"toycar_mlp@gemmini": both, "new paths": both, "measured DSE compiles": both,
                     "artifact module": ("qgemm_requant",), "pipelined": both, "decode modules": both,
                     f"serve {DECODE.name}@{DECODE_SERVE[0]} --batch {DECODE_SLOTS}": both,
-                    f"sequential {DECODE.name}@{DECODE_SERVE[0]}": both}
+                    f"sequential {DECODE.name}@{DECODE_SERVE[0]}": both,
+                    "LM served routed": ("gemm_float",), "LM smoke archs": ("gemm_float",)}
     for window, names in path_kernels.items():
         for name in names:
             check(windows[window][name] > 0, f"kernel {name} never launched in the {window} window")
@@ -1485,7 +1919,8 @@ def main(argv: list[str] | None = None) -> int:
             "replaces": REPLACES[name],
             "launches": launches[name],
             "max_abs_err": max([r["max_abs_err"]] + [c["max_abs_err"] for c in cases.values()
-                                                    if c["variant"] == name]),
+                                                    if c["variant"] == name]
+                               + [c["max_abs_err"] for c in lm_run["cases"] if name == "gemm_float"]),
             "ms": r["ms"],
             "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"],
@@ -1495,8 +1930,9 @@ def main(argv: list[str] | None = None) -> int:
             "launch_floor_ms": r["launch_floor_ms"],
             "cluster8_floor_ms": r["cluster8_floor_ms"],
             "layer_ms": r["layer_ms"],
-            "shapes": "toycar_mlp batch 16, 8 layers, summed; every path case in the report",
+            "shapes": "toycar_mlp batch 16, 8 layers, summed; every path case and LM case in the report",
             "path_cases": sum(c["variant"] == name for c in cases.values()),
+            "lm_cases": len(lm_run["cases"]) if name == "gemm_float" else 0,
         }
         for name, r in kernels.items()
     ]}
@@ -1510,12 +1946,13 @@ def main(argv: list[str] | None = None) -> int:
     report = {"card": card_line, "build_s": build_s, "main_path": summary, "paths": paths,
               "serve": served, "measured_dse": measured, "artifact": artifact, "pipelined": pipelined,
               "decode_paths": decode_paths, "decode_serve": decode_served, "decode_checks": decode_checks,
-              "verify_gate": gate, "launch_windows": windows, "path_cases": path_cases}
+              "verify_gate": gate, "host_ops": host_ops, "lm": lm_run, "launch_windows": windows,
+              "path_cases": path_cases}
     if args.report:
         Path(args.report).parent.mkdir(parents=True, exist_ok=True)
         Path(args.report).write_text(json.dumps({**report, **line}, indent=1))
     # the per-path summaries are long and printed above, path by path
-    long = ("paths", "measured_dse", "pipelined", "decode_paths", "path_cases")
+    long = ("paths", "measured_dse", "pipelined", "decode_paths", "path_cases", "lm")
     print(json.dumps({k: v for k, v in report.items() if k not in long}))
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,12 @@
 """Plain PyTorch versions of the scheduled GEMM kernel.
 
-Port of ``repro.kernels.ref`` (``gemm_ref``, ``qgemm_ref``).  They run on
-whatever device their tensors lie on: the CPU tests use them as the
-kernel, and ``chip_smoke.py`` holds the CUDA kernel against them on the
-card.  ``flash_attention_ref`` waits for the LM slice of the port.
+Port of ``repro.kernels.ref`` (``gemm_ref``, ``qgemm_ref``,
+``flash_attention_ref``).  They run on whatever device their tensors lie
+on: the CPU tests use them as the kernel, and ``chip_smoke.py`` holds the
+CUDA kernel against them on the card.  ``flash_attention_ref`` is the
+dense oracle of the LM's attention (``repro_torch.models.flash`` and
+``repro_torch.models.attention``), which is plain torch in the port as
+it is plain JAX in the reference.
 
 Integer products are summed in float64, which is exact here (every
 partial sum of int8 products stays far below 2**53), and then wrapped to
@@ -35,6 +38,11 @@ def torch_dtype(name) -> torch.dtype:
     if isinstance(name, torch.dtype):
         return name
     return _DTYPES[str(name)]
+
+
+def dtype_name(dtype: torch.dtype) -> str:
+    """The numpy-style name of a torch dtype (``torch.bfloat16`` -> ``"bfloat16"``)."""
+    return str(dtype).removeprefix("torch.")
 
 
 def int_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -99,3 +107,34 @@ def qgemm_ref(
     out = torch.round(acc.to(torch.float32) * scale)
     out = torch.clamp(out, float(clip_lo), float(clip_hi))
     return out.to(torch_dtype(out_dtype))
+
+
+def flash_attention_ref(
+    q: torch.Tensor,  # [B, H, S, D]
+    k: torch.Tensor,  # [B, H_kv, S, D]
+    v: torch.Tensor,  # [B, H_kv, S, D]
+    *,
+    causal: bool = True,
+    window: int | None = None,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """Dense causal / windowed attention; GQA and MQA repeat each KV head
+    over its consecutive query heads (``jnp.repeat``: ``repeat_interleave``)."""
+    b, h, s, d = q.shape
+    h_kv = k.shape[1]
+    if h_kv != h:
+        rep = h // h_kv
+        k = k.repeat_interleave(rep, dim=1)
+        v = v.repeat_interleave(rep, dim=1)
+    scale = scale if scale is not None else 1.0 / (d**0.5)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q, k).to(torch.float32) * scale
+    qi = torch.arange(s, device=q.device)[:, None]
+    ki = torch.arange(s, device=q.device)[None, :]
+    mask = torch.ones((s, s), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= ki <= qi
+    if window is not None:
+        mask &= ki > qi - window
+    logits = torch.where(mask, logits, torch.tensor(-1e30, dtype=torch.float32, device=q.device))
+    p = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype), v)

@@ -21,12 +21,20 @@ front door, with a micro-batching request queue.
     python -m repro_torch.launch.serve --zoo attn_decode --batch 8 \
         --requests 64 --prompt-len 32 --new-tokens 16
 
-Port of ``repro.launch.serve``: ``serve_zoo`` and ``serve_decode``, and
-the ``--zoo`` CLI with ``--artifact`` / ``--save-artifact`` (zoo serving)
-and ``--prompt-len`` / ``--new-tokens`` (decode serving).  Both functions
-also return what they served (``ZooServeResult``, ``DecodeServeResult``),
-so a caller can check the responses.  Sharded serving (``--devices``) and
-LM serving (``--arch``) are not ported yet, and the CLI refuses them.
+    # an LM (random weights from seed 0) through the wave-based engine;
+    # --smoke serves the arch's reduced config
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch codeqwen1_5_7b \
+        --smoke --device cpu
+
+Port of ``repro.launch.serve``: ``serve_zoo``, ``serve_decode`` and
+``serve_lm``, and the CLI with ``--zoo`` (``--artifact`` /
+``--save-artifact`` for zoo serving, ``--prompt-len`` / ``--new-tokens``
+for decode serving) and ``--arch`` / ``--smoke`` (LM serving, with the
+same ``--prompt-len`` / ``--new-tokens``).  Each function also returns
+what it served (``ZooServeResult``, ``DecodeServeResult``,
+``LMServeResult``), so a caller can check the responses.  As in the
+reference, ``serve_lm`` installs no kernel policy.  Sharded serving
+(``--devices``) is not ported yet, and the CLI refuses it.
 """
 
 from __future__ import annotations
@@ -36,22 +44,28 @@ import time
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 import repro_torch
+from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core.batching import BatchedModule
 from repro_torch.core.zoo import ZOO, decode_model_names, get_decode_model, get_model, model_names
+from repro_torch.models import lm
+from repro_torch.models.config import ModelConfig
 from repro_torch.serve import (
     BatchStats,
     ContinuousBatchingEngine,
     EngineConfig,
     MicroBatcher,
+    Request,
+    ServeConfig,
     ServeReport,
+    ServingEngine,
     random_requests,
 )
 
 #: reference flags whose serving paths the port does not have yet
 _NOT_PORTED = {
-    "arch": "--arch (LM serving)",
     "devices": "--devices (sharded serving)",
 }
 
@@ -224,13 +238,72 @@ def serve_decode(args) -> DecodeServeResult:
     return DecodeServeResult(engine=engine, target=target, report=report, boot_s=t_boot)
 
 
+@dataclass
+class LMServeResult:
+    """What one ``serve_lm`` call served: the config, every request with
+    its generated tokens, and the wall time of ``generate``."""
+
+    cfg: ModelConfig
+    requests: list[Request]
+    wall_s: float
+
+    @property
+    def tokens_per_s(self) -> float:
+        return sum(len(r.output) for r in self.requests) / max(self.wall_s, 1e-9)
+
+
+def serve_lm(args) -> LMServeResult:
+    """Serve an LM arch (its published config, or ``--smoke``'s reduced
+    one) with random weights from seed 0 through ``ServingEngine``:
+    ``--requests`` prompts of ``--prompt-len`` random tokens, in waves of
+    ``--batch``, ``--new-tokens`` greedy tokens each."""
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if cfg.frontend:
+        raise SystemExit(f"{cfg.name} needs frontend embeddings; use a text arch for the demo")
+    try:
+        lm.check_supported(cfg)
+    except NotImplementedError as e:
+        raise SystemExit(str(e)) from None
+    params = lm.init_lm(0, cfg, device=getattr(args, "device", "cuda"))
+    engine = ServingEngine(
+        cfg,
+        params,
+        ServeConfig(
+            batch=args.batch,
+            max_len=args.prompt_len + args.new_tokens + 1,
+            max_new_tokens=args.new_tokens,
+        ),
+    )
+    rng = np.random.default_rng(0)
+    prompts = [
+        rng.integers(0, cfg.vocab, size=(args.prompt_len,)).astype(np.int32)
+        for _ in range(args.requests)
+    ]
+    t0 = time.perf_counter()
+    done = engine.generate(prompts)
+    if engine.device.type == "cuda":
+        torch.cuda.synchronize(engine.device)
+    result = LMServeResult(cfg=cfg, requests=done, wall_s=time.perf_counter() - t0)
+    total_tokens = sum(len(r.output) for r in done)
+    print(
+        f"[serve] {cfg.name} on {engine.device}: {len(done)} requests, {total_tokens} "
+        f"tokens in {result.wall_s:.2f}s ({result.tokens_per_s:.1f} tok/s)"
+    )
+    print("[serve] sample output:", done[0].output[:16])
+    return result
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.launch.serve",
         description="serve a zoo model on an accelerator target through a "
-        "micro-batching queue",
+        "micro-batching queue, or an LM arch through the wave-based engine",
     )
     ap.add_argument("--zoo", help="zoo model to serve on an accelerator target")
+    ap.add_argument("--arch", help="LM architecture to serve (repro_torch.configs)")
+    ap.add_argument(
+        "--smoke", action="store_true", help="--arch: serve the arch's reduced smoke config"
+    )
     ap.add_argument(
         "--target",
         default="gemmini:optimized",
@@ -248,8 +321,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument(
         "--device",
         default="cuda",
-        help="torch device the compiled module runs on: cuda (default, the "
-        "card) or cpu (the kernels' plain versions)",
+        help="torch device the compiled module (or the LM) runs on: cuda "
+        "(default, the card) or cpu (the kernels' plain versions)",
     )
     ap.add_argument(
         "--artifact",
@@ -264,15 +337,15 @@ def build_parser() -> argparse.ArgumentParser:
         "--prompt-len",
         type=int,
         default=32,
-        help="decode zoo: static prefill length (prompts up to this many rows)",
+        help="decode zoo: static prefill length (prompts up to this many "
+        "rows); --arch: prompt length",
     )
     ap.add_argument(
         "--new-tokens",
         type=int,
         default=16,
-        help="decode zoo: tokens generated per request",
+        help="decode zoo and --arch: tokens generated per request",
     )
-    ap.add_argument("--arch", help=argparse.SUPPRESS)
     ap.add_argument("--devices", type=int, help=argparse.SUPPRESS)
     return ap
 
@@ -283,19 +356,25 @@ def main(argv: list[str] | None = None) -> None:
     if refused:
         raise SystemExit(
             f"not available in repro_torch yet: {', '.join(refused)}; "
-            f"only --zoo serving of the model zoo and the decode zoo is ported"
+            f"only --zoo and --arch serving on one device are ported"
         )
-    if not args.zoo:
-        raise SystemExit("pass --zoo <model> (a zoo model to serve)")
-    if args.zoo not in ZOO and args.zoo not in decode_model_names():
+    if bool(args.zoo) == bool(args.arch):
         raise SystemExit(
-            f"unknown zoo model {args.zoo!r}; available: "
-            f"{', '.join(model_names() + decode_model_names())}"
+            "pass --zoo <model> (a zoo model to serve) or --arch <arch> (an LM), "
+            "exactly one of them"
         )
     if args.requests < 1:
         raise SystemExit("--requests must be >= 1")
     if args.batch < 1:
         raise SystemExit("--batch must be >= 1")
+    if args.arch:
+        serve_lm(args)
+        return
+    if args.zoo not in ZOO and args.zoo not in decode_model_names():
+        raise SystemExit(
+            f"unknown zoo model {args.zoo!r}; available: "
+            f"{', '.join(model_names() + decode_model_names())}"
+        )
     if args.zoo in decode_model_names():
         if args.artifact or args.save_artifact:
             raise SystemExit(

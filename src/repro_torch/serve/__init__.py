@@ -3,8 +3,9 @@ and continuous batching over compiled decode plans.
 
 Port of ``repro.serve``: ``MicroBatcher``, ``BatchStats`` and the
 continuous-batching decode engine (``ContinuousBatchingEngine`` with its
-``BlockPool``, ``sequential_generate``, ``random_requests``).  The LM
-serving engine waits for its slice.
+``BlockPool``, ``sequential_generate``, ``random_requests``) and the
+deprecated wave-based LM engine (``ServingEngine``, ``ServeConfig``,
+``Request``).
 """
 
 from repro_torch.serve.continuous import (
@@ -17,6 +18,7 @@ from repro_torch.serve.continuous import (
     random_requests,
     sequential_generate,
 )
+from repro_torch.serve.engine import Request, ServeConfig, ServingEngine
 from repro_torch.serve.microbatch import BatchStats, MicroBatcher
 
 __all__ = [
@@ -27,7 +29,10 @@ __all__ = [
     "EngineConfig",
     "MicroBatcher",
     "PoolExhausted",
+    "Request",
+    "ServeConfig",
     "ServeReport",
+    "ServingEngine",
     "random_requests",
     "sequential_generate",
 ]

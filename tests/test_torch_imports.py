@@ -43,6 +43,25 @@ DECODE_MODULES = (
     "repro_torch.serve.continuous",
 )
 
+#: the LM substrate, its configs, the kernel policy and the LM server
+LM_MODULES = (
+    "repro_torch.models",
+    "repro_torch.models.config",
+    "repro_torch.models.layers",
+    "repro_torch.models.cache",
+    "repro_torch.models.flash",
+    "repro_torch.models.attention",
+    "repro_torch.models.lm",
+    "repro_torch.configs",
+    *(f"repro_torch.configs.{arch}" for arch in (
+        "paligemma_3b", "mixtral_8x7b", "deepseek_v2_236b", "qwen1_5_32b", "granite_34b",
+        "codeqwen1_5_7b", "yi_34b", "musicgen_medium", "xlstm_125m", "jamba_v0_1_52b",
+    )),
+    "repro_torch.kernels.policy",
+    "repro_torch.serve.engine",
+    "repro_torch.core.deprecation",
+)
+
 
 def _imported_modules(path: Path) -> list[str]:
     names = []
@@ -161,6 +180,45 @@ def test_decode_path_and_verifier_run_with_jax_blocked(tmp_path):
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "REPRO_TORCH_CACHE_DIR": str(tmp_path)}
     proc = subprocess.run(
         [sys.executable, "-c", code], capture_output=True, text=True, env=env, timeout=120
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert "ok ['jax', 'repro']" in proc.stdout
+
+
+def test_lm_modules_are_checked_files():
+    checked = {str(p.relative_to(ROOT / "src")) for p in PORT_FILES if p.is_relative_to(ROOT / "src")}
+    for module in LM_MODULES:
+        path = module.replace(".", "/")
+        assert f"{path}.py" in checked or f"{path}/__init__.py" in checked, module
+
+
+def test_lm_path_runs_with_jax_blocked():
+    """Every config, and the smoke LM served with its GEMMs routed through
+    the scheduled kernel's policy, in a process where importing jax or
+    repro fails."""
+    code = (
+        "import sys, argparse\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "import importlib\n"
+        f"for name in {LM_MODULES!r}:\n"
+        "    importlib.import_module(name)\n"
+        "from repro_torch.configs import all_configs\n"
+        "assert len(all_configs()) == 10\n"
+        "from repro_torch.core.configurators import build_backend\n"
+        "from repro_torch.core.descriptions import make_gemmini_description\n"
+        "from repro_torch.kernels.policy import scheduled_kernels\n"
+        "from repro_torch.launch.serve import serve_lm\n"
+        "with scheduled_kernels(build_backend(make_gemmini_description())):\n"
+        "    r = serve_lm(argparse.Namespace(arch='yi_34b', smoke=True, device='cpu', batch=4,\n"
+        "        requests=4, prompt_len=8, new_tokens=3))\n"
+        "assert [len(q.output) for q in r.requests] == [3, 3, 3, 3]\n"
+        "print('ok', [k for k in sys.modules if k.split('.')[0] in ('jax', 'repro')])\n"
+    )
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    proc = subprocess.run(
+        [sys.executable, "-W", "ignore", "-c", code], capture_output=True, text=True, env=env,
+        timeout=120,
     )
     assert proc.returncode == 0, proc.stderr
     assert "ok ['jax', 'repro']" in proc.stdout

@@ -184,7 +184,7 @@ def test_serve_zoo_prints_its_lines_and_serves_per_request_results(capsys, name,
     "argv,what",
     [
         (["--zoo", "toycar_mlp", "--devices", "2"], "--devices"),
-        (["--arch", "musicgen_medium"], "--arch"),
+        (["--arch", "musicgen_medium", "--device", "cpu"], "needs frontend embeddings"),
         (["--zoo", "attn_decode", "--artifact", "dec.art"], "decode zoo"),
         ([], "pass --zoo"),
     ],
