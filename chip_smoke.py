@@ -38,7 +38,9 @@ fails; nothing is caught and passed over:
   5. path kernel cases: every (shape, block config) that the paths of
      phases 6 and 7 launch — qcnn's im2col GEMMs, transformer_block's
      projections and per-instance attention GEMMs, edge_npu's 8-wide
-     weight-stationary schedules of all four models, toycar at bucket 64 —
+     weight-stationary schedules of all four models, toycar at bucket 64,
+     and every shard plan of phase 15 (the narrower columns of a cols
+     split, the rows of a rows split, head-split attention) —
      plus toycar's raw int32 GEMMs at bucket 64 (naive), each against its
      plain version (bit-exact), timed as in phase 3, with
      ``torch._int_mm`` beside the raw int32 GEMMs where it applies
@@ -112,11 +114,33 @@ fails; nothing is caught and passed over:
      n, dtype, config) those runs launched against its plain version,
      timed beside ``bound`` and ``torch.matmul``; the prefill and decode
      step times at batch 8 with their kernels' share, and the peak of
-     ``torch.cuda.max_memory_allocated``.
+     ``torch.cuda.max_memory_allocated``;
+ 14. the traced frontend (run after phase 12, before 13): each zoo model
+     exported with this machine's ``torch.export`` and imported
+     (``trace_model``, timed), its op list equal to the golden graph's;
+     its buckets 1, 4, 16 and 64 built from one export with a symbolic
+     batch dim (``ZooModel.trace_batched``), each graph equal to a static
+     export at that batch, the two timed side by side;
+     then compiled by name on ``cuda`` (through ``ZooModel.trace``) on
+     gemmini and edge_npu in every mode: outputs bit-equal to the golden
+     graph's module on ``cuda``, modeled cycles and launches per run
+     equal, the compile time beside the trace time.  Phases 7 and 11
+     check that ``serve_zoo`` and ``serve_decode`` booted from traced
+     graphs;
+ 15. sharded plans on the one card (after 14): every zoo model on gemmini
+     and edge_npu at meshes (1, 2) and (1, 4) (optimized; toycar naive
+     too) and toycar's buckets at ``--batch 64`` on a (2, 2) mesh, on
+     ``cuda``: outputs bit-equal to the devices = 1 module on ``cuda``,
+     launches per call equal to the sum over the shards' plans, run p50
+     beside devices = 1's; a sharded artifact saved and loaded on
+     ``cuda``; ``serve_zoo`` for toycar ``--batch 64 --devices 4`` with
+     256 requests, every response bit-equal to a per-request CPU run and
+     the launches equal to what the dispatches imply.
 
 The launch counts are set to 0 just before each of phases 4, 6-10, the
-paths of 11 (each serve call too) and the LM's served runs and smoke
-archs of 13, and read just after; the ``launches`` of the kernels line
+paths of 11 (each serve call too), the LM's served runs and smoke
+archs of 13, the traced modules' runs of 14 and the sharded modules'
+runs and serve call of 15, and read just after; the ``launches`` of the kernels line
 are their sum.  It prints a ``{"kernels": [...]}`` line (the toycar@16
 sums of phase 3; the per-case times of phases 5 and 13 go to the report
 only, to keep the line short), a summary of the paths, and as its last
@@ -151,6 +175,7 @@ import torch  # noqa: E402
 import repro_torch  # noqa: E402
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.core import ir, measure, pass_manager, pipeline, verify, zoo  # noqa: E402
+from repro_torch.core.artifact import graph_fingerprint  # noqa: E402
 from repro_torch.core.batching import pick_bucket, plan_chunks  # noqa: E402
 from repro_torch.core.configurators import build_backend  # noqa: E402
 from repro_torch.core.deprecation import ReproDeprecationWarning  # noqa: E402
@@ -159,6 +184,7 @@ from repro_torch.core.executor import compile_host_op, to_numpy, to_tensor  # no
 from repro_torch.core.lowering import kernel_config_for  # noqa: E402
 from repro_torch.core.scheduler import ExtendedCosaScheduler, ScheduleResult  # noqa: E402
 from repro_torch.core.strategy import gemm_instances, workload_from_node  # noqa: E402
+from repro_torch.frontend import trace_model  # noqa: E402
 from repro_torch.kernels import build, gemm, ops  # noqa: E402
 from repro_torch.kernels.gemm import GemmKernelConfig, gemm_plain, scheduled_gemm  # noqa: E402
 from repro_torch.kernels.policy import scheduled_kernels  # noqa: E402
@@ -221,6 +247,16 @@ DECODE_PROMPT = 32
 DECODE_FORMS = {"step LD": ((1, None), 6), f"step BLD b{DECODE_SLOTS}": ((1, DECODE_SLOTS), 4 + 2 * DECODE_SLOTS),
                 f"prefill {DECODE_PROMPT}": ((DECODE_PROMPT, None), 6)}
 DECODE_SERVE = ("gemmini:optimized", DECODE_SLOTS, 64)
+#: phase 14: every zoo model traced and compiled by name on these, every
+#: mode, and built at these buckets from one symbolic-batch export
+FRONTEND_ACCELERATORS = ("gemmini", "edge_npu")
+FRONTEND_BUCKETS = (1, 4, 16, 64)
+#: phase 15: the unbatched meshes of every zoo model (optimized; toycar
+#: naive too), the batched mesh (model, accelerator, mesh, --batch), and
+#: the sharded serve call (model, target, --batch, --requests, --devices)
+SHARD_MESHES = ((1, 2), (1, 4))
+SHARD_BATCHED = ("toycar_mlp", "gemmini", (2, 2), 64)
+SHARD_SERVE = ("toycar_mlp", "gemmini:optimized", 64, 256, 4)
 
 
 def check(cond: bool, what: str) -> None:
@@ -627,12 +663,38 @@ def step_gemms(node) -> tuple[tuple[int, int, int], int]:
     return (int(np.prod(x.shape[:-1])), x.shape[-1], w.shape[0] if transpose_b else w.shape[1]), 1
 
 
+def plans(module) -> list:
+    """The compiled plans one ``run`` of ``module`` executes: itself, or
+    every shard of a ``ShardedModule``."""
+    if isinstance(module, repro_torch.ShardedModule):
+        return list(module.shards.values())
+    return [module]
+
+
 def plan_launches(module) -> dict[str, int]:
-    """Launches of each instantiation that one ``run`` of ``module`` makes."""
+    """Launches of each instantiation that one ``run`` of ``module`` makes
+    (a sharded module's: the sum over its shards' plans)."""
     out = {name: 0 for name in gemm.LAUNCHES}
-    for node, op in module.ops.items():
-        out[gemm.variant(op.executor.kernel_config)] += step_gemms(node)[1]
+    for plan in plans(module):
+        for node, op in plan.ops.items():
+            out[gemm.variant(op.executor.kernel_config)] += step_gemms(node)[1]
     return out
+
+
+def dispatch_launches(module, batch_sizes) -> dict[str, int]:
+    """The launches ``serve_zoo`` implies for a batched module: its warmup
+    runs every bucket once, then each dispatch splits into ``plan_chunks``
+    of the buckets (a single-request chunk takes the per-sample plan where
+    there is one)."""
+    buckets = module.bucket_sizes()
+    expected = {v: 0 for v in gemm.LAUNCHES}
+    for n in list(buckets) + list(batch_sizes):
+        for size in plan_chunks(buckets, n):
+            mod = (module.sample_module if size == 1 and module.sample_module is not None
+                   else module.bucket_module(pick_bucket(buckets, size)))
+            for v, c in plan_launches(mod).items():
+                expected[v] += c
+    return expected
 
 
 def case_key(node, op) -> tuple:
@@ -733,7 +795,8 @@ def path_case_phase(dev: torch.device, modules: dict[str, object]) -> dict[tuple
 
 def kernel_ms_per_run(module, cases: dict[tuple, dict]) -> float:
     """Device time of one run's launches, from the phase-5 case times."""
-    return sum(cases[case_key(node, op)]["ms"] * step_gemms(node)[1] for node, op in module.ops.items())
+    return sum(cases[case_key(node, op)]["ms"] * step_gemms(node)[1]
+               for plan in plans(module) for node, op in plan.ops.items())
 
 
 def new_paths_phase(compiled: dict, cases: dict, card_line: str) -> dict:
@@ -788,28 +851,16 @@ def serve_phase(dev: torch.device, cases: dict, card_line: str, windows: dict) -
     for name, target, batch, requests in SERVES:
         args = argparse.Namespace(zoo=name, target=target, batch=batch, requests=requests,
                                   deadline_ms=SERVE_DEADLINE_MS, device=str(dev))
-        gemm.reset_launches()  # this serve call's window starts here
-        result = serve.serve_zoo(args)
-        window = dict(gemm.LAUNCHES)  # read just after it
+        with TraceSpy() as spy:
+            gemm.reset_launches()  # this serve call's window starts here
+            result = serve.serve_zoo(args)
+            window = dict(gemm.LAUNCHES)  # read just after it
+        check(spy.calls > 0, f"serve {name}: booted without the tracer")
         windows[f"serve {name}@{target} --batch {batch}"] = window
         module = result.module
-        # what the dispatched chunks imply: the warmup runs every bucket
-        # once, then each dispatch splits into plan_chunks of the buckets
         buckets = module.bucket_sizes()
-        expected = {v: 0 for v in gemm.LAUNCHES}
-
-        def add_chunks(n: int) -> None:
-            for size in plan_chunks(buckets, n):
-                mod = (module.sample_module if size == 1
-                       else module.bucket_module(pick_bucket(buckets, size)))
-                for v, c in plan_launches(mod).items():
-                    expected[v] += c
-
-        for b in buckets:
-            add_chunks(b)
         check(len(result.stats.batch_sizes) == result.stats.batches, f"serve {name}: dispatch record")
-        for size in result.stats.batch_sizes:
-            add_chunks(size)
+        expected = dispatch_launches(module, result.stats.batch_sizes)
         check(window == expected, f"serve {name}: launches {window}, the dispatches imply {expected}")
         acc, mode = target.split(":")
         cpu = repro_torch.compile(zoo.get_model(name).build(), repro_torch.Target(acc, mode=mode, device="cpu"))
@@ -1282,9 +1333,11 @@ def decode_serve_phase(dev: torch.device, cases: dict, card_line: str, windows: 
     args = parser.parse_args(["--zoo", DECODE.name, "--target", target, "--batch", str(slots),
                               "--requests", str(requests), "--device", str(dev)])
     check((args.prompt_len, args.new_tokens) == (32, 16), "serve defaults changed")
-    gemm.reset_launches()  # the decode serve call's window starts here
-    result = serve.serve_decode(args)
-    window = dict(gemm.LAUNCHES)  # read just after it
+    with TraceSpy() as spy:
+        gemm.reset_launches()  # the decode serve call's window starts here
+        result = serve.serve_decode(args)
+        window = dict(gemm.LAUNCHES)  # read just after it
+    check(spy.calls == 2, f"serve {DECODE.name}: the engine compiled {spy.calls} traced graphs, not 2")
     windows[f"serve {DECODE.name}@{target} --batch {slots}"] = window
     report, engine = result.report, result.engine
     expected = {v: 0 for v in gemm.LAUNCHES}
@@ -1426,6 +1479,253 @@ def verify_gate_phase(dev: torch.device, card_line: str) -> dict:
     return {"modules": len(builds), "diagnostics": 0, "gate_ms": gate_ms, "compile_ms": compile_ms}
 
 
+# -- phases 14-15: the traced frontend and sharded plans ------------------------
+
+
+class TraceSpy:
+    """Counts, while active, the calls of ``ZooModel.trace``,
+    ``ZooModel.trace_batched`` and ``DecodeModel.trace``: the compiles
+    that went through the frontend."""
+
+    def __enter__(self):
+        self.calls = 0
+        self._saved = (zoo.ZooModel.trace, zoo.ZooModel.trace_batched, zoo.DecodeModel.trace)
+        spy = self
+
+        def counted(fn):
+            def wrapper(*a, **kw):
+                spy.calls += 1
+                return fn(*a, **kw)
+            return wrapper
+
+        zoo.ZooModel.trace, zoo.ZooModel.trace_batched, zoo.DecodeModel.trace = (
+            counted(f) for f in self._saved)
+        return self
+
+    def __exit__(self, *exc):
+        zoo.ZooModel.trace, zoo.ZooModel.trace_batched, zoo.DecodeModel.trace = self._saved
+        return False
+
+
+def frontend_label(name: str, acc: str, mode: str) -> str:
+    return f"traced {name}@{acc}:{mode}"
+
+
+def frontend_phase(dev: torch.device, card_line: str, windows: dict) -> dict:
+    """Phase 14: every zoo model exported on this machine's torch and
+    imported (``trace_model``, timed alone); its buckets built from one
+    symbolic-batch export, each equal to a static export at that batch,
+    both timed; then compiled by name on the card in every mode on gemmini
+    and edge_npu: outputs bit-equal to the golden graph's module on the
+    card, modeled cycles and launches per run equal."""
+    trace_ms, bucket_ms, compiled = {}, {}, {}
+    for name in sorted(zoo.ZOO):
+        model = zoo.get_model(name)
+        t0 = time.perf_counter()
+        graph = trace_model(model.torch_fn, model.example_inputs(), model.params(), name=name)
+        trace_ms[name] = (time.perf_counter() - t0) * 1e3
+        check([n.op for n in graph.toposort()] == [n.op for n in model.build().toposort()],
+              f"traced {name}: op list differs from the golden graph")
+        t0 = time.perf_counter()
+        sample, build_bucket = model.trace_batched()
+        symbolic = {b: build_bucket(b) for b in FRONTEND_BUCKETS}
+        t1 = time.perf_counter()
+        static = {None: model.trace(), **{b: model.trace(batch=b) for b in FRONTEND_BUCKETS}}
+        bucket_ms[name] = {"symbolic": (t1 - t0) * 1e3, "static": (time.perf_counter() - t1) * 1e3}
+        check(graph_fingerprint(sample) == graph_fingerprint(graph),
+              f"traced {name}: the per-sample graph of trace_batched differs from trace()")
+        for b in FRONTEND_BUCKETS:
+            check(graph_fingerprint(symbolic[b]) == graph_fingerprint(static[b]),
+                  f"traced {name}: bucket {b} from the symbolic-batch export differs from its static export")
+        for acc in FRONTEND_ACCELERATORS:
+            if acc not in model.accelerators:
+                continue
+            for mode in MODES:
+                target = repro_torch.Target(acc, mode=mode, device=str(dev))
+                with TraceSpy() as spy:
+                    t0 = time.perf_counter()
+                    traced = repro_torch.compile(name, target)
+                    compile_ms = (time.perf_counter() - t0) * 1e3
+                check(spy.calls == 1, f"{frontend_label(name, acc, mode)}: compiled without the tracer")
+                t0 = time.perf_counter()
+                golden = repro_torch.compile(model.build(), target)
+                golden_ms = (time.perf_counter() - t0) * 1e3
+                compiled[name, acc, mode] = (traced, golden, compile_ms, golden_ms)
+    feeds = {name: [zoo.get_model(name).feeds(seed) for seed in range(PATH_FEEDS)] for name in zoo.ZOO}
+    want = {key: [c[1].run(f) for f in feeds[key[0]]] for key, c in compiled.items()}
+    summary = {}
+    gemm.reset_launches()  # the traced modules' runs start here
+    for (name, acc, mode), (traced, golden, compile_ms, golden_ms) in compiled.items():
+        label = frontend_label(name, acc, mode)
+        check(traced.modeled_cycles() == golden.modeled_cycles(), f"{label}: modeled cycles differ")
+        per_run = plan_launches(traced)
+        check(per_run == plan_launches(golden), f"{label}: launches per run {per_run} != golden")
+        before = dict(gemm.LAUNCHES)
+        got = [traced.run(f) for f in feeds[name]]
+        for v, count in per_run.items():
+            check(gemm.LAUNCHES[v] - before[v] == count * len(got),
+                  f"{label}: {gemm.LAUNCHES[v] - before[v]} {v} launches for {len(got)} runs")
+        for g, w in zip(got, want[name, acc, mode]):
+            check(len(g) == len(w) and all(a.dtype == b.dtype and np.array_equal(a, b) for a, b in zip(g, w)),
+                  f"{label}: traced output on cuda != golden output on cuda")
+        summary[label] = {"compile_ms": compile_ms, "golden_compile_ms": golden_ms,
+                          "launches_per_run": {v: c for v, c in per_run.items() if c},
+                          "modeled_cycles": traced.modeled_cycles()["total"]}
+    windows["frontend"] = dict(gemm.LAUNCHES)  # read just after them
+    for name, ms in trace_ms.items():
+        traced_ms = [c[2] for (n, _, _), c in compiled.items() if n == name]
+        golden_ms = [c[3] for (n, _, _), c in compiled.items() if n == name]
+        print(f"frontend {name}: torch.export + import {ms:.1f} ms; compile by name on {dev.type} "
+              f"{min(traced_ms):.1f}-{max(traced_ms):.1f} ms (the golden graph's compile "
+              f"{min(golden_ms):.1f}-{max(golden_ms):.1f} ms) over {len(traced_ms)} targets; "
+              f"per-sample graph + buckets {list(FRONTEND_BUCKETS)}: "
+              f"{bucket_ms[name]['symbolic']:.1f} ms from one symbolic-batch export, "
+              f"{bucket_ms[name]['static']:.1f} ms from one static export each")
+    print(f"frontend: {len(summary)} traced modules on {dev.type} bit-equal to the golden graphs, modeled cycles "
+          f"and launches per run equal; torch {torch.__version__} [{card_line}]")
+    return {"torch": torch.__version__, "trace_ms": trace_ms, "bucket_graphs_ms": bucket_ms,
+            "modules": summary}
+
+
+def shard_label(name: str, acc: str, mode: str, mesh, batch=None) -> str:
+    return f"sharded {name}@{acc}:{mode} mesh {mesh[0]}x{mesh[1]}" + (f" --batch {batch}" if batch else "")
+
+
+def compile_sharded_paths(dev: torch.device) -> dict[str, tuple]:
+    """Every sharded module of phase 15 and its devices = 1 counterpart,
+    compiled by name on the card, keyed by label."""
+    out = {}
+    for name in sorted(zoo.ZOO):
+        model = zoo.get_model(name)
+        for acc in FRONTEND_ACCELERATORS:
+            if acc not in model.accelerators:
+                continue
+            for mode in ("optimized", "naive") if name == "toycar_mlp" else ("optimized",):
+                single = repro_torch.compile(name, repro_torch.Target(acc, mode=mode, device=str(dev)))
+                for mesh in SHARD_MESHES:
+                    sharded = repro_torch.compile(
+                        name, repro_torch.Target(acc, mode=mode, device=str(dev), mesh=mesh))
+                    out[shard_label(name, acc, mode, mesh)] = (sharded, single, name, None)
+    name, acc, mesh, batch = SHARD_BATCHED
+    t = dict(mode="optimized", device=str(dev), batch_size=batch)
+    single = repro_torch.compile(name, repro_torch.Target(acc, **t))
+    sharded = repro_torch.compile(name, repro_torch.Target(acc, mesh=mesh, **t))
+    for b in sharded.bucket_sizes():
+        out[shard_label(name, acc, "optimized", sharded.bucket_module(b).mesh, b)] = (
+            sharded.bucket_module(b), single.bucket_module(b), name, b)
+    return out
+
+
+def sharded_shards(modules) -> dict[str, object]:
+    """Every shard plan of ``modules`` (label -> ShardedModule), for the
+    kernel cases of phase 5 (only their configs are read)."""
+    return {f"{label} shard {key}": shard for label, sharded in modules.items()
+            for key, shard in sharded.shards.items()}
+
+
+def sharded_serve_modules() -> dict[str, object]:
+    """The sharded bucket modules phase 15's serve call builds, compiled
+    for the CPU (only their configs are read)."""
+    name, target, batch, _, devices = SHARD_SERVE
+    acc, mode = target.split(":")
+    module = repro_torch.compile(
+        name, repro_torch.Target(acc, mode=mode, device="cpu", batch_size=batch, devices=devices))
+    return {f"serve {name}@{target} --devices {devices} b{b}": module.bucket_module(b)
+            for b in module.bucket_sizes()}
+
+
+def sharded_phase(dev: torch.device, compiled: dict, cases: dict, card_line: str, work: Path,
+                  windows: dict) -> dict:
+    """Phase 15: every sharded module on the card against its devices = 1
+    module on the card, launches per call equal to the sum over its shards'
+    plans; run p50 beside devices = 1; a sharded artifact round trip on the
+    card; ``serve_zoo`` with ``--devices``, every response held to a
+    per-request CPU run."""
+    feeds = {}
+    for label, (sharded, single, name, batch) in compiled.items():
+        feeds[label] = [zoo.get_model(name).feeds(seed, batch=batch) for seed in range(PATH_FEEDS)]
+    want = {label: [single.run(f) for f in feeds[label]] for label, (_, single, _, _) in compiled.items()}
+    summary = {}
+    gemm.reset_launches()  # the sharded modules' runs start here
+    for label, (sharded, single, name, batch) in compiled.items():
+        per_call = plan_launches(sharded)
+        before = dict(gemm.LAUNCHES)
+        got = [sharded.run(f) for f in feeds[label]]
+        for v, count in per_call.items():
+            check(gemm.LAUNCHES[v] - before[v] == count * len(got),
+                  f"{label}: {gemm.LAUNCHES[v] - before[v]} {v} launches for {len(got)} calls, "
+                  f"its shards' plans imply {count} per call")
+        for g, w in zip(got, want[label]):
+            check(len(g) == len(w) and all(a.dtype == b.dtype and np.array_equal(a, b) for a, b in zip(g, w)),
+                  f"{label}: sharded output on cuda != devices=1 output on cuda")
+        summary[label] = {"mesh": list(sharded.mesh), "launches_per_call": {v: c for v, c in per_call.items() if c},
+                          "modeled_cycles": sharded.modeled_cycles(), "single_modeled_cycles": single.modeled_cycles(),
+                          "kernel_ms_per_call": kernel_ms_per_run(sharded, cases)}
+    windows["sharded modules"] = dict(gemm.LAUNCHES)  # read just after them
+    for label, (sharded, single, name, batch) in compiled.items():
+        summary[label]["run_ms_p50"] = run_p50_ms(sharded, feeds[label])
+        summary[label]["single_run_ms_p50"] = run_p50_ms(single, feeds[label])
+        s = summary[label]
+        print(f"{label}: bit-equal to devices=1 on cuda; launches per call {s['launches_per_call']} "
+              f"(kernels {s['kernel_ms_per_call']:.4f} ms device); run p50 {s['run_ms_p50']:.4f} ms against "
+              f"{s['single_run_ms_p50']:.4f} ms at devices=1; modeled total {s['modeled_cycles']['total']} "
+              f"(comm {s['modeled_cycles']['comm']}) against {s['single_modeled_cycles']['total']}")
+
+    # the p50 ladder of one model: devices 1, 2, 4
+    name, acc = "toycar_mlp", "gemmini"
+    ladder = {1: summary[shard_label(name, acc, "optimized", (1, 2))]["single_run_ms_p50"]}
+    for mesh in SHARD_MESHES:
+        ladder[mesh[0] * mesh[1]] = summary[shard_label(name, acc, "optimized", mesh)]["run_ms_p50"]
+    print(f"sharded {name}@{acc}:optimized run p50 by devices: "
+          + ", ".join(f"{d}: {ms:.4f} ms" for d, ms in ladder.items()) + f" [{card_line}]")
+
+    # an artifact round trip on the card
+    label = shard_label(name, acc, "optimized", SHARD_MESHES[-1])
+    sharded = compiled[label][0]
+    path = work / "toycar_sharded.art"
+    repro_torch.save(sharded, path)
+    loaded = repro_torch.load(path, device=str(dev))
+    check(isinstance(loaded, repro_torch.ShardedModule) and loaded.mesh == sharded.mesh, "sharded artifact: mesh")
+    check(plan_launches(loaded) == plan_launches(sharded), "sharded artifact: launches per call")
+    for f, w in zip(feeds[label], want[label]):
+        check(all(np.array_equal(a, b) for a, b in zip(loaded.run(f), w)), "sharded artifact: outputs differ")
+    print(f"sharded artifact {label}: saved and loaded on cuda, outputs equal, launches per call "
+          f"{plan_launches(loaded)}")
+
+    # serve --devices
+    name, target, batch, requests, devices = SHARD_SERVE
+    args = argparse.Namespace(zoo=name, target=target, batch=batch, requests=requests,
+                              deadline_ms=SERVE_DEADLINE_MS, device=str(dev), devices=devices)
+    with TraceSpy() as spy:
+        gemm.reset_launches()  # the sharded serve call's window starts here
+        result = serve.serve_zoo(args)
+        window = dict(gemm.LAUNCHES)  # read just after it
+    check(spy.calls > 0, f"serve {name} --devices {devices}: booted without the tracer")
+    windows[f"serve {name}@{target} --batch {batch} --devices {devices}"] = window
+    check(all(isinstance(result.module.bucket_module(b), repro_torch.ShardedModule)
+              for b in result.module.bucket_sizes()), f"serve {name} --devices {devices}: unsharded buckets")
+    expected = dispatch_launches(result.module, result.stats.batch_sizes)
+    check(window == expected, f"serve {name} --devices {devices}: launches {window}, the dispatches imply {expected}")
+    acc, mode = target.split(":")
+    cpu = repro_torch.compile(zoo.get_model(name).build(), repro_torch.Target(acc, mode=mode, device="cpu"))
+    check(len(result.outputs) == requests, f"serve {name} --devices {devices}: {len(result.outputs)} responses")
+    for i, (f, got) in enumerate(zip(result.traffic, result.outputs)):
+        w = cpu.run(f)
+        check(len(got) == 1 and got[0].dtype == w[0].dtype and np.array_equal(got[0], w[0]),
+              f"serve {name} --devices {devices}: response {i} != per-request cpu result")
+    lat_ms = np.asarray(result.latencies_s) * 1e3
+    served = {"target": target, "batch": batch, "devices": devices, "requests": requests,
+              "mesh": list(result.module.bucket_module(batch).mesh), "boot_ms": result.boot_s * 1e3,
+              "req_per_s": requests / result.wall_s, "latency_ms_p50": float(np.percentile(lat_ms, 50)),
+              "latency_ms_p99": float(np.percentile(lat_ms, 99)), "dispatches": result.stats.batches,
+              "launches": {v: c for v, c in window.items() if c}}
+    print(f"serve {name} on {target} --batch {batch} --devices {devices}: {requests} responses bit-equal to "
+          f"per-request cpu runs; {served['req_per_s']:.1f} req/s, p50 {served['latency_ms_p50']:.4f} ms, "
+          f"p99 {served['latency_ms_p99']:.4f} ms, {result.stats.batches} dispatches; boot "
+          f"{served['boot_ms']:.1f} ms; launches {served['launches']} [{card_line}]")
+    return {"modules": summary, "p50_by_devices": ladder, "serve": served}
+
+
 # -- phase 13: the LM substrate on the card -----------------------------------
 
 #: host ops of the port's plan, each dtype, on the card against the CPU;
@@ -1463,6 +1763,8 @@ def host_op_case(op: str, dtype: str):
     elif op == "kv_cache_append":
         node = ir.kv_cache_append(x, inp((2, 8), "u"), inp((), "pos", "int32"))
         feeds["u"], feeds["pos"] = data((2, 8)), np.asarray(5, np.int32)
+    elif op == "shard_slice":
+        node = ir.shard_slice(x, axis=1, rank=1, parts=2)
     else:
         node = {
             "relu": lambda: ir.relu(x), "gelu": lambda: ir.gelu(x), "softmax": lambda: ir.softmax(x),
@@ -1872,6 +2174,9 @@ def main(argv: list[str] | None = None) -> int:
     )
     decode_compiled = compile_decode_paths(dev)
     case_modules.update({decode_label(*key): mods["cpu"] for key, mods in decode_compiled.items()})
+    sharded_compiled = compile_sharded_paths(dev)
+    case_modules.update(sharded_shards({label: c[0] for label, c in sharded_compiled.items()}))
+    case_modules.update(sharded_shards(sharded_serve_modules()))
     cases = path_case_phase(dev, case_modules)
 
     windows = {}
@@ -1896,6 +2201,8 @@ def main(argv: list[str] | None = None) -> int:
     decode_served = decode_serve_phase(dev, cases, card_line, windows)
     decode_checks = decode_bounds_and_artifact(dev, work, card_line)
     gate = verify_gate_phase(dev, card_line)
+    frontend = frontend_phase(dev, card_line, windows)  # sets the counts to 0 before its runs
+    sharded = sharded_phase(dev, sharded_compiled, cases, card_line, work, windows)  # likewise
     host_ops = host_ops_phase(dev, card_line)
     lm_run = lm_phase(dev, card_line, windows)  # sets the counts to 0 before each LM window
     for window, counts in windows.items():
@@ -1905,6 +2212,9 @@ def main(argv: list[str] | None = None) -> int:
                     "artifact module": ("qgemm_requant",), "pipelined": both, "decode modules": both,
                     f"serve {DECODE.name}@{DECODE_SERVE[0]} --batch {DECODE_SLOTS}": both,
                     f"sequential {DECODE.name}@{DECODE_SERVE[0]}": both,
+                    "frontend": both, "sharded modules": both,
+                    f"serve {SHARD_SERVE[0]}@{SHARD_SERVE[1]} --batch {SHARD_SERVE[2]} --devices {SHARD_SERVE[4]}":
+                        ("qgemm_requant",),
                     "LM served routed": ("gemm_float",), "LM smoke archs": ("gemm_float",)}
     for window, names in path_kernels.items():
         for name in names:
@@ -1947,12 +2257,13 @@ def main(argv: list[str] | None = None) -> int:
               "serve": served, "measured_dse": measured, "artifact": artifact, "pipelined": pipelined,
               "decode_paths": decode_paths, "decode_serve": decode_served, "decode_checks": decode_checks,
               "verify_gate": gate, "host_ops": host_ops, "lm": lm_run, "launch_windows": windows,
+              "frontend": frontend, "sharded": sharded,
               "path_cases": path_cases}
     if args.report:
         Path(args.report).parent.mkdir(parents=True, exist_ok=True)
         Path(args.report).write_text(json.dumps({**report, **line}, indent=1))
     # the per-path summaries are long and printed above, path by path
-    long = ("paths", "measured_dse", "pipelined", "decode_paths", "path_cases", "lm")
+    long = ("paths", "measured_dse", "pipelined", "decode_paths", "path_cases", "lm", "frontend", "sharded")
     print(json.dumps({k: v for k, v in report.items() if k not in long}))
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

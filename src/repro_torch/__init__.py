@@ -12,6 +12,13 @@ accelerator step on a hand-written CUDA kernel for sm_90a:
     outputs = module.run({"x": x})
     cycles = module.modeled_cycles()
 
+``compile`` also takes a plain PyTorch callable, traced with
+``torch.export`` (``repro_torch.compile(fn, target, example_inputs={"x":
+x}, params=params)``; zoo names go through the same tracer), and
+``Target(devices=N)`` / ``Target(mesh=(d, m))`` compiles one plan per
+shard of a mesh, every shard on the target's one device, behind a
+``ShardedModule``.
+
 Serving goes through batch buckets and a micro-batching queue:
 ``python -m repro_torch.launch.serve --zoo toycar_mlp --target
 gemmini:optimized --batch 64``; the decode zoo (``attn_decode``) through
@@ -55,8 +62,10 @@ from repro_torch.core.registry import (
     validate_description,
 )
 from repro_torch.core.schedule_cache import ScheduleCache, default_cache_dir
+from repro_torch.core.sharded import ShardedModule
 from repro_torch.core.verify import Diagnostic, VerifyError, verify
 from repro_torch.core.zoo import DECODE_ZOO, decode_model_names, get_decode_model
+from repro_torch.frontend import UnsupportedExportError, trace_model
 
 __version__ = "0.1.0"
 
@@ -77,8 +86,10 @@ __all__ = [
     "IntegrationError",
     "REGISTRY",
     "ScheduleCache",
+    "ShardedModule",
     "Target",
     "TargetError",
+    "UnsupportedExportError",
     "VerifyError",
     "backend_for",
     "build_integrated_backend",
@@ -90,6 +101,7 @@ __all__ = [
     "load",
     "register_accelerator",
     "save",
+    "trace_model",
     "validate_description",
     "verify",
     "__version__",

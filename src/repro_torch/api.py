@@ -3,13 +3,23 @@
 A ``Target`` names the accelerator, the optimization mode and the device
 the compiled module runs on (validated up front, every problem listed);
 ``CompileOptions`` carries per-compile knobs; ``compile()`` accepts an
-``ir.Graph`` or a model-zoo name —
+``ir.Graph``, a model-zoo name, or a plain PyTorch callable —
 
     import repro_torch
 
     module = repro_torch.compile("toycar_mlp", repro_torch.Target("gemmini"))
     outputs = module.run({"x": x})        # numpy in, numpy out
     cycles = module.modeled_cycles()
+
+    # a plain torch callable + example inputs (traced with torch.export)
+    module = repro_torch.compile(
+        fn, repro_torch.Target("gemmini"), example_inputs={"x": x}, params=params
+    )
+
+    # one plan per shard of a (data, model) mesh, every shard on the card
+    sharded = repro_torch.compile(
+        "toycar_mlp", repro_torch.Target("gemmini", mesh=(1, 4))
+    )
 
     # serving: one execution plan per batch bucket behind one module
     served = repro_torch.compile(
@@ -34,13 +44,17 @@ memoized in-process (``backend_for``), so repeated compiles repeat no
 DSE sweep.  ``CompileOptions(measure_top_k=K)`` re-ranks each node's K
 best modeled schedules by timing the kernel on the target's device.
 
-Port of ``repro.api``: ``Target`` (without ``use_pallas``, ``devices`` and
-``mesh``: the route follows the device, and sharded plans wait for their
-slice), ``CompileOptions``, the backend memo, ``compile`` for a graph or
-a zoo name (the decode zoo's names included: their decode-step form),
-``save`` and ``load``, and the ``verify`` gate.  A zoo name's graphs are
-its golden graphs, ``build(batch=b)``: the port has no traced frontend
-yet.
+Port of ``repro.api``: ``Target`` (without ``use_pallas``: the route
+follows the device), ``CompileOptions``, the backend memo, ``compile``
+for a graph, a zoo name (the decode zoo's names included: their
+decode-step form) or a callable, sharded compiles (``Target(devices=,
+mesh=)``), ``save`` and ``load``, and the ``verify`` gate.  A zoo name
+compiles its traced form (``trace(batch=b)``), as the reference's does; a
+callable is traced per bucket with batch-widened example inputs.  The
+shards of a sharded module are plans on the target's one device (see
+``repro_torch.core.sharded``), not one card each.  ``compile`` takes a
+``Target`` only, not the reference's ``"accelerator:mode"`` string
+(``Target.parse`` reads that).
 """
 
 from __future__ import annotations
@@ -54,14 +68,18 @@ import torch
 
 from repro_torch.core.accel import AcceleratorDescription
 from repro_torch.core.batching import BatchedModule, io_specs_from_graph
+from repro_torch.core.collective import ShardSpec
 from repro_torch.core.executor import CompiledModule
-from repro_torch.core.ir import Graph
+from repro_torch.core.ir import Graph, clone_graph
 from repro_torch.core.pass_manager import PassContext
 from repro_torch.core import pipeline
 from repro_torch.core.pipeline import PUBLIC_MODES, CompilerBackend, resolve_mode
 from repro_torch.core.registry import REGISTRY, build_integrated_backend
 from repro_torch.core.scheduler import mip_installable
+from repro_torch.core.sharded import ShardedModule
+from repro_torch.core.verify import VerifyError, resolve_verify, verify_collectives
 from repro_torch.core.zoo import DECODE_ZOO, get_decode_model, get_model
+from repro_torch.frontend import trace_batched, trace_model
 
 #: serving bucket ladder used when only ``Target.batch_size`` is given:
 #: the buckets are the ladder entries below it, plus the batch itself.
@@ -130,8 +148,14 @@ class Target:
     deployment dispatches at: above 1, ``compile()`` returns a
     ``BatchedModule`` bucketed at the ``DEFAULT_BATCH_BUCKETS`` entries
     below it plus the batch itself (``CompileOptions.batch_buckets``
-    overrides the set).  Construction validates everything it can and
-    raises ``TargetError`` listing every problem at once.
+    overrides the set).  ``devices > 1`` compiles ONE graph into one
+    ExecutionPlan per shard of a ``(data, model)`` mesh and ``compile()``
+    returns a ``ShardedModule`` (or a ``BatchedModule`` of them); every
+    shard runs on ``device``.  The factorization defaults to the
+    elastic-mesh rule (``repro_torch.launch.mesh.mesh_factorization``);
+    ``mesh`` pins it, and giving only ``mesh`` derives ``devices`` from its
+    product.  Construction validates everything it can and raises
+    ``TargetError`` listing every problem at once.
     """
 
     accelerator: str | AcceleratorDescription
@@ -142,6 +166,8 @@ class Target:
     parallel_dse: bool = False
     device: str = "cuda"
     batch_size: int = 1
+    devices: int = 1
+    mesh: tuple[int, int] | None = None
 
     def __post_init__(self):
         problems = []
@@ -149,6 +175,30 @@ class Target:
             problems.append(
                 f"batch_size must be a positive int, got {self.batch_size!r}"
             )
+        if not isinstance(self.devices, int) or self.devices < 1:
+            problems.append(
+                f"devices must be a positive int, got {self.devices!r}"
+            )
+        elif self.mesh is not None:
+            mesh = tuple(self.mesh) if isinstance(self.mesh, list) else self.mesh
+            if (
+                not isinstance(mesh, tuple)
+                or len(mesh) != 2
+                or not all(isinstance(a, int) and a >= 1 for a in mesh)
+            ):
+                problems.append(
+                    f"mesh must be a (data, model) pair of positive ints, "
+                    f"got {self.mesh!r}"
+                )
+            else:
+                object.__setattr__(self, "mesh", mesh)
+                if self.devices == 1:
+                    object.__setattr__(self, "devices", mesh[0] * mesh[1])
+                elif mesh[0] * mesh[1] != self.devices:
+                    problems.append(
+                        f"mesh {mesh} factorizes {mesh[0] * mesh[1]} devices "
+                        f"but devices={self.devices} was also passed"
+                    )
         try:
             resolve_mode(self.mode)
         except ValueError:
@@ -207,7 +257,27 @@ class Target:
             if isinstance(self.accelerator, str)
             else getattr(self.accelerator, "name", "<description>")
         )
-        return f"{name}:{self.mode}@{self.device}"
+        base = f"{name}:{self.mode}@{self.device}"
+        if isinstance(self.devices, int) and self.devices > 1:
+            try:
+                dp, mp = self.resolved_mesh
+                base += f"@{self.devices}dev(data={dp},model={mp})"
+            except Exception:  # an invalid mesh mid-TargetError formatting
+                base += f"@{self.devices}dev"
+        return base
+
+    @property
+    def resolved_mesh(self) -> tuple[int, int]:
+        """The ``(data, model)`` mesh this target compiles for: the
+        explicit ``mesh`` if given, else the elastic factorization of
+        ``devices`` (largest power-of-two model axis, rest data)."""
+        if self.mesh is not None:
+            return self.mesh
+        if self.devices == 1:
+            return (1, 1)
+        from repro_torch.launch.mesh import mesh_factorization
+
+        return mesh_factorization(self.devices)
 
     @property
     def internal_mode(self) -> str:
@@ -234,8 +304,9 @@ class CompileOptions:
     fresh_backend: bool = False
     #: serving batch buckets: compile one ExecutionPlan per bucket and
     #: return a BatchedModule whose run_many packs/pads per-sample feeds
-    #: into the smallest fitting bucket.  Only zoo names can be rebuilt
-    #: per bucket (a prebuilt ir.Graph is fixed-shape).  None (default) ->
+    #: into the smallest fitting bucket.  Only zoo names and traced
+    #: callables can be rebuilt per bucket (a prebuilt ir.Graph is
+    #: fixed-shape).  None (default) ->
     #: the classic single-shape module unless ``Target.batch_size > 1``
     #: supplies the default ladder.
     batch_buckets: tuple[int, ...] | None = None
@@ -259,7 +330,9 @@ class CompileOptions:
     #: static-verification gate (``repro_torch.core.verify``): 'each'
     #: re-verifies the graph after every pass, 'final' once after the
     #: pipeline, 'off' never; both gated modes also check the built plan.
-    #: None (default) reads ``REPRO_VERIFY``.
+    #: None (default) reads ``REPRO_VERIFY``.  Sharded compiles
+    #: additionally check cross-shard collective-sequence consistency
+    #: (the static deadlock detector).
     verify: str | None = None
 
     def __post_init__(self):
@@ -344,6 +417,47 @@ def backend_for(target: Target, *, fresh: bool = False) -> CompilerBackend:
     return backend
 
 
+def _check_zoo_args(example_inputs, params) -> None:
+    if example_inputs is not None or params is not None:
+        raise ValueError(
+            "zoo models carry their own inputs and parameters; "
+            "drop example_inputs/params"
+        )
+
+
+def _check_callable_args(model, example_inputs) -> None:
+    if not callable(model):
+        raise TypeError(
+            f"model must be an ir.Graph, a zoo model name, or a torch "
+            f"callable; got {type(model).__name__}"
+        )
+    if not isinstance(example_inputs, dict) or not example_inputs:
+        raise ValueError(
+            "compiling a traced callable needs example_inputs: a dict "
+            "mapping input names to example arrays, e.g. "
+            "repro_torch.compile(fn, target, example_inputs={'x': x})"
+        )
+
+
+def _graph_for(model, example_inputs, params) -> Graph:
+    if isinstance(model, Graph):
+        if example_inputs is not None or params is not None:
+            raise ValueError(
+                "example_inputs/params only apply to traced callables, "
+                "not prebuilt ir.Graph models"
+            )
+        return model
+    if isinstance(model, str):
+        _check_zoo_args(example_inputs, params)
+        if model in DECODE_ZOO:
+            # the decode-step form; prefill compiles via
+            # get_decode_model(name).trace(seq=P) passed as a Graph
+            return get_decode_model(model).trace()
+        return get_model(model).trace()
+    _check_callable_args(model, example_inputs)
+    return trace_model(model, example_inputs, params)
+
+
 def _resolve_buckets(target: Target, options: CompileOptions) -> tuple[int, ...] | None:
     """The bucket set to compile, or None for the classic unbatched path."""
     buckets = options.batch_buckets
@@ -368,6 +482,33 @@ def _resolve_buckets(target: Target, options: CompileOptions) -> tuple[int, ...]
     return tuple(sorted(set(buckets)))
 
 
+def _batched_graph_builder(model, example_inputs, params):
+    """A ``build(batch) -> Graph`` callback for models that can be rebuilt
+    per bucket: zoo names and callables are exported once with a symbolic
+    batch dim and imported per bucket (``frontend.trace_batched``).
+    Prebuilt graphs are fixed-shape.  Returns the per-sample graph too,
+    whose IO specs the buckets share."""
+    if isinstance(model, str):
+        if model in DECODE_ZOO:
+            raise ValueError(
+                "stateful decode models do not use batch buckets: the "
+                "decode batch is the engine's static slot count — compile "
+                "get_decode_model(name).trace(batch=B) directly, or serve "
+                "via repro_torch.serve.ContinuousBatchingEngine"
+            )
+        _check_zoo_args(example_inputs, params)
+        return get_model(model).trace_batched()
+    if isinstance(model, Graph):
+        raise ValueError(
+            "batch buckets need a model that can be rebuilt per bucket "
+            "(a zoo name or a traced callable); a prebuilt ir.Graph is "
+            "fixed-shape — trace the model instead, or compile the graph "
+            "without batch_buckets"
+        )
+    _check_callable_args(model, example_inputs)
+    return trace_batched(model, example_inputs, params)
+
+
 def _check_offload(module: CompiledModule) -> None:
     desc = module.desc
     left_on_host = [
@@ -384,17 +525,27 @@ def _check_offload(module: CompiledModule) -> None:
 
 
 def compile(
-    model, target: Target, *, options: CompileOptions | None = None
-) -> CompiledModule | BatchedModule:
+    model,
+    target: Target,
+    *,
+    example_inputs: dict | None = None,
+    params=None,
+    options: CompileOptions | None = None,
+):
     """Compile a model for a target — the one entry point.
 
     Args:
       model: an ``ir.Graph`` (mutated by the pass pipeline: build a fresh
-        one per compile) or a zoo model name (``repro_torch.core.zoo``; a
-        decode-zoo name compiles its decode step, ``build()``: prefill and
-        batched steps compile as ``get_decode_model(name).build(seq=P)`` /
-        ``build(batch=B)`` graphs).
+        one per compile), a zoo model name (``repro_torch.core.zoo``; a
+        decode-zoo name compiles its decode step, ``trace()``: prefill and
+        batched steps compile as ``get_decode_model(name).trace(seq=P)`` /
+        ``trace(batch=B)`` graphs), or a plain PyTorch callable (traced
+        with ``torch.export`` by ``repro_torch.frontend``).
       target: a ``Target``.
+      example_inputs: for callables — dict of input name -> example array
+        or tensor (shape and dtype only; values are not used).
+      params: for callables — optional tree of weight arrays or tensors,
+        imported as graph constants (keeps weight preprocessing foldable).
       options: ``CompileOptions``.
 
     Returns a ``CompiledModule``: ``run(feeds)`` / ``run_many(feeds_list)``
@@ -402,40 +553,35 @@ def compile(
     model.  With ``Target(batch_size=...)`` > 1 or ``CompileOptions(
     batch_buckets=...)``, returns a ``BatchedModule`` instead: one
     ExecutionPlan per batch bucket, plus the unpadded per-sample plan for
-    single requests (see ``repro_torch.core.batching``).
+    single requests (see ``repro_torch.core.batching``).  With
+    ``Target(devices=N)`` > 1, a ``ShardedModule`` (or a ``BatchedModule``
+    of them, one per bucket).
     """
     if not isinstance(target, Target):
         raise TypeError(f"target must be a Target, got {type(target).__name__}")
-    if not isinstance(model, (Graph, str)):
-        raise TypeError(
-            f"model must be an ir.Graph or a zoo model name; got {type(model).__name__}"
-        )
     options = options or CompileOptions()
-    # the device, the buckets and the model are checked before any
-    # integration work or cache-dir side effect
+    # the device, the buckets and the model are checked (and the model's
+    # graphs traced) before any integration work or cache-dir side effect
     device = target.torch_device()
     buckets = _resolve_buckets(target, options)
-    is_decode = isinstance(model, str) and model in DECODE_ZOO
-    if buckets is not None and is_decode:
+    if buckets is None:
+        graph = _graph_for(model, example_inputs, params)
+    else:
+        reference, build = _batched_graph_builder(model, example_inputs, params)
+    dp, mp = target.resolved_mesh
+    if target.devices > 1 and options.passes is not None:
         raise ValueError(
-            "stateful decode models do not use batch buckets: the decode "
-            "batch is the engine's static slot count — compile "
-            "get_decode_model(name).build(batch=B) directly, or serve via "
-            "repro_torch.serve.ContinuousBatchingEngine"
+            "devices > 1 inserts the shard-partitioning pass into the "
+            "per-mode pipeline; a custom CompileOptions.passes list cannot "
+            "be sharded"
         )
-    if buckets is not None and isinstance(model, Graph):
-        raise ValueError(
-            "batch buckets need a model that can be rebuilt per bucket "
-            "(a zoo name); a prebuilt ir.Graph is fixed-shape — compile "
-            "the model by its zoo name instead, or compile the graph "
-            "without batch_buckets"
-        )
-    if is_decode:
-        model = get_decode_model(model).build()
-    zoo_model = get_model(model) if isinstance(model, str) else None
     backend = backend_for(target, fresh=options.fresh_backend)
     store = None
-    if options.artifact_dir is not None and options.passes is None:
+    if (
+        options.artifact_dir is not None
+        and options.passes is None
+        and target.devices == 1  # the store key carries no mesh coordinate
+    ):
         from repro_torch.core.artifact import ArtifactStore
 
         store = ArtifactStore(Path(options.artifact_dir))
@@ -477,22 +623,74 @@ def compile(
             store.put(key, module, source_fingerprint=src_fp)
         return module
 
-    if zoo_model is None:
-        return compile_graph(model)
+    def compile_sharded(base_graph: Graph, dp_eff: int, signature) -> ShardedModule:
+        """Compile one graph into its per-shard ExecutionPlan set: every
+        mesh coordinate gets its own CLONE of the source graph (the pass
+        pipeline mutates in place, and each shard's shard pass rewrites
+        different slices) compiled with that coordinate's ShardSpec, for
+        the target's one device."""
+        shards = {}
+        for d in range(dp_eff):
+            for m in range(mp):
+                module = backend.compile_graph(
+                    clone_graph(base_graph),
+                    target.internal_mode,
+                    device=device,
+                    pass_context=options.pass_context,
+                    measure_top_k=options.measure_top_k,
+                    shard=ShardSpec(data=dp_eff, model=mp, data_rank=d, model_rank=m),
+                    verify=options.verify,
+                )
+                if not options.allow_host_fallback:
+                    _check_offload(module)
+                shards[(d, m)] = module
+        if resolve_verify(options.verify) != "off":
+            # the per-shard gate proved each plan sound in isolation; the
+            # cross-shard property — a consistent collective sequence on
+            # every shard — is what rules out a rendezvous deadlock
+            diags = verify_collectives(shards)
+            if diags:
+                raise VerifyError(
+                    f"sharded compile of {base_graph.name!r} "
+                    f"(mesh data={dp_eff}, model={mp})",
+                    diags,
+                )
+        return ShardedModule(shards=shards, mesh=(dp_eff, mp), signature=signature)
+
     if buckets is None:
-        return compile_graph(zoo_model.build())
-    # each bucket compiles the golden graph at that batch; the per-sample
-    # graph compiles into the UNPADDED single-request plan, which run_many
-    # takes for size-1 chunks instead of pack/pad-to-bucket/unpack
-    sample = zoo_model.build()
-    inputs, outputs = io_specs_from_graph(sample)
-    sample_module = compile_graph(sample)
-    return BatchedModule(
-        modules={b: compile_graph(zoo_model.build(batch=b), bucket=b) for b in buckets},
-        inputs=inputs,
-        outputs=outputs,
-        sample_module=sample_module,
-    )
+        if target.devices == 1:
+            return compile_graph(graph)
+        if dp > 1:
+            raise ValueError(
+                f"target mesh (data={dp}, model={mp}) is data-parallel, "
+                f"which splits along the batch dim and therefore needs "
+                f"batch buckets (Target(batch_size=...) or CompileOptions("
+                f"batch_buckets=...)); use mesh=(1, {target.devices}) for "
+                f"pure tensor parallelism on an unbatched compile"
+            )
+        signature = tuple((n.name, tuple(n.shape), n.dtype) for n in graph.inputs())
+        return compile_sharded(graph, 1, signature)
+
+    inputs, outputs = io_specs_from_graph(reference)
+    if target.devices == 1:
+        # the per-sample graph compiles into the UNPADDED single-request
+        # plan, which run_many takes for size-1 chunks instead of
+        # pack/pad-to-bucket/unpack
+        sample_module = compile_graph(reference)
+        return BatchedModule(
+            modules={b: compile_graph(build(b), bucket=b) for b in buckets},
+            inputs=inputs,
+            outputs=outputs,
+            sample_module=sample_module,
+        )
+    modules = {}
+    for b in buckets:
+        # a bucket only splits data-parallel when the mesh divides it
+        # evenly; otherwise that bucket runs tensor-parallel-only
+        dp_eff = dp if dp > 1 and b % dp == 0 else 1
+        signature = tuple((s.name, s.batched_shape(b), s.dtype) for s in inputs)
+        modules[b] = compile_sharded(build(b // dp_eff), dp_eff, signature)
+    return BatchedModule(modules=modules, inputs=inputs, outputs=outputs)
 
 
 def save(module, path) -> Path:

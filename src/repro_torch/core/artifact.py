@@ -48,9 +48,10 @@ the restored module runs.  Two manifest keys describe the port's route:
 
 A graph's decode-state contract (``cache_spec``) travels with it and is
 part of its fingerprint, as in the reference, so decode artifacts
-cross-load too.  Sharded artifacts (``save_sharded``/``load_sharded``)
-wait for the sharded slice: a sharded manifest is refused with an
-``ArtifactError`` naming the slice.  Beyond the schema, the npz hash, the
+cross-load too, and so do sharded artifacts (``save_sharded`` /
+``load_sharded``: a manifest of the mesh and the full input signature
+plus one module artifact per mesh coordinate, whose per-shard graphs
+carry their collective ops).  Beyond the schema, the npz hash, the
 graph and architecture fingerprints, the schedules and the rebuilt plan's
 skeleton, ``load`` runs the static verifier (``verify_graph`` +
 ``verify_plan``) on every restored module and raises ``VerifyError`` on a
@@ -81,7 +82,8 @@ from repro_torch.core.lowering import kernel_config_for
 from repro_torch.core.pass_manager import PassStats, PipelineReport
 from repro_torch.core.registry import REGISTRY
 from repro_torch.core.schedule_cache import result_from_dict, result_to_dict
-from repro_torch.core.verify import VerifyError, verify_graph, verify_plan
+from repro_torch.core.sharded import ShardedModule
+from repro_torch.core.verify import VerifyError, verify_collectives, verify_graph, verify_plan
 
 #: bump on any incompatible change to the manifest or npz layout; load
 #: rejects other versions with a clear error instead of misreading them.
@@ -322,7 +324,7 @@ def save_module(
     if not isinstance(module, CompiledModule):
         raise ArtifactError(
             "save_module() takes a CompiledModule; use repro_torch.save() for "
-            "batched modules"
+            "batched or sharded modules"
         )
     plan = module.finalize()
     graph_d, arrays = graph_to_dict(module.graph)
@@ -386,11 +388,6 @@ def _read_manifest(path: Path) -> dict:
         raise ArtifactError(
             f"artifact at {path} has schema version {version!r}, this build "
             f"reads version {SCHEMA_VERSION}; recompile and re-save it"
-        )
-    if man.get("kind") == "sharded":
-        raise ArtifactError(
-            f"artifact at {path} is a sharded module (kind 'sharded'); sharded "
-            f"plans wait for the port's sharded slice"
         )
     return man
 
@@ -505,6 +502,78 @@ def load_module(path: str | Path, *, device: torch.device, desc=None) -> Compile
 
 
 # ---------------------------------------------------------------------------
+# sharded artifacts (one sub-artifact per mesh coordinate)
+# ---------------------------------------------------------------------------
+
+
+def save_sharded(
+    module: ShardedModule,
+    path: str | Path,
+    *,
+    source_fingerprint: str | None = None,
+) -> Path:
+    """Serialize a ShardedModule: a sharded manifest (mesh factorization +
+    the full unsharded input signature) plus one full module artifact per
+    mesh coordinate (``shard_<data>_<model>/``).  Every shard's plan was
+    compiled from the same source graph, so one ``source_fingerprint``
+    covers them all."""
+    manifest = {
+        "schema_version": SCHEMA_VERSION,
+        "kind": "sharded",
+        "mesh": list(module.mesh),
+        "signature": [
+            [name, list(shape), dtype]
+            for name, shape, dtype in module.signature
+        ],
+    }
+
+    def write(tmp: Path) -> None:
+        (tmp / _MANIFEST).write_text(json.dumps(manifest))
+        for (d, m), shard in sorted(module.shards.items()):
+            save_module(
+                shard,
+                tmp / f"shard_{d}_{m}",
+                source_fingerprint=source_fingerprint,
+            )
+
+    path = Path(path)
+    _atomic_write_dir(path, write)
+    return path
+
+
+def load_sharded(path: str | Path, *, device: torch.device, desc=None) -> ShardedModule:
+    """Restore a ShardedModule whose every shard runs on ``device``."""
+    path = Path(path)
+    manifest = _read_manifest(path)
+    if manifest.get("kind") != "sharded":
+        raise ArtifactError(
+            f"artifact at {path} is kind {manifest.get('kind')!r}, expected "
+            f"'sharded'"
+        )
+    dp, mp = manifest["mesh"]
+    shards = {
+        (d, m): load_module(path / f"shard_{d}_{m}", device=device, desc=desc)
+        for d in range(dp)
+        for m in range(mp)
+    }
+    # per-shard artifacts were verified individually by load_module; the
+    # cross-shard property — every shard issuing a consistent collective
+    # sequence — is what turns a run-time rendezvous deadlock into a
+    # load-time error, so check it before the module can execute
+    diags = verify_collectives(shards)
+    if diags:
+        raise VerifyError(f"sharded artifact at {path}", diags)
+    return ShardedModule(
+        shards=shards,
+        mesh=(dp, mp),
+        signature=tuple(
+            (name, tuple(shape), dtype)
+            for name, shape, dtype in manifest["signature"]
+        ),
+    )
+
+
+# ---------------------------------------------------------------------------
 # batched artifacts (one sub-artifact per bucket)
 # ---------------------------------------------------------------------------
 
@@ -530,7 +599,9 @@ def save_batched(
     def write(tmp: Path) -> None:
         (tmp / _MANIFEST).write_text(json.dumps(_encode_attr(manifest)))
         for b in module.bucket_sizes():
-            save_module(module.bucket_module(b), tmp / f"bucket_{b}", source_fingerprint=fps.get(b))
+            sub = module.bucket_module(b)
+            saver = save_sharded if isinstance(sub, ShardedModule) else save_module
+            saver(sub, tmp / f"bucket_{b}", source_fingerprint=fps.get(b))
         if module.sample_module is not None:
             save_module(module.sample_module, tmp / "sample")
 
@@ -557,10 +628,13 @@ def load_batched(path: str | Path, *, device: torch.device, desc=None) -> Batche
             stacked=d["stacked"],
         )
 
-    modules = {
-        b: load_module(path / f"bucket_{b}", device=device, desc=desc)
-        for b in manifest["buckets"]
-    }
+    def bucket(b: int):
+        sub_path = path / f"bucket_{b}"
+        if _read_manifest(sub_path).get("kind") == "sharded":
+            return load_sharded(sub_path, device=device, desc=desc)
+        return load_module(sub_path, device=device, desc=desc)
+
+    modules = {b: bucket(b) for b in manifest["buckets"]}
     sample = None
     if manifest.get("has_sample"):
         sample = load_module(path / "sample", device=device, desc=desc)
@@ -576,19 +650,24 @@ def save_any(module, path: str | Path) -> Path:
     """``repro_torch.save``: dispatch on module kind."""
     if isinstance(module, BatchedModule):
         return save_batched(module, path)
+    if isinstance(module, ShardedModule):
+        return save_sharded(module, path)
     if isinstance(module, CompiledModule):
         return save_module(module, path)
     raise ArtifactError(
-        f"repro_torch.save() takes a CompiledModule or BatchedModule, got "
-        f"{type(module).__name__}"
+        f"repro_torch.save() takes a CompiledModule, BatchedModule, or "
+        f"ShardedModule, got {type(module).__name__}"
     )
 
 
 def load_any(path: str | Path, *, device: torch.device, desc=None):
     """``repro_torch.load``: dispatch on the artifact's recorded kind."""
     path = Path(path)
-    if _read_manifest(path).get("kind") == "batched":
+    kind = _read_manifest(path).get("kind")
+    if kind == "batched":
         return load_batched(path, device=device, desc=desc)
+    if kind == "sharded":
+        return load_sharded(path, device=device, desc=desc)
     return load_module(path, device=device, desc=desc)
 
 

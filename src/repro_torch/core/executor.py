@@ -9,11 +9,14 @@ numpy arrays, as the reference returns them.
 Port of ``repro.core.executor``: ``ExecutionPlan`` with its build-time
 stage assignment, ``build_plan``, ``CompiledModule.run``/``run_many``
 (sequential; ``pipelined=True`` runs the same loop), ``FeedError``, ``input_signature``,
-``modeled_cycles``, ``schedules`` and the KV-cache ops.  The per-node
-interpreter (``use_plan=False``) and the collective ops wait for their
-slices.  Host ops are torch ops with every cast written out: numpy 2 and
-torch promote differently, so each op computes in the dtype numpy's
-promotion would give, decided when the plan is built.
+``modeled_cycles`` (with the ring-interconnect ``comm`` term of sharded
+plans), ``schedules``, the KV-cache ops, ``shard_slice`` and the
+collective steps (``collective.collective_fn``, a rendezvous through the
+thread's ``CollectiveSession``).  The per-node interpreter
+(``use_plan=False``) waits for its slice.  Host ops are torch ops with
+every cast written out: numpy 2 and torch promote differently, so each op
+computes in the dtype numpy's promotion would give, decided when the plan
+is built.
 
 ``pipelined=True`` keeps the reference's signature and its build-time
 stage assignment (each step's lane and cross-lane watermark, which the
@@ -49,7 +52,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.accel import AcceleratorDescription
-from repro_torch.core.ir import Graph, Node, check_append_bounds
+from repro_torch.core.collective import collective_cycles, collective_fn
+from repro_torch.core.ir import COLLECTIVE_OPS, Graph, Node, check_append_bounds
 from repro_torch.core.simulator import simulate
 from repro_torch.core.strategy import Strategy, dtype_bytes, gemm_instances
 from repro_torch.kernels.ref import torch_dtype
@@ -195,6 +199,20 @@ def compile_host_op(
             return lambda x, b: (x.to(torch.int64) + b.to(torch.int64)).to(dt)
         rt = result_dtype(*in_dtypes)
         return lambda x, b: x.to(rt) + b.to(rt)
+    if op == "shard_slice":
+        ax, rank, parts = attrs["axis"], attrs["rank"], attrs["parts"]
+
+        def _shard_slice(x):
+            size = x.shape[ax] // parts
+            return x.narrow(ax, rank * size, size)
+
+        return _shard_slice
+    if op in COLLECTIVE_OPS:
+        # rendezvous through the thread-local CollectiveSession the
+        # ShardedModule binds per call (identity when parts == 1)
+        return collective_fn(
+            op, attrs["group"], attrs["rank"], attrs["parts"], attrs["axis"], n.dtype
+        )
     if op == "kv_cache_read":
         return lambda cache: cache
     if op == "kv_cache_append":
@@ -540,14 +558,25 @@ class CompiledModule:
     def modeled_cycles(self) -> dict[str, float]:
         """Total modeled cycles: accelerator ops via the schedule simulator,
         residual host ops (unfolded preprocessing / unfused epilogues in
-        naive mode) via per-byte host costs.  ``comm`` (collectives of
-        sharded plans) is zero until the sharded slice."""
+        naive mode) via per-byte host costs, and collectives (sharded
+        plans) via the ring-interconnect model keyed on the arch's link
+        parameters (``comm``; zero for unsharded plans)."""
         arch = self.desc.arch
         accel = 0.0
         host = 0.0
+        comm = 0.0
         fused = self.mode != "naive"
         for n in self.graph.toposort():
-            if n in self.ops:
+            if n.op in COLLECTIVE_OPS:
+                # the FULL payload: the gathered/reduced tensor — the
+                # gather output, or the reduce input (== output for
+                # all_reduce, parts x output for reduce_scatter)
+                ref = n if n.op == "all_gather" else n.inputs[0]
+                nbytes = math.prod(ref.shape) * dtype_bytes(ref.dtype)
+                if n.op == "all_reduce":
+                    nbytes = math.prod(n.shape) * dtype_bytes(n.dtype)
+                comm += collective_cycles(n.op, nbytes, n.attrs["parts"], arch)
+            elif n in self.ops:
                 rep = simulate(
                     self.ops[n].strategy.schedule,
                     arch,
@@ -581,8 +610,8 @@ class CompiledModule:
         return {
             "accel": accel,
             "host": host,
-            "comm": 0.0,
-            "total": accel + host,
+            "comm": comm,
+            "total": accel + host + comm,
         }
 
     def schedules(self) -> dict[str, Any]:

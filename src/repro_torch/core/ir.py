@@ -12,10 +12,10 @@ preprocessing (transpose / reshape / im2col / quantize), elementwise ops
 the host executes, and the *generalized* fused operators the legalization
 pass introduces.
 
-Port of ``repro.core.ir``: the graph, the builders (the KV-cache ops and
-``CacheSpec`` included), ``clone_graph`` and the numpy reference executor,
-which constant folding runs at compile time.  The collective and shard ops
-wait for the sharded slice of the port.
+Port of ``repro.core.ir``, whole: the graph, the builders (the KV-cache
+ops with ``CacheSpec``, and the collective and shard ops of sharded plans),
+``clone_graph`` and the numpy reference executor, which constant folding
+runs at compile time.
 """
 
 from __future__ import annotations
@@ -46,16 +46,25 @@ HOST_OPS = {
     "im2col",
     "softmax",
     "max_pool2d",
+    "shard_slice",
 }
 
 # Multi-op sequences the legalizer fuses into these generalized operators.
 GENERALIZED_OPS = {"generalized_dense", "generalized_conv2d"}
 
+# Cross-shard communication ops the shard-partitioning pass inserts
+# (``passes.make_shard_pass``).  They carry ``group``/``rank``/``parts``
+# attrs and execute as a barrier plus a combine on the tensors' device
+# through a ``repro_torch.core.collective.CollectiveSession``;
+# ``shard_slice`` (a plain host op) is their shard-local counterpart.
+COLLECTIVE_OPS = {"all_gather", "all_reduce", "reduce_scatter"}
+
 # Stateful KV-cache ops for LM decode.  The IR stays functional: the cache
 # is an ordinary graph input and ``kv_cache_append`` returns the updated
 # cache as an ordinary output — the serve engine threads outputs back into
 # the next step's feeds (``CacheSpec.state`` names the wiring).  They are
-# host-resident by contract: the partitioner never offloads them.
+# host-resident by contract: the partitioner never offloads them, and the
+# shard pass refuses graphs that contain them.
 CACHE_OPS = {"kv_cache_read", "kv_cache_append"}
 HOST_OPS |= CACHE_OPS
 
@@ -333,6 +342,60 @@ def softmax(x: Node, axis: int = -1) -> Node:
     return Node("softmax", [x], {"axis": axis}, shape=x.shape, dtype=out_dtype)
 
 
+def shard_slice(x: Node, axis: int, rank: int, parts: int) -> Node:
+    """This shard's ``rank``-th of ``parts`` equal slices of ``x`` along
+    ``axis`` (the dimension must divide evenly — the shard pass only splits
+    when it does)."""
+    ax = axis % len(x.shape)
+    if x.shape[ax] % parts:
+        raise ValueError(
+            f"shard_slice: dim {ax} of {x.shape} not divisible by {parts}"
+        )
+    shape = tuple(
+        d // parts if i == ax else d for i, d in enumerate(x.shape)
+    )
+    return Node(
+        "shard_slice",
+        [x],
+        {"axis": ax, "rank": rank, "parts": parts},
+        shape=shape,
+        dtype=x.dtype,
+    )
+
+
+def _collective(op: str, x: Node, shape, axis: int, group: str, rank: int, parts: int) -> Node:
+    return Node(
+        op,
+        [x],
+        {"group": group, "rank": rank, "parts": parts, "axis": axis},
+        shape=tuple(shape),
+        dtype=x.dtype,
+    )
+
+
+def all_gather(x: Node, axis: int, *, group: str, rank: int, parts: int) -> Node:
+    """Concatenate every shard's ``x`` along ``axis`` (rank order)."""
+    ax = axis % len(x.shape)
+    shape = tuple(d * parts if i == ax else d for i, d in enumerate(x.shape))
+    return _collective("all_gather", x, shape, ax, group, rank, parts)
+
+
+def all_reduce(x: Node, *, group: str, rank: int, parts: int) -> Node:
+    """Element-wise sum of every shard's ``x`` (same shape on every shard)."""
+    return _collective("all_reduce", x, x.shape, 0, group, rank, parts)
+
+
+def reduce_scatter(x: Node, axis: int, *, group: str, rank: int, parts: int) -> Node:
+    """Sum every shard's ``x`` then keep this rank's slice along ``axis``."""
+    ax = axis % len(x.shape)
+    if x.shape[ax] % parts:
+        raise ValueError(
+            f"reduce_scatter: dim {ax} of {x.shape} not divisible by {parts}"
+        )
+    shape = tuple(d // parts if i == ax else d for i, d in enumerate(x.shape))
+    return _collective("reduce_scatter", x, shape, ax, group, rank, parts)
+
+
 def kv_cache_read(cache: Node) -> Node:
     """Materialize the full cache for attention (identity payload; marks the
     state consumption so it is costed and never folded into accel regions)."""
@@ -505,6 +568,21 @@ def execute_node(n: Node, inputs: list[np.ndarray]) -> np.ndarray:
         x = inputs[0].astype(np.float64)
         e = np.exp(x - np.max(x, axis=ax, keepdims=True))
         return (e / np.sum(e, axis=ax, keepdims=True)).astype(n.dtype)
+    if op == "shard_slice":
+        ax, rank, parts = n.attrs["axis"], n.attrs["rank"], n.attrs["parts"]
+        size = inputs[0].shape[ax] // parts
+        idx = [slice(None)] * inputs[0].ndim
+        idx[ax] = slice(rank * size, (rank + 1) * size)
+        return inputs[0][tuple(idx)]
+    if op in COLLECTIVE_OPS:
+        # single-participant reference semantics (identity gather / sum of
+        # one / keep-own-slice); the multi-shard rendezvous lives in the
+        # planned executor (``collective.collective_fn``)
+        if n.attrs["parts"] > 1:
+            raise NotImplementedError(
+                f"{op} with parts > 1 executes via a CollectiveSession"
+            )
+        return inputs[0].astype(n.dtype)
     if op == "kv_cache_read":
         return np.asarray(inputs[0])
     if op == "kv_cache_append":
@@ -547,9 +625,11 @@ def execute_node(n: Node, inputs: list[np.ndarray]) -> np.ndarray:
 
 def clone_graph(graph: Graph) -> Graph:
     """A structural deep copy: fresh ``Node`` objects wired like the
-    originals, in the SAME topological order and with the SAME names, and
-    the same ``cache_spec``.  Attr dicts are copied deep enough to mutate
-    independently; const arrays are shared (read-only by convention)."""
+    originals, in the SAME topological order and with the SAME names (so
+    per-shard clones number their nodes identically — the shard pass keys
+    collective groups by toposort position), and the same ``cache_spec``.
+    Attr dicts are copied deep enough to mutate independently; const
+    arrays are shared (read-only by convention)."""
     import copy
 
     mapping: dict[Node, Node] = {}

@@ -32,9 +32,11 @@ Accelerator descriptions can contribute target-specific patterns via
 ``AcceleratorDescription.register_rewrite_pattern`` — they run right after
 the generic legalization rules.
 
-Port of ``repro.core.passes``: the three per-mode pipelines, without the
-shard-partitioning pass (``make_shard_pass``) that waits for the sharded
-slice of the port.
+Port of ``repro.core.passes``: the three per-mode pipelines and the
+shard-partitioning pass of sharded plans (``make_shard_pass``).  The
+reference's functional wrappers of the pre-PassManager surface
+(``legalize``, ``fold_constants``, ``partition``, ``run_frontend``) are
+not ported.
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ from __future__ import annotations
 import numpy as np
 
 from repro_torch.core.accel import AcceleratorDescription
+from repro_torch.core.collective import ShardSpec
 from repro_torch.core import ir
 from repro_torch.core.ir import Graph, Node, const, execute_node
 from repro_torch.core.pass_manager import GraphPass, PassContext, rewrite_pass
@@ -381,6 +384,292 @@ def _partition(graph: Graph, ctx: PassContext) -> int:
 
 
 # ---------------------------------------------------------------------------
+# Shard partitioning (sharded ExecutionPlans, ``Target(devices=N)``).
+# ---------------------------------------------------------------------------
+
+
+def _shard_candidates(graph: Graph, desc: AcceleratorDescription) -> list[Node]:
+    """Accelerator-eligible core ops in toposort order.  The POSITION in
+    this list keys each node's collective group: per-shard graph clones
+    (``ir.clone_graph``) preserve toposort order, so index ``i`` names the
+    same logical node on every shard regardless of process-global node
+    counters."""
+    supported = desc.supported_ops()
+    out = []
+    for n in graph.toposort():
+        base = n.op.replace("generalized_", "")
+        if base not in ("dense", "conv2d"):
+            continue
+        x = n.inputs[0] if n.inputs else None
+        dtype = x.dtype if x is not None else n.dtype
+        if base in supported and desc.supports_dtype(n.op, dtype):
+            out.append(n)
+    return out
+
+
+#: per-shard slice floor: a shard narrower than one SIMD-lane quantum pays
+#: pure collective overhead for near-zero work, so such dims never split.
+#: The floor is deliberately NOT the full tile alignment — a sub-tile
+#: shard's accel work saturates at one padded tile (no win, no loss), but
+#: the epilogues the gather sinks below (``_sink_gathers``) and the
+#: narrower collective payloads still scale with 1/P.
+_MIN_SHARD_DIM = 4
+
+
+def _softmax_in_epilogue(n: Node, consumers: dict[Node, list[Node]]) -> bool:
+    """True when ``n``'s sole-consumer elementwise epilogue chain reaches a
+    softmax.  Softmax normalizes along the LAST axis, so a cols split's
+    all_gather (axis -1) can never sink past it — but a rows split's
+    axis-0 gather commutes with the whole chain, letting ``_sink_gathers``
+    push the epilogues down to the 1/P slice."""
+    cur = n
+    while True:
+        cs = consumers.get(cur, ())
+        if len(cs) != 1:
+            return False
+        nxt = cs[0]
+        if nxt.op not in _GATHER_SINK_OPS or tuple(nxt.shape) != tuple(
+            cur.shape
+        ):
+            return False
+        if nxt.op == "softmax":
+            return True
+        cur = nxt
+
+
+def _plan_split(
+    n: Node, mp: int, consumers: dict[Node, list[Node]]
+) -> str | None:
+    """Choose the tensor-parallel split of one core op, or None.
+
+    * ``heads`` — the batched 3-D dense (both operands activations with a
+      leading batch/heads dim): split the instance dim across shards.
+    * ``cols``  — split the output-column (K) dim: disjoint weight columns
+      per shard, partial outputs concatenate (no reduction, so nonlinear
+      fused epilogues stay correct per shard).
+    * ``rows``  — split GEMM rows of a 2-D input; preferred over ``cols``
+      when the epilogue chain contains a softmax (see
+      ``_softmax_in_epilogue``), the fallback otherwise.
+
+    A split is only taken when the dim divides evenly AND the per-shard
+    slice stays at or above ``_MIN_SHARD_DIM`` lanes.
+    """
+    base = n.op.replace("generalized_", "")
+    if base == "dense":
+        w = n.inputs[1]
+        if len(w.shape) == 3:  # batched matmul: heads split
+            b = n.inputs[0].shape[0]
+            return "heads" if b % mp == 0 and b >= mp else None
+        k = w.shape[0] if n.attrs.get("transpose_b") else w.shape[1]
+        cols_ok = k % mp == 0 and k // mp >= _MIN_SHARD_DIM
+        rows = n.inputs[0].shape[0] if len(n.inputs[0].shape) == 2 else 0
+        rows_ok = bool(rows) and rows % mp == 0 and rows // mp >= _MIN_SHARD_DIM
+        if rows_ok and (not cols_ok or _softmax_in_epilogue(n, consumers)):
+            return "rows"
+        return "cols" if cols_ok else None
+    co = n.inputs[1].shape[-1]  # conv2d HWIO weights
+    if co % mp == 0 and co // mp >= _MIN_SHARD_DIM:
+        return "cols"
+    return None
+
+
+def _shard_operand(x: Node | None, axis: int, rank: int, parts: int) -> Node | None:
+    """Slice one operand for this shard: constants slice at compile time
+    (the folded weight panel never materializes fully on the shard),
+    activations go through a shard_slice host op."""
+    if x is None:
+        return None
+    if x.is_const():
+        ax = axis % x.value.ndim
+        size = x.value.shape[ax] // parts
+        idx = [slice(None)] * x.value.ndim
+        idx[ax] = slice(rank * size, (rank + 1) * size)
+        return const(
+            np.ascontiguousarray(x.value[tuple(idx)]),
+            name=f"{x.name}_shard{rank}",
+        )
+    return ir.shard_slice(x, axis, rank, parts)
+
+
+def _shard_node(n: Node, split: str, spec: ShardSpec, group: str) -> Node:
+    """Build the sharded clone of ``n`` + its re-materializing all_gather."""
+    mp, rank = spec.model, spec.model_rank
+    base = n.op.replace("generalized_", "")
+    inputs = list(n.inputs)
+    attrs = {**n.attrs}
+    if split == "heads":
+        inputs[0] = _shard_operand(inputs[0], 0, rank, mp)
+        inputs[1] = _shard_operand(inputs[1], 0, rank, mp)
+        shape = (n.shape[0] // mp, *n.shape[1:])
+        gather_axis = 0
+    elif split == "rows":
+        inputs[0] = _shard_operand(inputs[0], 0, rank, mp)
+        if attrs.get("residual") and len(inputs) > 3:
+            inputs[3] = _shard_operand(inputs[3], 0, rank, mp)
+        shape = (n.shape[0] // mp, *n.shape[1:])
+        gather_axis = 0
+    else:  # cols
+        if base == "dense":
+            w_axis = 0 if attrs.get("transpose_b") else 1
+        else:
+            w_axis = len(inputs[1].shape) - 1  # conv2d: HWIO output channels
+        inputs[1] = _shard_operand(inputs[1], w_axis, rank, mp)
+        if len(inputs) > 2:  # generalized op bias (may be None)
+            inputs[2] = _shard_operand(inputs[2], 0, rank, mp)
+        if attrs.get("residual") and len(inputs) > 3:
+            inputs[3] = _shard_operand(inputs[3], -1, rank, mp)
+        if "pool" in attrs:  # fused pooling: the conv's own shape narrows
+            cs = attrs["pool"]["conv_shape"]
+            attrs["pool"] = {
+                **attrs["pool"],
+                "conv_shape": (*cs[:-1], cs[-1] // mp),
+            }
+        shape = (*n.shape[:-1], n.shape[-1] // mp)
+        gather_axis = -1
+    sharded = Node(n.op, inputs, attrs, shape=shape, dtype=n.dtype)
+    return ir.all_gather(
+        sharded, gather_axis, group=group, rank=rank, parts=mp
+    )
+
+
+#: unary elementwise ops an all_gather may sink below: applying the op to
+#: the gathered tensor equals gathering the op applied per-slice, provided
+#: the op never mixes elements ACROSS the gather axis (softmax normalizes
+#: along the last axis, so it only commutes with gathers on other axes).
+_GATHER_SINK_OPS = {
+    "requantize",
+    "quantize",
+    "dequantize",
+    "clip",
+    "relu",
+    "gelu",
+    "softmax",
+}
+
+
+def _sink_gathers(graph: Graph) -> int:
+    """Push all_gathers below sole-consumer elementwise epilogue chains:
+    ``ew(all_gather(x))`` -> ``all_gather(ew(x))``.  The epilogue then runs
+    on the shard's 1/P slice instead of the full gathered tensor — without
+    this, a host-epilogue-heavy model (the transformer's quantize/softmax/
+    requantize chain) is Amdahl-capped no matter how well its GEMMs split.
+    The collective's group id rides along unchanged, so the rendezvous
+    still pairs the same logical gather across shards; payloads that sink
+    below a (re)quantize also shrink to the narrow dtype."""
+    changed = 0
+    while True:
+        consumers: dict[Node, list[Node]] = {}
+        for n in graph.toposort():
+            for i in n.inputs:
+                if i is not None:
+                    consumers.setdefault(i, []).append(n)
+        moved = False
+        for n in graph.toposort():
+            if n.op not in _GATHER_SINK_OPS:
+                continue
+            g = n.inputs[0]
+            if g is None or g.op != "all_gather":
+                continue
+            if len(consumers.get(g, ())) != 1 or any(
+                o is g for o in graph.outputs
+            ):
+                continue
+            if tuple(n.shape) != tuple(g.shape):
+                continue  # not elementwise w.r.t. this tensor
+            axis = g.attrs["axis"] % len(g.shape)
+            if n.op == "softmax" and axis == len(n.shape) - 1:
+                continue  # softmax normalizes along the gathered axis
+            parts = g.attrs["parts"]
+            shard_shape = list(n.shape)
+            shard_shape[axis] //= parts
+            inner = Node(
+                n.op,
+                [g.inputs[0]],
+                dict(n.attrs),
+                shape=tuple(shard_shape),
+                dtype=n.dtype,
+            )
+            sunk = ir.all_gather(
+                inner,
+                axis,
+                group=g.attrs["group"],
+                rank=g.attrs["rank"],
+                parts=parts,
+            )
+            graph.replace_node(n, sunk)
+            changed += 1
+            moved = True
+            break  # the consumer map is stale after a rewrite
+        if not moved:
+            return changed
+
+
+def make_shard_pass(spec: ShardSpec) -> GraphPass:
+    """The shard-partitioning pass of ``Target(devices=N)`` compiles: runs
+    right before ``partition`` on each shard's graph clone.  Tensor-
+    parallel (mesh ``model`` axis): every accelerator-eligible core op that
+    benefits is rewritten to compute this shard's slice and immediately
+    ``all_gather`` the full value back (split -> compute -> gather, no SPMD
+    propagation — every visible tensor stays replicated, so the rest of
+    the pipeline is untouched).  Data-parallel (mesh ``data`` axis): the
+    api layer retraces each batch bucket at ``bucket/data`` rows and this
+    pass appends one batch-axis all_gather per graph output."""
+
+    def _shard(graph: Graph, ctx: PassContext) -> int:
+        desc: AcceleratorDescription = ctx.desc
+        stateful = [n.name for n in graph.toposort() if n.op in ir.CACHE_OPS]
+        if stateful:
+            # capability negotiation: KV-cache state is host-resident and
+            # per-request — splitting it across a mesh would need state
+            # placement the runtime doesn't model yet.  Refuse loudly
+            # rather than emit silently-wrong replicated plans.
+            raise ValueError(
+                "stateful decode graphs cannot be shard-partitioned: "
+                f"graph {graph.name!r} carries KV-cache ops {stateful}; "
+                "compile with Target(devices=1) and scale decode via "
+                "repro_torch.serve.ContinuousBatchingEngine slots instead"
+            )
+        changed = 0
+        if spec.model > 1:
+            consumers: dict[Node, list[Node]] = {}
+            for node in graph.toposort():
+                for i in node.inputs:
+                    if i is not None:
+                        consumers.setdefault(i, []).append(node)
+            for idx, n in enumerate(_shard_candidates(graph, desc)):
+                split = _plan_split(n, spec.model, consumers)
+                if split is None:
+                    continue
+                group = f"c{idx}|m|d{spec.data_rank}"
+                gathered = _shard_node(n, split, spec, group)
+                graph.replace_node(n, gathered)
+                changed += 1
+            if changed:
+                changed += _sink_gathers(graph)
+        if spec.data > 1:
+            for i, out in enumerate(graph.outputs):
+                g = ir.all_gather(
+                    out,
+                    0,
+                    group=f"out{i}|d|m{spec.model_rank}",
+                    rank=spec.data_rank,
+                    parts=spec.data,
+                )
+                graph.outputs[i] = g
+                changed += 1
+            graph.invalidate()
+        return changed
+
+    return GraphPass(
+        "shard",
+        _shard,
+        f"tensor/data-parallel split for mesh shard "
+        f"(d{spec.data_rank}, m{spec.model_rank}) of "
+        f"{spec.data}x{spec.model}",
+    )
+
+
+# ---------------------------------------------------------------------------
 # Pipelines: per-mode pass-list configurations.
 # ---------------------------------------------------------------------------
 
@@ -466,10 +755,19 @@ def frontend_passes(
     return passes
 
 
-def passes_for_mode(desc: AcceleratorDescription, mode: str) -> list[GraphPass]:
+def passes_for_mode(
+    desc: AcceleratorDescription, mode: str, shard: ShardSpec | None = None
+) -> list[GraphPass]:
     """The per-mode pipeline configuration (paper §4 evaluation matrix).
     ``naive`` is stock BYOC: partitioning only — no legalization, no
-    folding, no graph optimization."""
+    folding, no graph optimization.  A ``shard`` spec (``Target(devices=
+    N)``) inserts the shard-partitioning pass right before ``partition``
+    in every mode; ``devices == 1`` compiles the identical pipeline (and
+    thus a collective-free plan)."""
     if mode == "naive":
-        return frontend_passes(desc, legalize=False, fold=False)
-    return frontend_passes(desc)
+        passes = frontend_passes(desc, legalize=False, fold=False)
+    else:
+        passes = frontend_passes(desc)
+    if shard is not None and shard.devices > 1:
+        passes.insert(len(passes) - 1, make_shard_pass(shard))
+    return passes

@@ -27,7 +27,8 @@ Three modes reproduce the paper's evaluation matrix (§4, Table 2):
 
 Port of ``repro.core.pipeline``, with the verify gate (``compile_graph(
 verify=...)``: the pass-invariant gate plus ``verify_plan`` of the built
-plan) and without the shard pass and the deprecated two-step ``compile``.
+plan) and the ``shard=`` argument of one mesh shard's compile, and
+without the deprecated two-step ``compile``.
 A selected schedule that violates a hardware constraint raises
 ``VerifyError`` with ``S_SCHEDULE`` diagnostics, as the reference does.
 Measured DSE times the executor on the module's device, and its cache
@@ -251,6 +252,7 @@ class CompilerBackend:
         passes: list | None = None,
         pass_context: PassContext | None = None,
         measure_top_k: int | None = None,
+        shard=None,
         verify: str | None = None,
     ) -> CompiledModule:
         """Compile a graph: run the mode's pass pipeline, schedule every
@@ -265,7 +267,10 @@ class CompilerBackend:
         ``REPRO_PASS_DUMP``).  ``measure_top_k`` enables measured DSE: the
         K best modeled candidates per node are timed on the lowered
         executor on ``device`` and the wall-clock winner is selected
-        (cached under a ``measured_selector`` key).  ``verify`` is the
+        (cached under a ``measured_selector`` key).  ``shard`` (a
+        ``collective.ShardSpec``) compiles ONE mesh shard's plan: the
+        shard-partitioning pass runs before ``partition`` (see
+        ``repro_torch.core.sharded`` for the executor side).  ``verify`` is the
         static-verification gate (``'each'``/``'final'``/``'off'``; ``None``
         reads ``REPRO_VERIFY``): the pass-invariant gate inside the
         ``PassManager`` plus a lifetime/race analysis of the built
@@ -274,7 +279,8 @@ class CompilerBackend:
         mode = resolve_mode(mode)
         device = torch.device(device)
         pm = PassManager(
-            passes_for_mode(self.desc, mode) if passes is None else passes, verify=verify
+            passes_for_mode(self.desc, mode, shard=shard) if passes is None else passes,
+            verify=verify,
         )
         # never mutate a caller-supplied context: it may be shared across
         # backends or concurrent compiles

@@ -1,15 +1,17 @@
 """repro_torch.verify — the static verification layer (IR type-checker,
-pass-invariant gate, plan lifetime/race analysis).
+pass-invariant gate, plan lifetime/race analysis, collective deadlock
+detection).
 
 Every ``ir.Node`` carries its (shape, dtype) fixed at construction, so a
-buggy rewrite rule or a hand-edited artifact can produce an inconsistent
-graph that nothing catches until execution silently diverges.  This
-module re-derives everything a graph/plan claims about itself from an
+buggy rewrite rule, shard split, or hand-edited artifact can produce an
+inconsistent graph that nothing catches until execution silently
+diverges.  This module re-derives everything a graph/plan claims about itself from an
 *independent* transfer table and reports every violation as a structured
 :class:`Diagnostic` (collect-all, like ``IntegrationError``):
 
   * :func:`verify_graph`   — shape/dtype transfer for every op ``ir.py``
-    defines (dense incl. the batched 3-D form, conv2d, cache ops),
+    defines (dense incl. the batched 3-D form, conv2d, collectives, cache
+    ops),
     SSA/acyclicity, attribute schemas, target legality (``supports_dtype``
     on offloaded nodes, cache ops host-pinned), and ``CacheSpec``
     state-wiring consistency;
@@ -18,6 +20,12 @@ module re-derives everything a graph/plan claims about itself from an
     bounds, undefined outputs) plus an independent re-derivation of the
     stage assignment's cross-lane watermarks — a static race detector for
     a two-lane executor;
+  * :func:`verify_collectives` — cross-shard consistency of the collective
+    sequences a sharded plan set issues: every group's membership must be
+    complete and identical in (op, parts, axis, dtype, contribution
+    shape), and every pair of shards must order their common groups
+    identically — the two ways a ``CollectiveSession`` deadlocks or
+    mis-reduces at run time;
   * :func:`verify` / :func:`collect` — the dispatching front door
     (``repro_torch.verify(module_or_graph)``), raising :class:`VerifyError`
     on any diagnostic.
@@ -43,19 +51,20 @@ Diagnostic codes:
   ``P_CLOBBER``   plan step overwrites a live (already defined) slot
   ``P_OUTPUT``    plan output slot never defined
   ``P_RACE``      recorded cross-lane watermark below the required one
+  ``C_MISMATCH``  collective group membership/shape/op mismatch
+  ``C_ORDER``     two shards order their common collectives differently
   ``S_SCHEDULE``  selected schedule violates a hardware constraint
   ==============  =====================================================
 
 CLI::
 
     python -m repro_torch.core.verify <artifact_dir>   # verify a saved artifact
-    python -m repro_torch.core.verify --sweep          # zoo x accel x mode
+    python -m repro_torch.core.verify --sweep          # zoo x accel x mode x devices
 
-Port of ``repro.core.verify`` with the same codes and messages.  The
-collective checks (``collective_sequence``, ``verify_collectives``, the
-``C_*`` codes) and the transfer entries of the collective and shard ops
-wait for the port's sharded slice, whose ops the port's IR does not have
-yet; so does the sweep's device-count axis (it compiles at devices = 1).
+Port of ``repro.core.verify`` with the same codes and messages.  The CLI
+also takes ``--device`` (the torch device the modules are compiled or
+loaded for); ``--devices`` is the sweep's mesh-size axis, as in the
+reference.
 """
 
 from __future__ import annotations
@@ -71,7 +80,12 @@ from repro_torch.core.executor import _NONE_SLOT, ExecutionPlan
 VERIFY_ENV = "REPRO_VERIFY"
 
 #: every op the IR defines (the transfer table below covers each of them).
-KNOWN_OPS = ir.HOST_OPS | ir.GENERALIZED_OPS | {"dense", "conv2d", "input", "const"}
+KNOWN_OPS = (
+    ir.HOST_OPS
+    | ir.GENERALIZED_OPS
+    | ir.COLLECTIVE_OPS
+    | {"dense", "conv2d", "input", "const"}
+)
 
 
 def resolve_verify(explicit: str | None = None) -> str:
@@ -95,7 +109,7 @@ class Diagnostic:
     """One structured verification finding."""
 
     code: str
-    where: str  # node name / plan step the finding anchors to
+    where: str  # node name / plan step / shard key the finding anchors to
     message: str
 
     def __str__(self) -> str:
@@ -126,6 +140,10 @@ _DTYPE_PRESERVING = {
     "flatten",
     "im2col",
     "max_pool2d",
+    "shard_slice",
+    "all_gather",
+    "all_reduce",
+    "reduce_scatter",
     "kv_cache_read",
     "kv_cache_append",
     "add",
@@ -144,6 +162,7 @@ _SHAPE_PRESERVING = {
     "dequantize",
     "softmax",
     "bias_add",
+    "all_reduce",
     "kv_cache_read",
 }
 
@@ -170,6 +189,10 @@ _ARITY = {
     "im2col": 1,
     "softmax": 1,
     "max_pool2d": 1,
+    "shard_slice": 1,
+    "all_gather": 1,
+    "all_reduce": 1,
+    "reduce_scatter": 1,
     "kv_cache_read": 1,
     "kv_cache_append": 3,
 }
@@ -185,6 +208,10 @@ _REQUIRED_ATTRS = {
     "quantize": ("scale",),
     "dequantize": ("scale",),
     "max_pool2d": ("size", "stride"),
+    "shard_slice": ("axis", "rank", "parts"),
+    "all_gather": ("group", "rank", "parts", "axis"),
+    "all_reduce": ("group", "rank", "parts", "axis"),
+    "reduce_scatter": ("group", "rank", "parts", "axis"),
 }
 
 
@@ -383,6 +410,18 @@ class _GraphChecker:
             self.diag(
                 "G_ATTRS", n, f"clip lo {n.attrs['lo']} > hi {n.attrs['hi']}"
             )
+        if n.op in ir.COLLECTIVE_OPS or n.op == "shard_slice":
+            rank, parts = n.attrs["rank"], n.attrs["parts"]
+            if not _is_int(parts) or parts < 1:
+                self.diag("G_ATTRS", n, f"parts must be a positive int, got {parts!r}")
+            elif not _is_int(rank) or not (0 <= rank < parts):
+                self.diag("G_ATTRS", n, f"rank {rank!r} outside [0, {parts})")
+            if n.op in ir.COLLECTIVE_OPS and not isinstance(
+                n.attrs["group"], str
+            ):
+                self.diag(
+                    "G_ATTRS", n, f"group must be a str, got {n.attrs['group']!r}"
+                )
         if n.op in ir.GENERALIZED_OPS and n.attrs.get("quantized"):
             missing = [
                 k
@@ -480,6 +519,28 @@ class _GraphChecker:
             expected, errs = _pool_transfer(
                 x.shape, n.attrs["size"], n.attrs["stride"]
             )
+        elif op in ("shard_slice", "reduce_scatter"):
+            ax = n.attrs["axis"] % len(x.shape) if x.shape else 0
+            parts = n.attrs["parts"]
+            if ax >= len(x.shape):
+                errs.append(f"axis {ax} outside rank {len(x.shape)}")
+            elif x.shape[ax] % parts:
+                errs.append(
+                    f"dim {ax} of {list(x.shape)} not divisible by {parts}"
+                )
+            else:
+                expected = tuple(
+                    d // parts if i == ax else d for i, d in enumerate(x.shape)
+                )
+        elif op == "all_gather":
+            ax = n.attrs["axis"] % len(x.shape) if x.shape else 0
+            if ax >= len(x.shape):
+                errs.append(f"axis {ax} outside rank {len(x.shape)}")
+            else:
+                expected = tuple(
+                    d * n.attrs["parts"] if i == ax else d
+                    for i, d in enumerate(x.shape)
+                )
         elif op == "kv_cache_append":
             cache, update, pos = ins
             expected = tuple(cache.shape)
@@ -601,7 +662,7 @@ class _GraphChecker:
                 "offloaded",
             )
             return
-        if n.op in ("input", "const"):
+        if n.op in ("input", "const") or n.op in ir.COLLECTIVE_OPS:
             self.diag("G_TARGET", n, f"{n.op} nodes cannot be offloaded")
             return
         if self.desc is None:
@@ -798,6 +859,133 @@ def verify_plan(plan: ExecutionPlan) -> list[Diagnostic]:
 
 
 # ---------------------------------------------------------------------------
+# collective checker: cross-shard sequence consistency (deadlock detection)
+# ---------------------------------------------------------------------------
+
+
+def collective_sequence(graph: ir.Graph) -> list[dict]:
+    """The ordered multi-participant collectives this shard's plan issues:
+    one record per rendezvous, in toposort (== plan step) order."""
+    seq = []
+    for n in graph.toposort():
+        if n.op in ir.COLLECTIVE_OPS and n.attrs.get("parts", 1) > 1:
+            contrib = n.inputs[0]
+            seq.append(
+                {
+                    "group": n.attrs["group"],
+                    "op": n.op,
+                    "rank": n.attrs["rank"],
+                    "parts": n.attrs["parts"],
+                    "axis": n.attrs["axis"],
+                    "dtype": n.dtype,
+                    "shape": tuple(contrib.shape) if contrib is not None else (),
+                    "node": n.name,
+                }
+            )
+    return seq
+
+
+def verify_collectives(shards) -> list[Diagnostic]:
+    """Check that every shard of a plan set issues a mutually consistent
+    collective sequence.  ``shards`` maps a shard key (e.g. a ``(data,
+    model)`` mesh coordinate) to an ``ir.Graph``, a ``CompiledModule``, or
+    a prebuilt sequence from :func:`collective_sequence`.
+
+    Two properties make the ``CollectiveSession`` rendezvous sound, and
+    both are decidable statically:
+
+      1. **membership** — each group is joined by exactly ranks ``0 ..
+         parts-1``, once each, with identical (op, parts, axis, dtype,
+         contribution shape) — anything else mis-reduces or hangs waiting
+         for an absent rank (``C_MISMATCH``);
+      2. **order** — any two shards issue their *common* groups in the same
+         relative order — otherwise each blocks on the group the other has
+         not reached yet: a deadlock (``C_ORDER``).
+    """
+    diags: list[Diagnostic] = []
+    seqs: dict = {}
+    for key, obj in dict(shards).items():
+        if isinstance(obj, ir.Graph):
+            seqs[key] = collective_sequence(obj)
+        elif hasattr(obj, "graph"):
+            seqs[key] = collective_sequence(obj.graph)
+        else:
+            seqs[key] = list(obj)
+    groups: dict[str, list] = {}
+    for key, seq in seqs.items():
+        seen_here: set[str] = set()
+        for rec in seq:
+            g = rec["group"]
+            if g in seen_here:
+                diags.append(
+                    Diagnostic(
+                        "C_MISMATCH",
+                        f"shard {key}",
+                        f"group {g!r} issued more than once by one shard",
+                    )
+                )
+            seen_here.add(g)
+            groups.setdefault(g, []).append((key, rec))
+    for g, members in sorted(groups.items()):
+        parts = members[0][1]["parts"]
+        ranks = sorted(rec["rank"] for _, rec in members)
+        if ranks != list(range(parts)):
+            diags.append(
+                Diagnostic(
+                    "C_MISMATCH",
+                    f"group {g!r}",
+                    f"participating ranks {ranks} != expected "
+                    f"{list(range(parts))} (parts={parts}) — the rendezvous "
+                    f"would wait forever",
+                )
+            )
+        ref = members[0][1]
+        for key, rec in members[1:]:
+            difference = [
+                f"{f}: {ref[f]!r} vs {rec[f]!r}"
+                for f in ("op", "parts", "axis", "dtype", "shape")
+                if rec[f] != ref[f]
+            ]
+            if difference:
+                diags.append(
+                    Diagnostic(
+                        "C_MISMATCH",
+                        f"group {g!r}",
+                        f"shard {key} disagrees with shard {members[0][0]} "
+                        f"on {'; '.join(difference)}",
+                    )
+                )
+    keys = sorted(seqs)
+    for i, a in enumerate(keys):
+        for b in keys[i + 1 :]:
+            groups_a = {r["group"] for r in seqs[a]}
+            groups_b = {r["group"] for r in seqs[b]}
+            common = groups_a & groups_b
+            order_a = [r["group"] for r in seqs[a] if r["group"] in common]
+            order_b = [r["group"] for r in seqs[b] if r["group"] in common]
+            if order_a != order_b:
+                first = next(
+                    (
+                        (x, y)
+                        for x, y in zip(order_a, order_b)
+                        if x != y
+                    ),
+                    (order_a[-1] if order_a else "?", order_b[-1] if order_b else "?"),
+                )
+                diags.append(
+                    Diagnostic(
+                        "C_ORDER",
+                        f"shards {a} / {b}",
+                        f"common collectives issued in different orders "
+                        f"(first divergence: {first[0]!r} vs {first[1]!r}) — "
+                        f"each shard would block on a group the other has "
+                        f"not reached: deadlock",
+                    )
+                )
+    return diags
+
+
+# ---------------------------------------------------------------------------
 # the dispatching front door
 # ---------------------------------------------------------------------------
 
@@ -805,9 +993,11 @@ def verify_plan(plan: ExecutionPlan) -> list[Diagnostic]:
 def collect(obj, desc=None) -> list[Diagnostic]:
     """Run every applicable analysis on ``obj`` and return ALL diagnostics
     (an empty list means verified clean).  Accepts an ``ir.Graph``, a
-    ``CompiledModule``, a ``BatchedModule``, or a bare ``ExecutionPlan``."""
+    ``CompiledModule``, a ``ShardedModule``, a ``BatchedModule``, or a bare
+    ``ExecutionPlan``."""
     from repro_torch.core.batching import BatchedModule
     from repro_torch.core.executor import CompiledModule
+    from repro_torch.core.sharded import ShardedModule
 
     if isinstance(obj, ir.Graph):
         return verify_graph(obj, desc)
@@ -817,6 +1007,15 @@ def collect(obj, desc=None) -> list[Diagnostic]:
         return verify_graph(obj.graph, desc or obj.desc) + verify_plan(
             obj.finalize()
         )
+    if isinstance(obj, ShardedModule):
+        diags: list[Diagnostic] = []
+        for key, shard in sorted(obj.shards.items()):
+            for d in collect(shard, desc):
+                diags.append(
+                    Diagnostic(d.code, f"shard {key}: {d.where}", d.message)
+                )
+        diags.extend(verify_collectives(obj.shards))
+        return diags
     if isinstance(obj, BatchedModule):
         diags = []
         for b in obj.bucket_sizes():
@@ -832,7 +1031,7 @@ def collect(obj, desc=None) -> list[Diagnostic]:
         return diags
     raise TypeError(
         f"repro_torch.verify() takes an ir.Graph, ExecutionPlan, CompiledModule, "
-        f"or BatchedModule; got {type(obj).__name__}"
+        f"ShardedModule, or BatchedModule; got {type(obj).__name__}"
     )
 
 
@@ -865,25 +1064,33 @@ def _report(label: str, diags: list[Diagnostic]) -> bool:
     return True
 
 
-def _sweep(accelerators, modes, device: str) -> int:
+def _sweep(accelerators, modes, device_counts, device: str) -> int:
     import repro_torch
     from repro_torch.core.zoo import DECODE_ZOO, ZOO
 
     failed = checked = 0
-    # the decode zoo compiles its decode-step form, as the front door does
-    models = sorted(ZOO.items()) + sorted(DECODE_ZOO.items())
-    for name, model in models:
+    # stateful decode graphs refuse sharding; verify them at devices=1 (the
+    # decode-step form, as the front door compiles it)
+    models = [(name, model, device_counts) for name, model in sorted(ZOO.items())]
+    models += [(name, model, (1,)) for name, model in sorted(DECODE_ZOO.items())]
+    for name, model, counts in models:
         for accel in accelerators:
             if accel not in model.accelerators:
                 continue
             for mode in modes:
-                target = repro_torch.Target(accel, mode=mode, device=device)
-                try:
-                    diags = collect(repro_torch.compile(name, target=target))
-                except VerifyError as e:
-                    diags = e.diagnostics
-                checked += 1
-                failed += not _report(f"{name} x {target.describe()}", diags)
+                for devices in counts:
+                    target = repro_torch.Target(
+                        accel,
+                        mode=mode,
+                        device=device,
+                        mesh=None if devices == 1 else (1, devices),
+                    )
+                    try:
+                        diags = collect(repro_torch.compile(name, target=target))
+                    except VerifyError as e:
+                        diags = e.diagnostics
+                    checked += 1
+                    failed += not _report(f"{name} x {target.describe()}", diags)
     print(f"verified {checked} compile(s), {failed} with diagnostics")
     return 1 if failed else 0
 
@@ -901,7 +1108,7 @@ def main(argv=None) -> int:
     ap.add_argument(
         "--sweep",
         action="store_true",
-        help="compile and verify zoo x accelerators x modes",
+        help="compile and verify zoo x accelerators x modes x device counts",
     )
     ap.add_argument(
         "--accelerators", default="gemmini,edge_npu", help="comma-separated"
@@ -909,6 +1116,7 @@ def main(argv=None) -> int:
     ap.add_argument(
         "--modes", default="naive,baseline,optimized", help="comma-separated"
     )
+    ap.add_argument("--devices", default="1,4", help="comma-separated mesh sizes")
     ap.add_argument(
         "--device",
         default="cuda",
@@ -919,6 +1127,7 @@ def main(argv=None) -> int:
         return _sweep(
             tuple(args.accelerators.split(",")),
             tuple(args.modes.split(",")),
+            tuple(int(d) for d in args.devices.split(",")),
             args.device,
         )
     if not args.artifact:

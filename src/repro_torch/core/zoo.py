@@ -9,26 +9,34 @@
                       block (QKV/attention/output-projection/FFN GEMMs,
                       host softmax).
 
-``build()`` returns the hand-built ``ir.Graph`` (the golden form); graphs
-are mutated by compilation, so it returns a fresh graph per call.  Every
-model feeds float weights through the registered constant preprocessing
-chain (transpose + quantize), so the ``naive`` mode pays for weight
-preparation at run time exactly as the paper's naive BYOC baseline does.
-Quantization scales are float32-exact (powers of two).
+Every model exists in TWO equivalent forms sharing one set of parameters:
+
+  * ``build()`` — the hand-built ``ir.Graph`` (the golden reference);
+  * ``torch_fn`` — a plain PyTorch callable routed through the traced
+    frontend by ``trace()`` (what ``repro_torch.compile("<name>", ...)``
+    uses); the counterpart of the reference's ``jnp_fn``.
+
+Graphs are mutated by compilation, so ``build()`` and ``trace()`` return a
+fresh graph per call.  Every model feeds float weights through the
+registered constant preprocessing chain (transpose + quantize), so the
+``naive`` mode pays for weight preparation at run time exactly as the
+paper's naive BYOC baseline does.  Quantization scales are float32-exact
+(powers of two), so the scale literals the tracer reads equal the
+hand-built attributes bit for bit.
 
 Port of ``repro.core.zoo``: ``ZooModel`` and the four models' parameter
-and graph builders, with the same numpy generators and draw orders, so
-the weights are the reference's.  ``build(batch, params)`` also takes the
+and graph builders and their twins, with the same numpy generators and
+draw orders, so the weights are the reference's (and ``trace()`` feeds the
+same numpy dict to the tracer).  ``build(batch, params)`` also takes the
 reference's parameter dict — numpy arrays as ``repro.core.zoo.mlp_params``,
 ``qcnn_params`` or ``transformer_params`` return them — after checking
 every name, shape and dtype.
 
 The decode zoo (``DECODE_ZOO``, ``attn_decode``) is the stateful form: a
 quantized attention step over an int8 KV cache, whose ``build(seq, batch,
-params)`` gives the decode step (``seq=1``, optionally batched) or the
-prefill (``seq=P``), both carrying the same ``CacheSpec``.  The
-traced-frontend twins (``jnp_fn``/``trace``) of both zoos wait for the
-port's frontend.
+params)`` and ``trace(seq, batch)`` give the decode step (``seq=1``,
+optionally batched) or the prefill (``seq=P``), all carrying the same
+``CacheSpec``.
 """
 
 from __future__ import annotations
@@ -37,9 +45,11 @@ from dataclasses import dataclass
 from typing import Callable
 
 import numpy as np
+import torch
 
 from repro_torch.core import ir
 from repro_torch.core.batching import batched_shape
+from repro_torch.frontend import nn as fnn
 
 ACCELERATORS = ("gemmini", "edge_npu", "tpu_v5e")
 
@@ -106,6 +116,9 @@ class ZooModel:
     description: str
     #: golden graph builder: ``graph(batch, params)``
     graph: Callable[[int | None, dict], ir.Graph]
+    #: plain PyTorch twin of ``build`` — ``fn(x, params)``, batch-agnostic;
+    #: the counterpart of the reference's ``jnp_fn``
+    torch_fn: Callable
     #: parameter builder (numpy, seeded as in the reference)
     params: Callable[[], dict]
     input_name: str
@@ -136,6 +149,30 @@ class ZooModel:
         one convention in ``repro_torch.core.batching.batched_shape``."""
         return batched_shape(self.input_shape, batch)
 
+    def example_inputs(self, batch: int | None = None) -> dict[str, np.ndarray]:
+        shape = self.input_shape if batch is None else self.batched_input_shape(batch)
+        return {self.input_name: np.zeros(shape, dtype=self.input_dtype)}
+
+    def trace(self, batch: int | None = None) -> ir.Graph:
+        """Build the model through the traced-torch frontend (the path
+        ``repro_torch.compile("<name>", ...)`` takes); ``batch`` traces the
+        batched form for one serving bucket."""
+        from repro_torch.frontend import trace_model
+
+        return trace_model(
+            self.torch_fn, self.example_inputs(batch), self.params(), name=self.name
+        )
+
+    def trace_batched(self) -> tuple[ir.Graph, Callable[[int], ir.Graph]]:
+        """The per-sample traced graph and ``build(batch)`` for the serving
+        buckets, from one export with a symbolic batch dim
+        (``frontend.trace_batched``); ``build(b)`` equals ``trace(b)``."""
+        from repro_torch.frontend import trace_batched
+
+        return trace_batched(
+            self.torch_fn, self.example_inputs(), self.params(), name=self.name
+        )
+
 
 def _qdense(h: ir.Node, w_fp: np.ndarray, b: np.ndarray, *, w_scale: float,
             rq_scale: float, clip_lo: int = -128) -> ir.Node:
@@ -152,10 +189,22 @@ def _qdense(h: ir.Node, w_fp: np.ndarray, b: np.ndarray, *, w_scale: float,
                    lo=clip_lo, hi=127)
 
 
+def _qdense_torch(h, w_fp, b, *, w_scale: float, rq_scale: float,
+                  clip_lo: int = -128):
+    w_q = fnn.quantize(w_fp.t(), w_scale)
+    d = fnn.dense(h, w_q) + b
+    return torch.clamp(fnn.requantize(d, rq_scale), clip_lo, 127)
+
+
 def _qconv(h: ir.Node, w_q: np.ndarray, b: np.ndarray, *, stride: int = 1,
            rq_scale: float = QCNN_CONV_RQ[0]) -> ir.Node:
     conv = ir.conv2d(h, ir.const(w_q), stride=stride)
     return ir.clip(ir.requantize(ir.bias_add(conv, ir.const(b)), scale=rq_scale))
+
+
+def _qconv_torch(h, w_q, b, *, stride: int = 1, rq_scale: float = QCNN_CONV_RQ[0]):
+    conv = fnn.conv2d(h, w_q, stride=stride) + b
+    return torch.clamp(fnn.requantize(conv, rq_scale), -128, 127)
 
 
 def mlp_params(layers=TOYCAR_LAYERS, seed: int = 0) -> dict[str, np.ndarray]:
@@ -181,6 +230,17 @@ def mlp_graph(
         h = _qdense(h, params[f"w{i}"], params[f"b{i}"],
                     w_scale=MLP_W_SCALE, rq_scale=MLP_RQ_SCALE)
     return ir.Graph([h], name=name)
+
+
+def make_mlp_fn(layers=TOYCAR_LAYERS):
+    def mlp_fn(x, params):
+        h = x
+        for i in range(len(layers) - 1):
+            h = _qdense_torch(h, params[f"w{i}"], params[f"b{i}"],
+                              w_scale=MLP_W_SCALE, rq_scale=MLP_RQ_SCALE)
+        return h
+
+    return mlp_fn
 
 
 def qcnn_params(seed: int = 0) -> dict[str, np.ndarray]:
@@ -217,6 +277,20 @@ def qcnn_graph(
     h = _qdense(h, p["dense1_w"], p["dense1_b"],
                 w_scale=QCNN_DENSE_W[1], rq_scale=QCNN_DENSE_RQ[1])
     return ir.Graph([h], name="qcnn")
+
+
+def qcnn_fn(x, params):
+    h = _qconv_torch(x, params["conv0_w"], params["conv0_b"],
+                     rq_scale=QCNN_CONV_RQ[0])
+    h = fnn.max_pool2d(h, size=2, stride=2)
+    h = _qconv_torch(h, params["conv1_w"], params["conv1_b"],
+                     rq_scale=QCNN_CONV_RQ[1])
+    h = h.reshape(h.shape[0], -1)
+    h = _qdense_torch(h, params["dense0_w"], params["dense0_b"],
+                      w_scale=QCNN_DENSE_W[0], rq_scale=QCNN_DENSE_RQ[0])
+    h = _qdense_torch(h, params["dense1_w"], params["dense1_b"],
+                      w_scale=QCNN_DENSE_W[1], rq_scale=QCNN_DENSE_RQ[1])
+    return h
 
 
 def transformer_params(seed: int = 0) -> dict[str, np.ndarray]:
@@ -281,6 +355,32 @@ def transformer_block_graph(
     f = proj(f, "f2")
     out = ir.add(f, h)
     return ir.Graph([out], name="transformer_block")
+
+
+def transformer_block_fn(x, params):
+    d_model = x.shape[-1]
+
+    def proj(h, tag, clip_lo=-128):
+        return _qdense_torch(h, params[f"w_{tag}"], params[f"b_{tag}"],
+                             w_scale=TF_W_SCALE, rq_scale=TF_RQ_SCALE,
+                             clip_lo=clip_lo)
+
+    q = proj(x, "q")
+    k = proj(x, "k")
+    v = proj(x, "v")
+    # batch-agnostic K^T: swap the last two dims whatever the rank
+    kt = k.t() if x.dim() == 2 else k.transpose(1, 2)
+    scores = fnn.dense(q, kt)
+    probs = fnn.quantize(
+        torch.softmax(fnn.dequantize(scores, 1.0 / (64.0 * d_model)), dim=-1),
+        TF_PROBS_SCALE,
+    )
+    ctx = fnn.requantize(fnn.dense(probs, v), TF_RQ_SCALE)
+    attn = proj(ctx, "attn")
+    h = attn + x
+    f = proj(h, "f1", clip_lo=0)
+    f = proj(f, "f2")
+    return f + h
 
 
 def decode_mask(pos, max_len: int) -> np.ndarray:
@@ -393,11 +493,33 @@ def decode_cache_spec(max_len: int, batch: int | None) -> ir.CacheSpec:
     )
 
 
+def attn_decode_fn(x, k_cache, v_cache, pos, mask, params):
+    """Plain-torch twin of ``attn_decode_graph`` (batch- and seq-agnostic)."""
+    d_model = x.shape[-1]
+
+    def proj(h, tag):
+        return _qdense_torch(h, params[f"w_{tag}"], params[f"b_{tag}"],
+                             w_scale=TF_W_SCALE, rq_scale=TF_RQ_SCALE)
+
+    q = proj(x, "q")
+    kc = fnn.kv_cache_append(k_cache, proj(x, "k"), pos)
+    vc = fnn.kv_cache_append(v_cache, proj(x, "v"), pos)
+    k_all = fnn.kv_cache_read(kc)
+    v_all = fnn.kv_cache_read(vc)
+    kt = k_all.t() if k_all.dim() == 2 else k_all.transpose(1, 2)
+    scores = fnn.dense(q, kt)
+    masked = fnn.dequantize(scores, 1.0 / (64.0 * d_model)) + mask
+    probs = fnn.quantize(torch.softmax(masked, dim=-1), TF_PROBS_SCALE)
+    ctx = fnn.requantize(fnn.dense(probs, v_all), TF_RQ_SCALE)
+    return proj(ctx, "attn") + x, kc, vc
+
+
 @dataclass(frozen=True)
 class DecodeModel:
     """A stateful decode workload: two graph forms (prefill at ``seq=P``,
-    decode at ``seq=1``, optionally batched) sharing one parameter set —
-    the zoo contract extended with KV-cache state."""
+    decode at ``seq=1``, optionally batched) sharing one parameter set,
+    plus the traced-torch twin — the zoo contract extended with KV-cache
+    state."""
 
     name: str
     description: str
@@ -405,6 +527,9 @@ class DecodeModel:
     max_len: int
     #: golden graph builder: ``graph(seq, batch, params)``
     graph: Callable[[int, int | None, dict], ir.Graph]
+    #: torch twin ``fn(x, k_cache, v_cache, pos, mask, params)``; the
+    #: counterpart of the reference's ``jnp_fn``
+    torch_fn: Callable
     params: Callable[[], dict]
     accelerators: tuple[str, ...]
     n_gemms: int
@@ -441,6 +566,18 @@ class DecodeModel:
             "pos": np.zeros((batch,), np.int32),
             "mask": np.zeros((batch, 1, ml), np.float32),
         }
+
+    def trace(self, seq: int = 1, batch: int | None = None) -> ir.Graph:
+        """The traced-frontend form (what ``repro_torch.compile("<name>")``
+        uses); carries the same ``CacheSpec`` as the golden graph."""
+        from repro_torch.frontend import trace_model
+
+        name = self.name if seq == 1 else f"{self.name.split('_')[0]}_prefill"
+        g = trace_model(
+            self.torch_fn, self.example_inputs(seq, batch), self.params(), name=name
+        )
+        g.cache_spec = decode_cache_spec(self.max_len, batch)
+        return g
 
     def feeds(
         self, seed: int = 0, pos=None, batch: int | None = None
@@ -487,6 +624,7 @@ DECODE_ZOO: dict[str, DecodeModel] = {
             graph=lambda seq, batch, params: attn_decode_graph(
                 seq=seq, batch=batch, params=params
             ),
+            torch_fn=attn_decode_fn,
             params=decode_params,
             accelerators=("gemmini", "edge_npu"),
             n_gemms=6,
@@ -514,6 +652,7 @@ def _mlp_model(name: str, description: str, layers: tuple[int, ...]) -> ZooModel
         name=name,
         description=description,
         graph=lambda batch, params: mlp_graph(layers, name=name, batch=batch, params=params),
+        torch_fn=make_mlp_fn(layers),
         params=lambda: mlp_params(layers),
         input_name="x",
         input_shape=(1, layers[0]),
@@ -530,6 +669,7 @@ ZOO: dict[str, ZooModel] = {
             name="qcnn",
             description="int8 conv+pool+conv+dense CNN (conv via im2col GEMM)",
             graph=lambda batch, params: qcnn_graph(batch=batch, params=params),
+            torch_fn=qcnn_fn,
             params=qcnn_params,
             input_name="x",
             input_shape=(1, 12, 12, 8),
@@ -547,6 +687,7 @@ ZOO: dict[str, ZooModel] = {
             name="transformer_block",
             description="quantized single-head transformer encoder block",
             graph=lambda batch, params: transformer_block_graph(batch=batch, params=params),
+            torch_fn=transformer_block_fn,
             params=transformer_params,
             input_name="x",
             input_shape=(TF_SEQ, TF_D_MODEL),

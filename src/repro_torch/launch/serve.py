@@ -33,8 +33,9 @@ for decode serving) and ``--arch`` / ``--smoke`` (LM serving, with the
 same ``--prompt-len`` / ``--new-tokens``).  Each function also returns
 what it served (``ZooServeResult``, ``DecodeServeResult``,
 ``LMServeResult``), so a caller can check the responses.  As in the
-reference, ``serve_lm`` installs no kernel policy.  Sharded serving
-(``--devices``) is not ported yet, and the CLI refuses it.
+reference, ``serve_lm`` installs no kernel policy.  ``--devices N``
+serves a zoo model through sharded plans on a ``(data, model)`` mesh, all
+of whose shards run on ``--device``.
 """
 
 from __future__ import annotations
@@ -63,11 +64,6 @@ from repro_torch.serve import (
     ServingEngine,
     random_requests,
 )
-
-#: reference flags whose serving paths the port does not have yet
-_NOT_PORTED = {
-    "devices": "--devices (sharded serving)",
-}
 
 
 def _percentile(samples: list[float], pct: float) -> float:
@@ -99,7 +95,10 @@ def serve_zoo(args) -> ZooServeResult:
     deadline) and dispatches each batch as one bucketed execution."""
     model = get_model(args.zoo)
     target = repro_torch.Target.parse(
-        args.target, batch_size=args.batch, device=getattr(args, "device", "cuda")
+        args.target,
+        batch_size=args.batch,
+        device=getattr(args, "device", "cuda"),
+        devices=getattr(args, "devices", 1),
     )
     artifact = getattr(args, "artifact", None)
     if artifact:
@@ -153,9 +152,13 @@ def serve_zoo(args) -> ZooServeResult:
 
     n = max(len(outs), 1)
     cycles = module.modeled_cycles()  # largest bucket's plan
+    mesh_note = ""
+    if target.devices > 1:
+        dp, mp = target.resolved_mesh
+        mesh_note = f" on a (data={dp}, model={mp}) mesh"
     print(
         f"[serve] {model.name} on {target.describe()}: {boot_how} "
-        f"{len(buckets)} bucket plans {list(buckets)} in "
+        f"{len(buckets)} bucket plans {list(buckets)}{mesh_note} in "
         f"{t_boot * 1e3:.1f} ms (cold start)"
     )
     print(
@@ -346,18 +349,19 @@ def build_parser() -> argparse.ArgumentParser:
         default=16,
         help="decode zoo and --arch: tokens generated per request",
     )
-    ap.add_argument("--devices", type=int, help=argparse.SUPPRESS)
+    ap.add_argument(
+        "--devices",
+        type=int,
+        default=1,
+        help="mesh size for --zoo: compile one ExecutionPlan per shard of "
+        "a (data, model) mesh and serve through the sharded executor "
+        "(every shard on --device)",
+    )
     return ap
 
 
 def main(argv: list[str] | None = None) -> None:
     args = build_parser().parse_args(argv)
-    refused = [what for dest, what in _NOT_PORTED.items() if getattr(args, dest) is not None]
-    if refused:
-        raise SystemExit(
-            f"not available in repro_torch yet: {', '.join(refused)}; "
-            f"only --zoo and --arch serving on one device are ported"
-        )
     if bool(args.zoo) == bool(args.arch):
         raise SystemExit(
             "pass --zoo <model> (a zoo model to serve) or --arch <arch> (an LM), "
@@ -367,6 +371,11 @@ def main(argv: list[str] | None = None) -> None:
         raise SystemExit("--requests must be >= 1")
     if args.batch < 1:
         raise SystemExit("--batch must be >= 1")
+    if args.devices != 1 and (args.arch or args.zoo in decode_model_names()):
+        raise SystemExit(
+            "--devices shards a batched zoo model; stateful decode graphs and "
+            "LM archs cannot be shard-partitioned (serve them with --devices 1)"
+        )
     if args.arch:
         serve_lm(args)
         return

@@ -2,7 +2,7 @@
 
 The serve path for stateful decode: one compiled *prefill* plan and one
 compiled batched *decode* plan — both produced by ``repro_torch.compile``
-from a ``repro_torch.core.zoo.DecodeModel``'s golden graphs — run behind a
+from a ``repro_torch.core.zoo.DecodeModel``'s traced graphs — run behind a
 scheduler that keeps a static decode batch of ``batch`` slots and
 backfills each finished slot with a prefill of the next queued prompt.
 Unlike ``MicroBatcher``'s restart-the-bucket waves, a long request never
@@ -26,9 +26,8 @@ graph's ``CacheSpec.state``) are threaded back as the next step's cache
 inputs without any per-step gather.
 
 Port of ``repro.serve.continuous``.  The engine and ``sequential_generate``
-compile the decode model's golden graphs (``build(batch=B)``,
-``build(seq=P)``, ``build()``), which carry the same ``CacheSpec`` as the
-reference's traced ones; the port has no traced frontend yet.  The state
+compile the decode model's traced graphs (``trace(batch=B)``,
+``trace(seq=P)``, ``trace()``), as the reference does.  The state
 stays numpy between steps, as in the reference: each step uploads the two
 staging caches to the module's device and downloads the updated ones.
 """
@@ -169,10 +168,10 @@ class ContinuousBatchingEngine:
             )
         t0 = time.perf_counter()
         self.decode_mod = repro_torch.compile(
-            model.build(batch=cfg.batch), target=target, options=options
+            model.trace(batch=cfg.batch), target=target, options=options
         )
         self.prefill_mod = repro_torch.compile(
-            model.build(seq=cfg.prompt_len), target=target, options=options
+            model.trace(seq=cfg.prompt_len), target=target, options=options
         )
         self.compile_s = time.perf_counter() - t0
         spec = self.decode_mod.graph.cache_spec
@@ -317,8 +316,8 @@ def sequential_generate(model: DecodeModel, target, requests: list[DecodeRequest
     Emits bit-identical tokens to the engine (same plans' math, batch of 1)."""
     cfg = cfg or EngineConfig()
     d, ml = model.d_model, model.max_len
-    decode_mod = repro_torch.compile(model.build(), target=target, options=options)
-    prefill_mod = repro_torch.compile(model.build(seq=cfg.prompt_len), target=target,
+    decode_mod = repro_torch.compile(model.trace(), target=target, options=options)
+    prefill_mod = repro_torch.compile(model.trace(seq=cfg.prompt_len), target=target,
                                       options=options)
     t0 = time.perf_counter()
     steps = 0

@@ -261,7 +261,7 @@ def test_decode_names_refuse_batch_buckets():
             repro_torch.compile("attn_decode", target, options=options)
         msg = str(got.value)
         assert msg.startswith(str(want.value).split(" — ")[0])
-        assert "get_decode_model(name).build(batch=B)" in msg
+        assert "get_decode_model(name).trace(batch=B)" in msg
         assert "repro_torch.serve.ContinuousBatchingEngine" in msg
 
 

@@ -84,6 +84,8 @@ def build_case(op: str, dtype: str, irmod):
     elif op == "max_pool2d":
         node = irmod.max_pool2d(irmod.input_((2, 6, 6, 3), dtype, name="x"), 2, 2)
         feeds["x"] = _data(dtype, (2, 6, 6, 3), 0)
+    elif op == "shard_slice":
+        node = irmod.shard_slice(x, axis=1, rank=1, parts=2)
     elif op == "kv_cache_read":
         node = irmod.kv_cache_read(irmod.input_((16, 8), dtype, name="x"))
         feeds["x"] = _data(dtype, (16, 8), 0)

@@ -63,6 +63,17 @@ LM_MODULES = (
 )
 
 
+#: the traced frontend and the sharded plans' modules
+FRONTEND_SHARDED_MODULES = (
+    "repro_torch.frontend",
+    "repro_torch.frontend.nn",
+    "repro_torch.frontend.importer",
+    "repro_torch.core.collective",
+    "repro_torch.core.sharded",
+    "repro_torch.launch.mesh",
+)
+
+
 def _imported_modules(path: Path) -> list[str]:
     names = []
     for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
@@ -219,6 +230,46 @@ def test_lm_path_runs_with_jax_blocked():
     proc = subprocess.run(
         [sys.executable, "-W", "ignore", "-c", code], capture_output=True, text=True, env=env,
         timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert "ok ['jax', 'repro']" in proc.stdout
+
+
+def test_frontend_and_sharded_modules_are_checked_files():
+    checked = {str(p.relative_to(ROOT / "src")) for p in PORT_FILES if p.is_relative_to(ROOT / "src")}
+    for module in FRONTEND_SHARDED_MODULES:
+        path = module.replace(".", "/")
+        assert f"{path}.py" in checked or f"{path}/__init__.py" in checked, module
+
+
+def test_frontend_and_sharded_paths_run_with_jax_blocked(tmp_path):
+    """A torch callable traced and compiled, a zoo model sharded on a
+    (1, 2) mesh, saved and loaded, in a process where importing jax or
+    repro fails."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "import importlib\n"
+        f"for name in {FRONTEND_SHARDED_MODULES!r}:\n"
+        "    importlib.import_module(name)\n"
+        "import repro_torch\n"
+        "from repro_torch.core import zoo\n"
+        "model = zoo.get_model('mlp_tiny')\n"
+        "t = repro_torch.Target('gemmini', device='cpu', cache=False)\n"
+        "m = repro_torch.compile(model.torch_fn, t, example_inputs=model.example_inputs(),\n"
+        "                        params=model.params())\n"
+        "s = repro_torch.compile('mlp_tiny', repro_torch.Target('gemmini', device='cpu', cache=False,\n"
+        "                        mesh=(1, 2)))\n"
+        f"repro_torch.save(s, {str(tmp_path / 'art')!r})\n"
+        f"r = repro_torch.load({str(tmp_path / 'art')!r}, device='cpu')\n"
+        "f = model.feeds(0)\n"
+        "assert (r.run(f)[0] == m.run(f)[0]).all() and (s.run(f)[0] == m.run(f)[0]).all()\n"
+        "print('ok', [k for k in sys.modules if k.split('.')[0] in ('jax', 'repro')])\n"
+    )
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, env=env, timeout=120
     )
     assert proc.returncode == 0, proc.stderr
     assert "ok ['jax', 'repro']" in proc.stdout

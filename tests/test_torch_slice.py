@@ -97,8 +97,21 @@ def test_parameter_mismatch_lists_every_problem():
         assert part in msg
 
 
-def test_zoo_name_compiles_the_golden_graph():
+def test_zoo_name_compiles_the_golden_graph(monkeypatch):
+    """A zoo name compiles its traced graph (``ZooModel.trace``), as the
+    reference's does; it runs bit-equal to the golden graph's module."""
+    traced = []
+    real_trace = zoo.ZooModel.trace
+
+    def spy(self, batch=None):
+        graph = real_trace(self, batch)
+        traced.append((self.name, batch, graph))
+        return graph
+
+    monkeypatch.setattr(zoo.ZooModel, "trace", spy)
     by_name = repro_torch.compile("mlp_tiny", repro_torch.Target("gemmini", device="cpu", cache=False))
+    assert [(n, b) for n, b, _ in traced] == [("mlp_tiny", None)]
+    assert by_name.graph is traced[0][2]
     by_graph = _port_module("mlp_tiny", "optimized", None)
     feeds = zoo.get_model("mlp_tiny").feeds(1)
     _assert_bit_equal(by_name.run(feeds), by_graph.run(feeds), "zoo name")
@@ -148,10 +161,13 @@ def test_host_ops_follow_numpy_semantics():
 
 
 def test_unported_host_op_fails_at_compile_time():
-    # a collective of the reference's sharded plans, which wait for their slice
-    x = ir.input_((2, 4), "float32", name="x")
-    gathered = ir.Node("all_gather", [x], shape=(2, 4), dtype="float32",
-                       attrs={"group": 0, "rank": 0, "parts": 1, "axis": 0})
-    graph = ir.Graph([gathered], name="collective")
+    # ``im2col`` is a host-op name the IR declares and no builder makes (the
+    # conv executor lowers it inside the kernel step); as a node of its own
+    # it has no lowering in either package
+    x = ir.input_((1, 4, 4, 2), "int8", name="x")
+    cols = ir.Node("im2col", [x], shape=(4, 18), dtype="int8", attrs={})
+    graph = ir.Graph([cols], name="im2col")
     with pytest.raises(NotImplementedError, match="no torch lowering"):
         repro_torch.compile(graph, repro_torch.Target("gemmini", device="cpu", cache=False))
+    with pytest.raises(NotImplementedError):
+        ref_ir.execute_node(ref_ir.Node("im2col", [], shape=(4, 18), dtype="int8"), [None])

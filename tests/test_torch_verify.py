@@ -368,9 +368,11 @@ def test_sweep_is_clean_on_every_zoo_and_decode_module(tmp_path, monkeypatch, ca
     monkeypatch.setenv("REPRO_TORCH_CACHE_DIR", str(tmp_path))
     assert verify.main(["--sweep", "--device", "cpu"]) == 0
     out = capsys.readouterr().out
-    # 4 zoo models x 2 descriptions + the decode zoo's step, every mode
-    assert "verified 30 compile(s), 0 with diagnostics" in out
+    # 4 zoo models x 2 descriptions x devices 1 and 4 (the default axis),
+    # + the decode zoo's step at devices 1, every mode
+    assert "verified 54 compile(s), 0 with diagnostics" in out
     assert "ok   attn_decode x edge_npu:naive@cpu" in out
+    assert "ok   toycar_mlp x gemmini:optimized@cpu@4dev(data=1,model=4)" in out
 
 
 @pytest.mark.parametrize("acc", ("gemmini", "edge_npu"))
