@@ -108,9 +108,11 @@ fails; nothing is caught and passed over:
      batch 4; routed against unrouted prefill logits within
      ``LM_LOGIT_TOL`` of the largest |logit|; ``ServingEngine`` at batch
      8 (16 prompts of 128 tokens, 16 new) routed and not, tok/s and
-     launches; the four dense archs at their smoke configs (f32) on
-     ``cuda`` under the policy against the CPU (logits within F32_TOL,
-     greedy tokens of a prefill and 4 decode steps equal); every (m, k,
+     launches; all ten archs at their smoke configs (f32; the two
+     frontend archs with embeddings drawn with numpy) on ``cuda`` under
+     the policy against the CPU (logits within F32_TOL, greedy tokens of
+     a prefill and 4 decode steps equal, launches per call as the block
+     kinds imply: ``dense_rows``); every (m, k,
      n, dtype, config) those runs launched against its plain version,
      timed beside ``bound`` and ``torch.matmul``; the prefill and decode
      step times at batch 8 with their kernels' share, and the peak of
@@ -136,12 +138,31 @@ fails; nothing is caught and passed over:
      ``cuda``; ``serve_zoo`` for toycar ``--batch 64 --devices 4`` with
      256 requests, every response bit-equal to a per-request CPU run and
      the launches equal to what the dispatches imply.
+ 16. the other targets and block kinds (after 15, then after 13): the
+     four zoo models in every mode on ``Target("tpu_v5e")`` on ``cuda``,
+     bit-equal to the CPU run with the launches the plan implies (their
+     kernel cases are in phase 5); then, each in turn with bf16 weights
+     from seed 0 on the card after the previous model is freed:
+     jamba-v0.1-52b at its published widths cut to 8 layers (one pattern
+     group: 7 Mamba, 1 attention, 4 MoE and 4 dense MLPs), deepseek-v2-
+     236b cut to 2 layers (the first-dense layer and one MoE layer; MLA)
+     and xlstm-125m uncut: each block kind routed against unrouted on one
+     input within BLOCK_TOL of its largest |out|; a prefill of 8 x 128
+     tokens and a decode step with exactly 49 / 18 / 83 scheduled-kernel
+     launches each (the f32 routers among them), the end-to-end logits
+     and the router choices compared (printed, not gated); jamba and
+     xlstm served through ``ServingEngine`` (8 prompts, 16 new tokens),
+     deepseek a prefill and 4 decode steps, routed and not; every (m, k,
+     n, dtype, config) they launched against its plain version, timed;
+     prefill and decode-step times split into kernels and the rest, and
+     the peak device memory.
 
 The launch counts are set to 0 just before each of phases 4, 6-10, the
 paths of 11 (each serve call too), the LM's served runs and smoke
-archs of 13, the traced modules' runs of 14 and the sharded modules'
-runs and serve call of 15, and read just after; the ``launches`` of the kernels line
-are their sum.  It prints a ``{"kernels": [...]}`` line (the toycar@16
+archs of 13, the traced modules' runs of 14, the sharded modules'
+runs and serve call of 15, and the tpu_v5e modules' runs and each
+full-width model's routed run of 16, and read just after; the
+``launches`` of the kernels line are their sum.  It prints a ``{"kernels": [...]}`` line (the toycar@16
 sums of phase 3; the per-case times of phases 5 and 13 go to the report
 only, to keep the line short), a summary of the paths, and as its last
 line ``{"ok": true, "device": {...}}``.  ``--report PATH`` also
@@ -173,7 +194,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 import repro_torch  # noqa: E402
-from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
+from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config  # noqa: E402
 from repro_torch.core import ir, measure, pass_manager, pipeline, verify, zoo  # noqa: E402
 from repro_torch.core.artifact import graph_fingerprint  # noqa: E402
 from repro_torch.core.batching import pick_bucket, plan_chunks  # noqa: E402
@@ -187,9 +208,14 @@ from repro_torch.core.strategy import gemm_instances, workload_from_node  # noqa
 from repro_torch.frontend import trace_model  # noqa: E402
 from repro_torch.kernels import build, gemm, ops  # noqa: E402
 from repro_torch.kernels.gemm import GemmKernelConfig, gemm_plain, scheduled_gemm  # noqa: E402
-from repro_torch.kernels.policy import scheduled_kernels  # noqa: E402
+from repro_torch.kernels.policy import ScheduledKernelPolicy, scheduled_kernels  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
-from repro_torch.models import lm  # noqa: E402
+from repro_torch.kernels.ref import torch_dtype  # noqa: E402
+from repro_torch.models import attention as A  # noqa: E402
+from repro_torch.models import layers as L  # noqa: E402
+from repro_torch.models import lm, moe  # noqa: E402
+from repro_torch.models import ssm as S  # noqa: E402
+from repro_torch.models import xlstm as X  # noqa: E402
 from repro_torch.serve import (  # noqa: E402
     ServeConfig,
     ServingEngine,
@@ -1811,17 +1837,44 @@ LM_MAX_LEN = LM_PROMPT + LM_NEW + 1
 #: prompt position: bf16 keeps 8 bits (2**-8 = 0.4 %) and the two round
 #: the bias and the product differently in each of 225 GEMMs
 LM_LOGIT_TOL = 5e-2
-LM_SMOKE_ARCHS = ("qwen1_5_32b", "yi_34b", "granite_34b", "codeqwen1_5_7b")
+LM_SMOKE_ARCHS = ARCH_IDS
 LM_SMOKE_BATCH, LM_SMOKE_PROMPT, LM_SMOKE_STEPS = 8, 16, 4
 LM_GRAPH_LAUNCHES = 10  # a head launch streams 757 MB
 LM_DECODE_SAMPLES = 16
+MIN_M = ScheduledKernelPolicy.min_m
 
 
-def routed_per_call(cfg) -> int:
-    """Scheduled-kernel launches of one prefill or decode step with at
-    least ``min_m`` rows at the head: q, k, v, o and the MLP's matrices
-    per layer, and the head."""
-    return cfg.n_layers * (4 + (3 if cfg.mlp_kind == "swiglu" else 2)) + (not cfg.tie_embeddings)
+def dense_rows(cfg, batch: int, seq: int, call: str) -> list[int]:
+    """The m of every ``layers.dense`` one call makes, layer by layer
+    (``lm.layer_kinds``): ``call`` is ``forward`` or ``prefill`` over
+    ``seq`` positions (the frontend's included) or ``decode`` (one)."""
+    s = 1 if call == "decode" else seq
+    rows = batch * s
+    out = []
+    for kind, is_moe in lm.layer_kinds(cfg):
+        if kind == "attn":  # q, k, v, o; MLA: q, kv_down, k_up, v_up, o
+            out += [rows] * (5 if cfg.kv_lora_rank else 4)
+        elif kind == "mamba":  # in_proj, (x_proj, dt_proj) per chunk, out_proj
+            chunk = L.chunk_len(s, cfg.mamba.chunk)
+            out += [rows] + [batch * chunk] * (2 * (s // chunk)) + [rows]
+        elif kind == "mlstm":  # up, q, k, v, i, f, o gates, down per chunk
+            chunk = L.chunk_len(s, cfg.attn_chunk)
+            out += [batch * chunk] * (8 * (s // chunk))
+        elif kind == "slstm":  # out
+            out.append(rows)
+        if is_moe:  # the router, the shared experts' MLP
+            out += [rows] * (1 + (3 if cfg.moe.n_shared_experts else 0))
+        elif cfg.d_ff:
+            out += [rows] * (3 if cfg.mlp_kind == "swiglu" else 2)
+    if not cfg.tie_embeddings:  # the head: every position in forward, the last in prefill
+        out.append(rows if call == "forward" else batch)
+    return out
+
+
+def routed_per_call(cfg, batch: int, seq: int, call: str) -> int:
+    """Scheduled-kernel launches of one call: its denses of at least
+    ``min_m`` rows."""
+    return sum(m >= MIN_M for m in dense_rows(cfg, batch, seq, call))
 
 
 class GemmRecorder:
@@ -1911,12 +1964,21 @@ def tree_leaves(tree, path=()):
         yield path, tree
 
 
+def smoke_frontend(rng, cfg, batch: int):
+    """A frontend arch's embeddings [B, Nf, d] (f32, drawn with numpy), or
+    None."""
+    if not cfg.frontend:
+        return None
+    return torch.from_numpy(rng.normal(size=(batch, cfg.n_frontend_tokens, cfg.d_model)).astype(np.float32))
+
+
 def lm_smoke_phase(dev: torch.device, backend, windows: dict, card_line: str) -> set[tuple]:
-    """Phase 13, step 4: the four dense archs at their smoke configs (f32)
-    on the card under the policy against the same parameters on the CPU:
-    forward logits within F32_TOL (the kernel's 3xTF32 against an f32
-    product), greedy tokens of a prefill and LM_SMOKE_STEPS decode steps
-    equal, launches per call as the policy implies."""
+    """Phase 13, step 4 (every arch since phase 16): the ten archs at their
+    smoke configs (f32) on the card under the policy against the same
+    parameters on the CPU: forward logits within F32_TOL (the kernel's
+    3xTF32 against an f32 product), greedy tokens of a prefill and
+    LM_SMOKE_STEPS decode steps equal, launches per call as the block
+    kinds imply; the frontend archs take embeddings drawn with numpy."""
     calls = set()
     rng = np.random.default_rng(3)
     gemm.reset_launches()  # the smoke archs' window starts here
@@ -1925,22 +1987,24 @@ def lm_smoke_phase(dev: torch.device, backend, windows: dict, card_line: str) ->
         cpu_params = lm.init_lm(0, cfg, device="cpu")
         params = tree_map(lambda t: t.to(dev), cpu_params)
         toks = lm_wave(lm_tokens(rng, cfg.vocab, LM_SMOKE_BATCH, LM_SMOKE_PROMPT), "cpu")
-        per_call = routed_per_call(cfg)
+        fe = smoke_frontend(rng, cfg, LM_SMOKE_BATCH)
+        seq = LM_SMOKE_PROMPT + (cfg.n_frontend_tokens if fe is not None else 0)
+        per_call = {c: routed_per_call(cfg, LM_SMOKE_BATCH, seq, c) for c in ("forward", "prefill", "decode")}
         tokens = {}
         with scheduled_kernels(backend), torch.inference_mode(), GemmRecorder() as rec:
             before = gemm.LAUNCHES["gemm_float"]
-            got, _ = lm.forward(params, cfg, toks.to(dev))
+            got, _ = lm.forward(params, cfg, toks.to(dev), None if fe is None else fe.to(dev))
             torch.cuda.synchronize()
-            check(gemm.LAUNCHES["gemm_float"] - before == per_call,
-                  f"{arch} smoke forward: {gemm.LAUNCHES['gemm_float'] - before} launches, not {per_call}")
-            want, _ = lm.forward(cpu_params, cfg, toks)
+            check(gemm.LAUNCHES["gemm_float"] - before == per_call["forward"],
+                  f"{arch} smoke forward: {gemm.LAUNCHES['gemm_float'] - before} launches, not {per_call['forward']}")
+            want, _ = lm.forward(cpu_params, cfg, toks, fe)
             err = max_err(got.cpu(), want)
             check(torch.allclose(got.cpu(), want, **F32_TOL), f"{arch} smoke forward: cuda vs cpu, max |err| {err}")
             for where, p in (("cuda", params), ("cpu", cpu_params)):
                 d = dev if where == "cuda" else torch.device("cpu")
-                c = lm.init_cache(cfg, LM_SMOKE_BATCH, LM_SMOKE_PROMPT + LM_SMOKE_STEPS, device=d)
+                c = lm.init_cache(cfg, LM_SMOKE_BATCH, seq + LM_SMOKE_STEPS, device=d)
                 before = gemm.LAUNCHES["gemm_float"]
-                logits, c = lm.prefill(p, cfg, toks.to(d), c)
+                logits, c = lm.prefill(p, cfg, toks.to(d), c, None if fe is None else fe.to(d))
                 out = [torch.argmax(logits[:, -1:], -1)]
                 for _ in range(LM_SMOKE_STEPS):
                     logits, c = lm.decode_step(p, cfg, c, out[-1])
@@ -1948,13 +2012,15 @@ def lm_smoke_phase(dev: torch.device, backend, windows: dict, card_line: str) ->
                 tokens[where] = torch.cat(out, 1).cpu()
                 if where == "cuda":
                     launched = gemm.LAUNCHES["gemm_float"] - before
-                    check(launched == per_call * (1 + LM_SMOKE_STEPS),
-                          f"{arch} smoke prefill + {LM_SMOKE_STEPS} steps: {launched} launches")
+                    want_n = per_call["prefill"] + LM_SMOKE_STEPS * per_call["decode"]
+                    check(launched == want_n,
+                          f"{arch} smoke prefill + {LM_SMOKE_STEPS} steps: {launched} launches, not {want_n}")
         check(torch.equal(tokens["cuda"], tokens["cpu"]), f"{arch} smoke greedy tokens: cuda != cpu")
         calls |= set(rec.calls)
         print(f"lm smoke {arch}: forward logits cuda vs cpu max |err| {err:.3e} (rtol 1e-4, atol 1e-3); "
               f"greedy tokens of prefill + {LM_SMOKE_STEPS} steps equal ({tokens['cuda'].numel()}); "
-              f"{per_call} launches per call [{card_line}]")
+              f"launches per forward / prefill / decode step {per_call['forward']} / {per_call['prefill']} / "
+              f"{per_call['decode']} [{card_line}]")
     windows["LM smoke archs"] = dict(gemm.LAUNCHES)  # read just after them
     return calls
 
@@ -1967,7 +2033,8 @@ def lm_phase(dev: torch.device, card_line: str, windows: dict, cfg=None) -> dict
     card against the CPU."""
     cfg = cfg or get_config(LM_ARCH)
     backend = build_backend(make_gemmini_description())
-    per_call = routed_per_call(cfg)
+    per_call = routed_per_call(cfg, LM_BATCH, LM_PROMPT, "prefill")
+    check(per_call == routed_per_call(cfg, LM_BATCH, LM_PROMPT, "decode"), "lm: prefill and decode launch counts")
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     params = lm.init_lm(0, cfg, device=dev)
@@ -2127,6 +2194,307 @@ def lm_phase(dev: torch.device, card_line: str, windows: dict, cfg=None) -> dict
     }
 
 
+# -- phase 16: tpu_v5e on the card; the other block kinds at full width --------
+
+TPU_MODELS = ("toycar_mlp", "mlp_tiny", "qcnn", "transformer_block")
+#: (arch, layers kept or None for the published depth, served through
+#: ServingEngine (else one prefill and FW_DECODE_STEPS steps), launches per
+#: prefill and per decode step as (bf16, f32 routers))
+FULL_WIDTH = (
+    ("jamba_v0_1_52b", 8, True, (45, 4)),
+    ("deepseek_v2_236b", 2, False, (17, 1)),
+    ("xlstm_125m", None, True, (83, 0)),
+)
+FW_BATCH, FW_PROMPT, FW_NEW = 8, 128, 16
+FW_DECODE_STEPS = 4
+#: one block's routed against unrouted output on one input, |diff| / max
+#: |out| (codeqwen's logit bound)
+BLOCK_TOL = LM_LOGIT_TOL
+#: a model with no router: its routed bf16 logits may sit at most this many
+#: times further from an f32 run than its unrouted bf16 logits do
+F32_GAP_RATIO = 2.0
+
+
+def compile_tpu_paths(dev: torch.device) -> dict[tuple, dict]:
+    """The four zoo models in every mode on tpu_v5e, per-sample, on the
+    card and on the CPU, keyed as phase 6's modules."""
+    out = {}
+    for name in TPU_MODELS:
+        model = zoo.get_model(name)
+        for mode in MODES:
+            out[name, "tpu_v5e", mode, None] = {
+                where: repro_torch.compile(
+                    model.build(), repro_torch.Target("tpu_v5e", mode=mode, device=str(dev) if where == "cuda" else "cpu")
+                )
+                for where in ("cuda", "cpu")
+            }
+    return out
+
+
+def tpu_v5e_phase(compiled: dict, cases: dict, card_line: str, windows: dict) -> dict:
+    """Phase 16, step 1: the 12 tpu_v5e modules on the card, bit-equal to
+    the CPU run with the launches the plan implies (phase 6's checks)."""
+    gemm.reset_launches()  # the tpu_v5e modules' runs start here
+    summary = new_paths_phase(compiled, cases, card_line)
+    windows["tpu_v5e modules"] = dict(gemm.LAUNCHES)  # read just after them
+    return summary
+
+
+class RouterRecorder:
+    """Records the expert ids [T, k] of every ``moe.route`` call while
+    active (the calls pass straight through)."""
+
+    def __enter__(self):
+        self._real = moe.route
+        self.ids: list[torch.Tensor] = []
+
+        def recording(params, cfg, xt):
+            weights, idx, aux = self._real(params, cfg, xt)
+            self.ids.append(idx)
+            return weights, idx, aux
+
+        moe.route = recording
+        return self
+
+    def __exit__(self, *exc):
+        moe.route = self._real
+        return False
+
+
+def router_flips(routed: list[torch.Tensor], unrouted: list[torch.Tensor]) -> int:
+    """(token, layer) pairs whose top-k expert set differs."""
+    return sum(int((a.sort(-1).values != b.sort(-1).values).any(-1).sum()) for a, b in zip(routed, unrouted))
+
+
+def block_kind_checks(dev: torch.device, params, cfg, backend, card_line: str) -> dict:
+    """Each block kind of a full-width model (the first layer of each),
+    routed against unrouted on one input tensor [FW_BATCH, FW_PROMPT, d]
+    in the compute dtype: within BLOCK_TOL of the largest |out|.  mLSTM
+    is held in each of its forms: the parallel one of ``mlstm_block``,
+    the chunk-recurrent one that ``lm.prefill`` serves, and a decode step
+    from the state that the unrouted prefill leaves."""
+    compute = torch_dtype(cfg.compute_dtype)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    x = torch.randn((FW_BATCH, FW_PROMPT, cfg.d_model), generator=gen, device=dev).to(compute)
+    positions = torch.arange(FW_PROMPT, device=dev)
+    blocks = {
+        "attn": lambda lp: A.attention_block(lp["block"], cfg, x, positions),
+        "mamba": lambda lp: S.mamba_block(lp["block"], cfg, x)[0],
+        "mlstm": lambda lp: X.mlstm_block(lp["block"], cfg, x),
+        "slstm": lambda lp: X.slstm_block(lp["block"], cfg, x)[0],
+    }
+    todo = {}
+    for lp, kind, is_moe in lm.iter_layers(params, cfg):
+        label = "MLA attention" if kind == "attn" and cfg.kv_lora_rank else {"attn": "attention"}.get(kind, kind)
+        todo.setdefault(label, lambda lp=lp, kind=kind: blocks[kind](lp))
+        if kind == "mlstm" and "mlstm prefill" not in todo:
+            fresh = X.init_mlstm_state(cfg, FW_BATCH, device=dev)
+            with torch.inference_mode():
+                _, state = X.mlstm_prefill(lp["block"], cfg, x, fresh, chunk=cfg.attn_chunk)
+            todo["mlstm prefill"] = lambda lp=lp, st=fresh: X.mlstm_prefill(
+                lp["block"], cfg, x, st, chunk=cfg.attn_chunk)[0]
+            todo["mlstm decode step"] = lambda lp=lp, st=state: X.mlstm_decode_step(
+                lp["block"], cfg, x[:, -1:], st)[0]
+        if is_moe:
+            todo.setdefault("MoE FFN", lambda lp=lp: moe.moe_ffn(lp["ffn"], cfg, x)[0])
+        elif "ffn" in lp:
+            todo.setdefault("dense MLP", lambda lp=lp: L.mlp(lp["ffn"], x, compute_dtype=compute))
+    out = {}
+    with torch.inference_mode():
+        for label, fn in todo.items():
+            with RouterRecorder() as rr_u:
+                unrouted = fn()
+            with scheduled_kernels(backend), RouterRecorder() as rr_r:
+                routed = fn()
+            torch.cuda.synchronize()
+            scale = unrouted.float().abs().max()
+            rel = float((routed.float() - unrouted.float()).abs().max() / scale)
+            flips = router_flips(rr_r.ids, rr_u.ids)
+            check(bool(torch.isfinite(routed).all()) and rel <= BLOCK_TOL,
+                  f"{cfg.name} {label}: routed vs unrouted {rel:.4f} of max |out| > {BLOCK_TOL}")
+            out[label] = {"rel": rel, "max_abs_out": float(scale), "router_flips": flips}
+            print(f"lm {cfg.name} block {label}: routed vs unrouted on one input within {rel:.5f} of max |out| "
+                  f"{float(scale):.3f} (tolerance {BLOCK_TOL}){f'; tokens routed differently {flips}' if rr_u.ids else ''} "
+                  f"[{card_line}]")
+    return out
+
+
+def full_width_lm(dev: torch.device, card_line: str, windows: dict, arch: str, n_layers, served: bool,
+                  expected: tuple[int, int]) -> dict:
+    """Phase 16: one arch at its published widths (cut to ``n_layers``),
+    bf16 weights from seed 0 on the card: each block kind routed against
+    unrouted; a prefill of FW_BATCH x FW_PROMPT tokens and a decode step,
+    routed and not, with the launches per call, the end-to-end logits and
+    the router choices compared; then served (FW_NEW new tokens) or a
+    prefill and FW_DECODE_STEPS steps, routed and not, in its launch
+    window; prefill and decode step times and the peak memory."""
+    cfg = get_config(arch).with_(n_layers=n_layers) if n_layers else get_config(arch)
+    short = arch.split("_")[0]
+    backend = build_backend(make_gemmini_description())
+    per = {c: routed_per_call(cfg, FW_BATCH, FW_PROMPT, c) for c in ("prefill", "decode")}
+    check(per["prefill"] == per["decode"] == sum(expected),
+          f"{cfg.name}: the block kinds imply {per} launches per call, not {sum(expected)}")
+    n_moe = sum(is_moe for _, is_moe in lm.layer_kinds(cfg))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = lm.init_lm(0, cfg, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights = sum(t.numel() for _, t in tree_leaves(params))
+    kinds = sorted({k for k, _ in lm.layer_kinds(cfg)})
+    print(f"lm {cfg.name}: {cfg.n_layers} layers ({', '.join(kinds)}; {n_moe} MoE), d_model {cfg.d_model}, "
+          f"{cfg.param_dtype}: {weights:,} weights drawn on {dev} in {init_s:.2f} s [{card_line}]")
+    blocks = block_kind_checks(dev, params, cfg, backend, card_line)
+
+    rng = np.random.default_rng(0)
+    prompts = lm_tokens(rng, cfg.vocab, FW_BATCH, FW_PROMPT)
+    toks = lm_wave(prompts, dev)
+    max_len = FW_PROMPT + FW_NEW + 1
+    calls: dict[str, list] = {}
+    logits, routers = {}, {}
+    with torch.inference_mode():
+        for routed in (True, False):
+            c = lm.init_cache(cfg, FW_BATCH, max_len, device=dev)
+            policy = scheduled_kernels(backend) if routed else contextlib.nullcontext()
+            with policy, GemmRecorder() as rec, RouterRecorder() as rr:
+                gemm.reset_launches()
+                logits[routed], c = lm.prefill(params, cfg, toks, c)
+                torch.cuda.synchronize()
+                pf, n_pf = dict(gemm.LAUNCHES), len(rec.calls)
+                routers[routed] = list(rr.ids)
+                gemm.reset_launches()
+                lm.decode_step(params, cfg, c, torch.argmax(logits[routed][:, -1:], -1))
+                torch.cuda.synchronize()
+                dc = dict(gemm.LAUNCHES)
+            want = {v: (per["prefill"] if routed and v == "gemm_float" else 0) for v in gemm.LAUNCHES}
+            check(pf == want and dc == want, f"{cfg.name} {'routed' if routed else 'unrouted'} prefill / decode "
+                  f"step launches {pf} / {dc}, want {want} each")
+            if routed:
+                calls["prefill"], calls["decode"] = rec.calls[:n_pf], rec.calls[n_pf:]
+    for name, cl in calls.items():
+        split = (sum(c[3] != torch.float32 for c in cl), sum(c[3] == torch.float32 for c in cl))
+        check(split == expected, f"{cfg.name} {name}: (bf16, f32) launches {split}, want {expected}")
+    p, u = logits[True][:, -1], logits[False][:, -1]
+    e2e_rel = float((p - u).abs().max() / u.abs().max())
+    flips = router_flips(routers[True], routers[False])
+    check(bool(torch.isfinite(p).all()), f"{cfg.name}: routed prefill logits not finite")
+    print(f"lm {cfg.name} launches: {per['prefill']} per prefill and per decode step routed ({expected[0]} bf16, "
+          f"{expected[1]} f32), 0 unrouted; routed vs unrouted last-position logits {e2e_rel:.4f} of max |logit|, "
+          f"first tokens agree on {int((p.argmax(-1) == u.argmax(-1)).sum())}/{FW_BATCH} rows; router choices "
+          f"differ on {flips} of {FW_BATCH * FW_PROMPT * n_moe} (token, layer) pairs (not gated) [{card_line}]")
+
+    served_runs = {}
+    engine = None
+    if served:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", ReproDeprecationWarning)
+            engine = ServingEngine(cfg, params, ServeConfig(batch=FW_BATCH, max_len=max_len, max_new_tokens=FW_NEW))
+    for routed in (True, False):
+        gemm.reset_launches()  # this arch's window starts here
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with scheduled_kernels(backend) if routed else contextlib.nullcontext():
+            if served:
+                tokens = [r.output for r in engine.generate(prompts)]
+            else:
+                with torch.inference_mode():
+                    c = lm.init_cache(cfg, FW_BATCH, max_len, device=dev)
+                    out, c = lm.prefill(params, cfg, toks, c)
+                    nxt = [torch.argmax(out[:, -1:], -1)]
+                    for _ in range(FW_DECODE_STEPS):
+                        out, c = lm.decode_step(params, cfg, c, nxt[-1])
+                        nxt.append(torch.argmax(out[:, -1:], -1))
+                    tokens = torch.cat(nxt, 1).tolist()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        window = dict(gemm.LAUNCHES)  # read just after it
+        steps = FW_NEW if served else FW_DECODE_STEPS
+        want = {v: (per["prefill"] + steps * per["decode"] if routed and v == "gemm_float" else 0)
+                for v in gemm.LAUNCHES}
+        check(window == want, f"{cfg.name} {'routed' if routed else 'unrouted'} run: launches {window}, want {want}")
+        check(all(0 <= t < cfg.vocab for row in tokens for t in row), f"{cfg.name}: tokens out of the vocabulary")
+        if routed:
+            windows[f"LM {short} routed"] = window
+        new = FW_BATCH * (FW_NEW if served else FW_DECODE_STEPS + 1)
+        served_runs["routed" if routed else "unrouted"] = {"wall_s": wall, "tok_per_s": new / wall}
+    print(f"lm {cfg.name} {'served' if served else 'prefill + ' + str(FW_DECODE_STEPS) + ' steps'} at batch "
+          f"{FW_BATCH}, prompts of {FW_PROMPT}: routed {served_runs['routed']['tok_per_s']:.1f} tok/s "
+          f"({served_runs['routed']['wall_s']:.3f} s, {windows[f'LM {short} routed']['gemm_float']} launches), "
+          f"unrouted {served_runs['unrouted']['tok_per_s']:.1f} tok/s ({served_runs['unrouted']['wall_s']:.3f} s, "
+          f"0 launches) [{card_line}]")
+
+    timing = {}
+    with torch.inference_mode():
+        for routed in (True, False):
+            with scheduled_kernels(backend) if routed else contextlib.nullcontext():
+                pf_ms, step_ms = [], []
+                for _ in range(3):
+                    c = lm.init_cache(cfg, FW_BATCH, max_len, device=dev)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    out, c = lm.prefill(params, cfg, toks, c)
+                    torch.cuda.synchronize()
+                    pf_ms.append((time.perf_counter() - t0) * 1e3)
+                nxt = torch.argmax(out[:, -1:], -1)
+                for _ in range(LM_DECODE_SAMPLES if served else FW_DECODE_STEPS):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    out, c = lm.decode_step(params, cfg, c, nxt)
+                    torch.cuda.synchronize()
+                    step_ms.append((time.perf_counter() - t0) * 1e3)
+                    nxt = torch.argmax(out[:, -1:], -1)
+            timing["routed" if routed else "unrouted"] = {
+                "prefill_ms": float(np.median(pf_ms)), "decode_step_ms_p50": float(np.percentile(step_ms, 50))}
+    peak = torch.cuda.max_memory_allocated(dev)
+    f32_gap = None
+    # no router can flip: hold each side to an f32 prefill of the same
+    # weights and tokens (after the peak is read, which it would raise)
+    if not n_moe:
+        cfg32 = cfg.with_(param_dtype="float32", compute_dtype="float32")
+        p32 = tree_map(lambda t: t.float() if t.is_floating_point() else t, params)
+        with torch.inference_mode():
+            ref = lm.prefill(p32, cfg32, toks, lm.init_cache(cfg32, FW_BATCH, max_len, device=dev))[0][:, -1]
+        f32_gap = {side: float((v - ref).abs().max() / ref.abs().max()) for side, v in (("routed", p), ("unrouted", u))}
+        del p32, ref
+        check(f32_gap["routed"] <= F32_GAP_RATIO * f32_gap["unrouted"],
+              f"{cfg.name}: routed logits {f32_gap['routed']:.4f} of max |logit| from an f32 prefill, more than "
+              f"{F32_GAP_RATIO} x the unrouted {f32_gap['unrouted']:.4f}")
+        print(f"lm {cfg.name} against an f32 prefill of the same weights and tokens (unrouted): routed last-position "
+              f"logits {f32_gap['routed']:.4f} of max |logit| away, unrouted {f32_gap['unrouted']:.4f} (tolerance: "
+              f"routed within {F32_GAP_RATIO} x unrouted) [{card_line}]")
+    del params, engine, c, out
+    torch.cuda.empty_cache()
+    return {"arch": cfg.name, "layers": cfg.n_layers, "weights": weights, "init_s": init_s, "per_call": per,
+            "split": expected, "blocks": blocks, "logit_rel_diff": e2e_rel, "f32_gap": f32_gap, "router_flips": flips,
+            "router_pairs": FW_BATCH * FW_PROMPT * n_moe, "runs": served_runs, "served": served,
+            "timing": timing, "peak_bytes": peak, "calls": calls}
+
+
+def full_width_phase(dev: torch.device, card_line: str, windows: dict) -> dict:
+    """Phase 16, steps 2-4: jamba, deepseek-v2 and xlstm at full width,
+    then every (m, k, n, dtype, config) they launched against its plain
+    version, and each model's prefill and decode step split into kernels
+    and the rest."""
+    runs = [full_width_lm(dev, card_line, windows, *spec) for spec in FULL_WIDTH]
+    calls = {c for r in runs for cl in r["calls"].values() for c in cl}
+    cases = lm_kernel_cases(dev, calls, card_line)
+    for r in runs:
+        k = {name: sum(cases[c]["ms"] for c in cl) for name, cl in r.pop("calls").items()}
+        t = r["timing"]["routed"]
+        r["prefill_kernel_ms"], r["decode_step_kernel_ms"] = k["prefill"], k["decode"]
+        print(f"lm {r['arch']} batch {FW_BATCH} routed: prefill of {FW_PROMPT} tokens {t['prefill_ms']:.3f} ms "
+              f"(median of 3), kernels {k['prefill']:.3f} ms device ({k['prefill'] / t['prefill_ms']:.1%}); decode "
+              f"step p50 {t['decode_step_ms_p50']:.3f} ms, kernels {k['decode']:.3f} ms device "
+              f"({k['decode'] / t['decode_step_ms_p50']:.1%}), host and the rest "
+              f"{t['decode_step_ms_p50'] - k['decode']:.3f} ms; unrouted: prefill "
+              f"{r['timing']['unrouted']['prefill_ms']:.3f} ms, decode step p50 "
+              f"{r['timing']['unrouted']['decode_step_ms_p50']:.3f} ms; peak device memory "
+              f"{r['peak_bytes'] / 2**30:.2f} GiB [{card_line}]")
+    return {"models": runs, "cases": list(cases.values())}
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description="drive the port on one NVIDIA card")
     ap.add_argument("--report", help="also write everything measured to this JSON file")
@@ -2176,6 +2544,8 @@ def main(argv: list[str] | None = None) -> int:
     case_modules.update({decode_label(*key): mods["cpu"] for key, mods in decode_compiled.items()})
     sharded_compiled = compile_sharded_paths(dev)
     case_modules.update(sharded_shards({label: c[0] for label, c in sharded_compiled.items()}))
+    tpu_compiled = compile_tpu_paths(dev)
+    case_modules.update({path_label(*key): mods["cpu"] for key, mods in tpu_compiled.items()})
     case_modules.update(sharded_shards(sharded_serve_modules()))
     cases = path_case_phase(dev, case_modules)
 
@@ -2203,8 +2573,11 @@ def main(argv: list[str] | None = None) -> int:
     gate = verify_gate_phase(dev, card_line)
     frontend = frontend_phase(dev, card_line, windows)  # sets the counts to 0 before its runs
     sharded = sharded_phase(dev, sharded_compiled, cases, card_line, work, windows)  # likewise
+    tpu = tpu_v5e_phase(tpu_compiled, cases, card_line, windows)  # phase 16, step 1
     host_ops = host_ops_phase(dev, card_line)
     lm_run = lm_phase(dev, card_line, windows)  # sets the counts to 0 before each LM window
+    full_width = full_width_phase(dev, card_line, windows)  # phase 16: likewise, after codeqwen is freed
+    lm_cases = lm_run["cases"] + full_width["cases"]
     for window, counts in windows.items():
         print(f"launch window {window}: {counts}")
     both = ("qgemm_requant", "gemm_int32")
@@ -2215,7 +2588,9 @@ def main(argv: list[str] | None = None) -> int:
                     "frontend": both, "sharded modules": both,
                     f"serve {SHARD_SERVE[0]}@{SHARD_SERVE[1]} --batch {SHARD_SERVE[2]} --devices {SHARD_SERVE[4]}":
                         ("qgemm_requant",),
-                    "LM served routed": ("gemm_float",), "LM smoke archs": ("gemm_float",)}
+                    "LM served routed": ("gemm_float",), "LM smoke archs": ("gemm_float",),
+                    "tpu_v5e modules": both, "LM jamba routed": ("gemm_float",),
+                    "LM deepseek routed": ("gemm_float",), "LM xlstm routed": ("gemm_float",)}
     for window, names in path_kernels.items():
         for name in names:
             check(windows[window][name] > 0, f"kernel {name} never launched in the {window} window")
@@ -2230,7 +2605,7 @@ def main(argv: list[str] | None = None) -> int:
             "launches": launches[name],
             "max_abs_err": max([r["max_abs_err"]] + [c["max_abs_err"] for c in cases.values()
                                                     if c["variant"] == name]
-                               + [c["max_abs_err"] for c in lm_run["cases"] if name == "gemm_float"]),
+                               + [c["max_abs_err"] for c in lm_cases if name == "gemm_float"]),
             "ms": r["ms"],
             "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"],
@@ -2242,7 +2617,7 @@ def main(argv: list[str] | None = None) -> int:
             "layer_ms": r["layer_ms"],
             "shapes": "toycar_mlp batch 16, 8 layers, summed; every path case and LM case in the report",
             "path_cases": sum(c["variant"] == name for c in cases.values()),
-            "lm_cases": len(lm_run["cases"]) if name == "gemm_float" else 0,
+            "lm_cases": len(lm_cases) if name == "gemm_float" else 0,
         }
         for name, r in kernels.items()
     ]}
@@ -2257,13 +2632,14 @@ def main(argv: list[str] | None = None) -> int:
               "serve": served, "measured_dse": measured, "artifact": artifact, "pipelined": pipelined,
               "decode_paths": decode_paths, "decode_serve": decode_served, "decode_checks": decode_checks,
               "verify_gate": gate, "host_ops": host_ops, "lm": lm_run, "launch_windows": windows,
-              "frontend": frontend, "sharded": sharded,
+              "frontend": frontend, "sharded": sharded, "tpu_v5e": tpu, "full_width": full_width,
               "path_cases": path_cases}
     if args.report:
         Path(args.report).parent.mkdir(parents=True, exist_ok=True)
         Path(args.report).write_text(json.dumps({**report, **line}, indent=1))
     # the per-path summaries are long and printed above, path by path
-    long = ("paths", "measured_dse", "pipelined", "decode_paths", "path_cases", "lm", "frontend", "sharded")
+    long = ("paths", "measured_dse", "pipelined", "decode_paths", "path_cases", "lm", "frontend", "sharded",
+            "tpu_v5e", "full_width")
     print(json.dumps({k: v for k, v in report.items() if k not in long}))
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

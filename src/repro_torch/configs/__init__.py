@@ -4,9 +4,8 @@ each holding the exact published configuration from the assignment.
 
 Port of ``repro.configs``: the same ten modules, copied verbatim apart
 from the import of ``ModelConfig``, which comes from
-``repro_torch.models.config``.  Only the dense archs (qwen1_5_32b,
-yi_34b, granite_34b, codeqwen1_5_7b) run in ``repro_torch.models.lm``
-yet; every config builds and counts its parameters."""
+``repro_torch.models.config``.  Every config builds and runs in
+``repro_torch.models.lm``."""
 
 from __future__ import annotations
 

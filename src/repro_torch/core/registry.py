@@ -24,8 +24,8 @@ Out-of-tree accelerators use the same decorator as the in-tree ones:
     def make_my_npu():
         return AcceleratorDescription(...)
 
-Port of ``repro.core.registry``: ``REGISTRY`` holds ``edge_npu`` and
-``gemmini`` (the ``tpu_v5e`` description is not ported); the deprecated
+Port of ``repro.core.registry``: ``REGISTRY`` holds ``edge_npu``,
+``gemmini`` and ``tpu_v5e``, as the reference's does; the deprecated
 ``integrate()`` is not ported, and there is no ``use_pallas``: the route
 follows the module's device.
 """

@@ -263,10 +263,6 @@ def serve_lm(args) -> LMServeResult:
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if cfg.frontend:
         raise SystemExit(f"{cfg.name} needs frontend embeddings; use a text arch for the demo")
-    try:
-        lm.check_supported(cfg)
-    except NotImplementedError as e:
-        raise SystemExit(str(e)) from None
     params = lm.init_lm(0, cfg, device=getattr(args, "device", "cuda"))
     engine = ServingEngine(
         cfg,

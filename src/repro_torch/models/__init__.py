@@ -1,5 +1,6 @@
-"""The LM substrate: config, layers, KV caches, attention and the LM.
+"""The LM substrate: config, layers, KV and MLA caches, attention, MoE,
+Mamba, xLSTM and the LM.
 
-Port of ``repro.models`` for the dense family (all-attention blocks, no
-MoE); the MoE, SSM, xLSTM and MLA modules wait for their slice.
+Port of ``repro.models`` (the serving path; the flash backward and
+training wait for their slice).
 """

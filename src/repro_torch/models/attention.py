@@ -1,17 +1,20 @@
-"""Attention: GQA/MQA with RoPE, sliding windows, a memory-bounded
-blockwise (flash-style) implementation for prefill, and a decode step.
+"""Attention: GQA/MQA with RoPE, sliding windows, MLA compressed KV, a
+memory-bounded blockwise (flash-style) implementation for prefill, and a
+decode step.
 
 The blockwise implementation chunks both query and key/value axes with an
 online-softmax accumulator, so peak memory is O(chunk_q x chunk_kv) per
 head instead of O(S^2).  Fully-masked KV chunks are still *computed* in
 the baseline; ``causal_block_skip_attention`` skips them.
 
-Port of ``repro.models.attention`` without MLA: ``mla_decode_attention``
-and the ``kv_lora_rank`` branches raise ``NotImplementedError`` (ROADMAP
-Queue A item 5).  Head order follows the reference: ``jnp.repeat`` of
-the KV heads is ``repeat_interleave`` (each KV head serves its
-consecutive query heads).  The reference's ``constrain`` calls are the
-identity without a sharding policy and are left out.
+Port of ``repro.models.attention``, MLA included.  Head order follows
+the reference: ``jnp.repeat`` of the KV heads is ``repeat_interleave``
+(each KV head serves its consecutive query heads).  The reference's
+``constrain`` calls are the identity without a sharding policy and are
+left out.  MLA's four projections (q, kv_down, k_up, v_up) go through
+``layers.dense`` and so through the scheduled kernel; its absorbed
+decode contracts the up-projection weights directly, as the reference's
+einsums do.
 """
 
 from __future__ import annotations
@@ -20,7 +23,6 @@ import torch
 
 from repro_torch.kernels.ref import torch_dtype
 from repro_torch.models import layers as L
-from repro_torch.models.cache import MLA_NOT_PORTED
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.flash import gqa_flash_attention
 
@@ -28,9 +30,18 @@ NEG_INF = -1e30
 
 
 def init_attention(gen, cfg: ModelConfig, dtype=torch.float32, *, lead=()):
-    if cfg.kv_lora_rank:
-        raise NotImplementedError(MLA_NOT_PORTED)
     d, h, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    if cfg.kv_lora_rank:
+        r, dr = cfg.kv_lora_rank, cfg.qk_rope_dim
+        return {
+            # q: per-head nope + rope parts
+            "q": L.init_dense(gen, d, h * (dh + dr), bias=cfg.qkv_bias, dtype=dtype, lead=lead),
+            # kv_down: latent (r) + shared k_rope (dr)
+            "kv_down": L.init_dense(gen, d, r + dr, dtype=dtype, lead=lead),
+            "k_up": L.init_dense(gen, r, h * dh, dtype=dtype, lead=lead),
+            "v_up": L.init_dense(gen, r, h * dh, dtype=dtype, lead=lead),
+            "o": L.init_dense(gen, h * dh, d, dtype=dtype, lead=lead),
+        }
     return {
         "q": L.init_dense(gen, d, h * dh, bias=cfg.qkv_bias, dtype=dtype, lead=lead),
         "k": L.init_dense(gen, d, hkv * dh, bias=cfg.qkv_bias, dtype=dtype, lead=lead),
@@ -55,12 +66,30 @@ def _rope_broadcast(t: torch.Tensor) -> torch.Tensor:
 
 
 def qkv_project(params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor):
-    """Returns q [B,H,S,D], k [B,Hkv,S,D], v [B,Hkv,S,D] with RoPE applied,
-    plus the MLA cache payload, always (None, None) here."""
-    if cfg.kv_lora_rank:
-        raise NotImplementedError(MLA_NOT_PORTED)
+    """Returns q [B,H,S,Dq], k [B,Hkv,S,Dq], v [B,Hkv,S,Dv] with RoPE
+    applied, plus the MLA cache payload (latent, k_rope) or (None, None).
+
+    MLA (decoupled RoPE): q/k = [nope part | rope(rope part)]; the rope
+    part of k is one shared head derived from x beside the latent, so the
+    latent stays position-free and decode can absorb the up-projections
+    (DeepSeek-V2 §2.1)."""
     dh = cfg.head_dim_
     compute = torch_dtype(cfg.compute_dtype)
+    if cfg.kv_lora_rank:
+        r, dr = cfg.kv_lora_rank, cfg.qk_rope_dim
+        q_all = _split_heads(L.dense(params["q"], x, compute_dtype=compute), cfg.n_heads)
+        q_nope, q_rope = q_all[..., :dh], q_all[..., dh:]
+        down = L.dense(params["kv_down"], x, compute_dtype=compute)  # [B,S,r+dr]
+        latent, k_rope = down[..., :r], down[..., r:]
+        cos, sin = L.rope_tables(positions, dr, cfg.rope_theta)
+        cos, sin = _rope_broadcast(cos), _rope_broadcast(sin)
+        q_rope = L.apply_rope(q_rope, cos, sin)
+        k_rope_r = L.apply_rope(k_rope[:, None], cos, sin)  # [B,1,S,dr]
+        k_nope = _split_heads(L.dense(params["k_up"], latent, compute_dtype=compute), cfg.n_heads)
+        v = _split_heads(L.dense(params["v_up"], latent, compute_dtype=compute), cfg.n_heads)
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        k = torch.cat([k_nope, k_rope_r.expand(*k_nope.shape[:-1], dr)], dim=-1)
+        return q, k, v, (latent, k_rope_r[:, 0])
     q = _split_heads(L.dense(params["q"], x, compute_dtype=compute), cfg.n_heads)
     k = _split_heads(L.dense(params["k"], x, compute_dtype=compute), cfg.n_kv_heads)
     v = _split_heads(L.dense(params["v"], x, compute_dtype=compute), cfg.n_kv_heads)
@@ -210,9 +239,41 @@ def decode_attention(
     return torch.einsum("bhqk,bhkd->bhqd", p.to(v_cache.dtype), v_cache).to(q.dtype)
 
 
-def mla_decode_attention(*args, **kwargs):
-    """Matrix-absorbed MLA decode: waits for the MLA slice."""
-    raise NotImplementedError(MLA_NOT_PORTED)
+def mla_decode_attention(
+    params,
+    cfg: ModelConfig,
+    q_nope: torch.Tensor,  # [B,H,1,dh]
+    q_rope: torch.Tensor,  # [B,H,1,dr] (already rotated)
+    latent_cache: torch.Tensor,  # [B,S,r]
+    k_rope_cache: torch.Tensor,  # [B,S,dr] (already rotated)
+    cur_len: int,
+) -> torch.Tensor:
+    """Matrix-absorbed MLA decode: attention runs in latent space.
+
+    score_s = (W_uk^T q)^T . latent_s + q_rope . k_rope_s
+    out     = W_uv^T-projection of (sum_s p_s latent_s)
+
+    Per-token cost is O(S.r) instead of O(S.H.dh) with re-expansion; all
+    of it in f32, the result in q's dtype."""
+    b, h, _, dh = q_nope.shape
+    r, dr = cfg.kv_lora_rank, cfg.qk_rope_dim
+    f32 = torch.float32
+    w_ku = params["k_up"]["w"].reshape(r, h, dh).to(f32)
+    w_vu = params["v_up"]["w"].reshape(r, h, dh).to(f32)
+    scale = 1.0 / ((dh + dr) ** 0.5)
+    latent = latent_cache.to(f32)
+
+    q_lat = torch.einsum("bhqd,rhd->bhqr", q_nope.to(f32), w_ku)
+    logits = torch.einsum("bhqr,bsr->bhqs", q_lat, latent)
+    logits = logits + torch.einsum("bhqd,bsd->bhqs", q_rope.to(f32), k_rope_cache.to(f32))
+    logits = logits * scale
+    s = latent_cache.shape[1]
+    mask = torch.arange(s, device=q_nope.device)[None, None, None, :] < cur_len
+    logits = torch.where(mask, logits, NEG_INF)
+    p = torch.softmax(logits, dim=-1)
+    ctx_lat = torch.einsum("bhqs,bsr->bhqr", p, latent)
+    out = torch.einsum("bhqr,rhd->bhqd", ctx_lat, w_vu)
+    return out.to(q_nope.dtype)
 
 
 def attention_block(

@@ -1,11 +1,13 @@
-"""Decode-time state: KV caches (bf16, f32 or int8-quantized), structured
-per pattern position and stacked across scan groups.
+"""Decode-time state: KV caches (bf16, f32 or int8-quantized) and MLA
+latent caches, structured per pattern position and stacked across scan
+groups (the recurrent states of Mamba and xLSTM live beside them, in
+``repro_torch.models.lm``).
 
 int8 KV quantization (per token-head symmetric scale) halves the cache
 footprint and ties directly into the paper's quantized-operator story.
 
-Port of ``repro.models.cache`` for attention caches.  Two deliberate
-differences from the reference:
+Port of ``repro.models.cache``.  Two deliberate differences from the
+reference:
 
 * ``write_attn_cache`` writes in place, into the cache's own tensors
   (usually views of the stacked group caches), and returns the same dict.
@@ -15,8 +17,9 @@ differences from the reference:
   ``dynamic_update_slice`` clamps the start index instead, silently
   overwriting the last rows.
 
-The MLA latent cache (``kv_lora_rank``) waits for the MLA slice
-(ROADMAP Queue A item 5) and raises ``NotImplementedError``.
+The MLA cache keeps the reference's dtypes: ``k_rope`` is always
+bfloat16, whatever ``kv_cache_dtype`` says, and the latent is bfloat16
+when ``kv_cache_dtype`` is ``"int8"`` (it is never quantized).
 """
 
 from __future__ import annotations
@@ -27,13 +30,6 @@ import torch
 
 from repro_torch.kernels.ref import torch_dtype
 from repro_torch.models.config import ModelConfig
-
-#: what the MLA branches raise
-MLA_NOT_PORTED = (
-    "MLA compressed-KV attention (kv_lora_rank) is not ported yet: "
-    "ROADMAP.md Queue A item 5"
-)
-
 
 # ---------------------------------------------------------------------------
 # quantized KV storage
@@ -61,9 +57,15 @@ def dequantize_kv(q: torch.Tensor, scale: torch.Tensor, dtype=torch.bfloat16):
 def make_attn_cache(
     cfg: ModelConfig, batch: int, max_len: int, *, device=None, lead=()
 ) -> dict[str, Any]:
-    """Zeroed K/V (and int8 scale) tensors, [*lead, B, Hkv, max_len, D]."""
+    """Zeroed K/V (and int8 scale) tensors, [*lead, B, Hkv, max_len, D];
+    for MLA the latent [*lead, B, max_len, r] and k_rope [*lead, B,
+    max_len, dr]."""
     if cfg.kv_lora_rank:
-        raise NotImplementedError(MLA_NOT_PORTED)
+        latent_dtype = torch.bfloat16 if cfg.kv_cache_dtype == "int8" else torch_dtype(cfg.kv_cache_dtype)
+        return {
+            "latent": torch.zeros((*lead, batch, max_len, cfg.kv_lora_rank), dtype=latent_dtype, device=device),
+            "k_rope": torch.zeros((*lead, batch, max_len, cfg.qk_rope_dim), dtype=torch.bfloat16, device=device),
+        }
     dh = cfg.head_dim_
     kvd = torch.int8 if cfg.kv_cache_dtype == "int8" else torch_dtype(cfg.kv_cache_dtype)
     shape = (*lead, batch, cfg.n_kv_heads, max_len, dh)
@@ -88,12 +90,16 @@ def _write(dst: torch.Tensor, src: torch.Tensor, pos: int) -> None:
 
 
 def write_attn_cache(cfg: ModelConfig, cache: dict, k, v, mla_payload, pos: int):
-    """Insert keys/values at positions [pos, pos + S) in place (k/v are
-    [B, Hkv, S, D]); returns ``cache``.  Raises ``ValueError`` when the
-    rows do not fit."""
-    if cfg.kv_lora_rank:
-        raise NotImplementedError(MLA_NOT_PORTED)
+    """Insert keys/values (k/v [B, Hkv, S, D]), or the MLA payload
+    (latent [B, S, r], k_rope [B, S, dr]), at positions [pos, pos + S) in
+    place; returns ``cache``.  Raises ``ValueError`` when the rows do not
+    fit."""
     pos = int(pos)
+    if cfg.kv_lora_rank:
+        latent, k_rope = mla_payload
+        _write(cache["latent"], latent, pos)
+        _write(cache["k_rope"], k_rope, pos)
+        return cache
     if cfg.kv_cache_dtype == "int8":
         kq, ks = quantize_kv(k)
         vq, vs = quantize_kv(v)
@@ -106,9 +112,10 @@ def write_attn_cache(cfg: ModelConfig, cache: dict, k, v, mla_payload, pos: int)
 
 
 def read_attn_cache(cfg: ModelConfig, cache: dict, dtype=torch.bfloat16):
-    """Return dequantized (k, v); a float cache comes back in its own dtype."""
+    """Return dequantized (k, v), or the MLA payload (latent, k_rope); a
+    float cache comes back in its own dtype."""
     if cfg.kv_lora_rank:
-        raise NotImplementedError(MLA_NOT_PORTED)
+        return cache["latent"], cache["k_rope"]
     if cfg.kv_cache_dtype == "int8":
         return (
             dequantize_kv(cache["k"], cache["k_scale"], dtype),

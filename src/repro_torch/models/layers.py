@@ -137,6 +137,14 @@ def mlp(params, x: torch.Tensor, *, compute_dtype=None) -> torch.Tensor:
     return dense(params["down"], h, compute_dtype=compute_dtype)
 
 
+def chunk_len(s: int, target: int) -> int:
+    """The chunk length of a sequence of ``s`` that the chunked Mamba and
+    mLSTM forms run at: ``target`` (at most ``s``) where it divides ``s``,
+    else the whole sequence as one chunk, as the reference does."""
+    c = min(target, s)
+    return s if s % c else c
+
+
 # ---------------------------------------------------------------------------
 
 

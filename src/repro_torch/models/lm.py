@@ -1,22 +1,27 @@
 """LM assembly: embedding -> pattern-grouped blocks -> norm -> head.
 
-Layers are organized as ``n_groups`` repeats of ``cfg.pattern``; the
+Layers are organized as ``n_groups`` repeats of ``cfg.pattern`` (a tuple
+of block kinds: ``attn``, ``mamba``, ``mlstm``, ``slstm``); the
 parameters of the repeats are stacked along axis 0 (``params["groups"]``),
-and prefix layers (``params["prefix"]``, a list) sit outside the stack.
-Where the reference scans over the groups, the port loops over ``g`` and
-indexes each stacked tensor, so a reference parameter tree converts leaf
-by leaf (``params_from_numpy``).
+and DeepSeek-style "first k layers dense" prefix layers
+(``params["prefix"]``, a list) sit outside the stack.  Where the
+reference scans over the groups, the port loops over ``g`` and indexes
+each stacked tensor, so a reference parameter tree converts leaf by leaf
+(``params_from_numpy``).
 
 Three entry points mirror the shape cells: ``forward``, ``prefill``
 (fill the caches, last-position logits) and ``decode_step`` (one token).
+A modality frontend's embeddings ([B, Nf, d], vision patches or audio
+frames) are prepended to the token embeddings by ``forward`` and
+``prefill``, as in the reference.
 
-Port of ``repro.models.lm`` for the dense family: ``pattern == ("attn",)``
-with no MoE, no MLA and no modality frontend.  Any other block kind, MoE,
-MLA or a frontend raises ``NotImplementedError`` (ROADMAP Queue A item
-5).  ``jax.checkpoint`` (training only) and the sharding ``constrain``
-calls are left out; the serving path runs under ``torch.inference_mode``.
-The cache is written in place (``repro_torch.models.cache``): ``prefill``
-and ``decode_step`` return the cache they were given, updated.
+Port of ``repro.models.lm``.  ``jax.checkpoint`` (training only) and the
+sharding ``constrain`` calls are left out; the serving path runs under
+``torch.inference_mode``.  The caches are written in place: the KV and
+MLA caches by ``repro_torch.models.cache``, the Mamba and xLSTM states
+(stacked over the groups like the KV cache) by copying each block's new
+state into them; ``prefill`` and ``decode_step`` return the cache they
+were given, updated.
 """
 
 from __future__ import annotations
@@ -31,28 +36,10 @@ from repro_torch.kernels.ref import torch_dtype
 from repro_torch.models import attention as A
 from repro_torch.models import cache as C
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
+from repro_torch.models import ssm as S
+from repro_torch.models import xlstm as X
 from repro_torch.models.config import ModelConfig
-
-NOT_PORTED = "ROADMAP.md Queue A item 5"
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` unless ``cfg`` is a dense LM that the
-    port runs: attention blocks only, no MoE, no MLA, no frontend."""
-    problems = []
-    if any(kind != "attn" for kind in cfg.pattern):
-        problems.append(f"block kinds {sorted(set(cfg.pattern) - {'attn'})}")
-    if cfg.moe is not None:
-        problems.append("MoE layers")
-    if cfg.kv_lora_rank:
-        problems.append("MLA attention (kv_lora_rank)")
-    if cfg.frontend:
-        problems.append(f"the {cfg.frontend} frontend")
-    if problems:
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}) needs {', '.join(problems)}, which the "
-            f"port does not run yet: {NOT_PORTED}"
-        )
 
 
 # ---------------------------------------------------------------------------
@@ -60,12 +47,32 @@ def check_supported(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _init_layer(gen, cfg: ModelConfig, dtype, lead=()):
-    p: dict[str, Any] = {
-        "ln1": L.init_rmsnorm(cfg.d_model, dtype, device=gen.device, lead=lead),
-        "block": A.init_attention(gen, cfg, dtype, lead=lead),
-    }
-    if cfg.d_ff:
+def _position_is_moe(cfg: ModelConfig, pos: int) -> bool:
+    m = cfg.moe
+    if m is None:
+        return False
+    p = len(cfg.pattern)
+    if not (p % m.every == 0 or m.every % p == 0 or m.every == 1):
+        raise ValueError(f"{cfg.name}: MoE periodicity must align with the pattern for stacking")
+    return pos >= m.offset and (pos - m.offset) % m.every == 0
+
+
+def _init_layer(gen, cfg: ModelConfig, kind: str, is_moe: bool, dtype, lead=()):
+    p: dict[str, Any] = {"ln1": L.init_rmsnorm(cfg.d_model, dtype, device=gen.device, lead=lead)}
+    if kind == "attn":
+        p["block"] = A.init_attention(gen, cfg, dtype, lead=lead)
+    elif kind == "mamba":
+        p["block"] = S.init_mamba(gen, cfg, dtype, lead=lead)
+    elif kind == "mlstm":
+        p["block"] = X.init_mlstm(gen, cfg, dtype, lead=lead)
+    elif kind == "slstm":
+        p["block"] = X.init_slstm(gen, cfg, dtype, lead=lead)
+    else:
+        raise ValueError(kind)
+    if is_moe:
+        p["ln2"] = L.init_rmsnorm(cfg.d_model, dtype, device=gen.device, lead=lead)
+        p["ffn"] = M.init_moe(gen, cfg, dtype, lead=lead)
+    elif cfg.d_ff:
         p["ln2"] = L.init_rmsnorm(cfg.d_model, dtype, device=gen.device, lead=lead)
         p["ffn"] = L.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype, kind=cfg.mlp_kind, lead=lead)
     return p
@@ -83,11 +90,18 @@ def n_scan_groups(cfg: ModelConfig) -> int:
     return n // p
 
 
+def layer_kinds(cfg: ModelConfig) -> list[tuple[str, bool]]:
+    """(block kind, MoE FFN) of each layer in order: the prefix, then the
+    groups position by position."""
+    prefix = [(cfg.layer_kind(i), False) for i in range(n_prefix_layers(cfg))]
+    group = [(kind, _position_is_moe(cfg, p)) for p, kind in enumerate(cfg.pattern)]
+    return prefix + group * n_scan_groups(cfg)
+
+
 def init_lm(seed: int, cfg: ModelConfig, *, device="cuda"):
     """Random parameters in ``cfg.param_dtype`` on ``device`` (the card by
     default), drawn from a ``torch.Generator`` seeded with ``seed`` on that
     device: each tensor in float32, one at a time, then cast."""
-    check_supported(cfg)
     dev = torch_device(device, "init_lm")
     dtype = torch_dtype(cfg.param_dtype)
     gen = torch.Generator(device=dev)
@@ -98,9 +112,14 @@ def init_lm(seed: int, cfg: ModelConfig, *, device="cuda"):
     }
     if not cfg.tie_embeddings:
         params["head"] = L.init_dense(gen, cfg.d_model, cfg.vocab, dtype=dtype)
-    params["prefix"] = [_init_layer(gen, cfg, dtype) for _ in range(n_prefix_layers(cfg))]
+    params["prefix"] = [
+        _init_layer(gen, cfg, cfg.layer_kind(i), False, dtype) for i in range(n_prefix_layers(cfg))
+    ]
     lead = (n_scan_groups(cfg),)
-    params["groups"] = {f"pos{p}": _init_layer(gen, cfg, dtype, lead) for p in range(len(cfg.pattern))}
+    params["groups"] = {
+        f"pos{p}": _init_layer(gen, cfg, kind, _position_is_moe(cfg, p), dtype, lead)
+        for p, kind in enumerate(cfg.pattern)
+    }
     return params
 
 
@@ -125,7 +144,6 @@ def params_from_numpy(tree, cfg: ModelConfig, *, device, dtype=None):
     """The reference's ``init_lm`` parameter tree, with numpy leaves, as
     the port's: the same nesting, each leaf a tensor on ``device`` (in
     ``dtype`` when given, else the leaf's own)."""
-    check_supported(cfg)
     ng = n_scan_groups(cfg)
     for kind_params in tree["groups"].values():
         lead = np.asarray(kind_params["ln1"]["scale"]).shape[0]
@@ -141,6 +159,22 @@ def _group(tree, g: int):
     return _tree_map(lambda t: t[g], tree)
 
 
+def _stacked(tree, cfg: ModelConfig):
+    """Each entry of a prefix + stacked-groups tree (parameters or caches)
+    in layer order (views of the stacked tensors)."""
+    yield from tree["prefix"]
+    for g in range(n_scan_groups(cfg)):
+        grp = _group(tree["groups"], g)
+        for p in range(len(cfg.pattern)):
+            yield grp[f"pos{p}"]
+
+
+def iter_layers(params, cfg: ModelConfig):
+    """(parameters, block kind, MoE FFN) of each layer in order."""
+    for lp, (kind, is_moe) in zip(_stacked(params, cfg), layer_kinds(cfg), strict=True):
+        yield lp, kind, is_moe
+
+
 def _head(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     compute = torch_dtype(cfg.compute_dtype)
     if cfg.tie_embeddings:
@@ -153,37 +187,40 @@ def _head(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _ffn(lp, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    if "ffn" in lp:
-        h2 = L.rmsnorm(lp["ln2"], x, cfg.norm_eps)
-        x = x + L.mlp(lp["ffn"], h2, compute_dtype=torch_dtype(cfg.compute_dtype))
-    return x
+def _ffn(lp, cfg: ModelConfig, is_moe: bool, x: torch.Tensor):
+    """The residual FFN sub-layer (dense MLP or MoE) -> (x, aux loss or None)."""
+    if "ffn" not in lp:
+        return x, None
+    h2 = L.rmsnorm(lp["ln2"], x, cfg.norm_eps)
+    if is_moe:
+        f, aux = M.moe_ffn(lp["ffn"], cfg, h2)
+        return x + f, aux
+    return x + L.mlp(lp["ffn"], h2, compute_dtype=torch_dtype(cfg.compute_dtype)), None
 
 
-def _apply_layer_train(lp, cfg: ModelConfig, x, positions, *, block_skip=False):
+def _apply_layer_train(lp, cfg: ModelConfig, kind: str, is_moe: bool, x, positions, *, block_skip=False):
     h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
-    x = x + A.attention_block(lp["block"], cfg, h, positions, block_skip=block_skip)
-    return _ffn(lp, cfg, x)
+    if kind == "attn":
+        y = A.attention_block(lp["block"], cfg, h, positions, block_skip=block_skip)
+    elif kind == "mamba":
+        y, _ = S.mamba_block(lp["block"], cfg, h)
+    elif kind == "mlstm":
+        y = X.mlstm_block(lp["block"], cfg, h)
+    elif kind == "slstm":
+        y, _ = X.slstm_block(lp["block"], cfg, h)
+    else:
+        raise ValueError(kind)
+    return _ffn(lp, cfg, is_moe, x + y)
 
 
 def _embed_inputs(params, cfg: ModelConfig, tokens, frontend_embeds):
-    if frontend_embeds is not None:
-        raise NotImplementedError(f"modality frontends are not ported yet: {NOT_PORTED}")
+    """Token embeddings in the compute dtype, a frontend's embeddings
+    prepended where the config has a frontend, and their positions."""
     x = L.embed(params["embed"], tokens).to(torch_dtype(cfg.compute_dtype))
+    if cfg.frontend and frontend_embeds is not None:
+        x = torch.cat([frontend_embeds.to(device=x.device, dtype=x.dtype), x], dim=1)
     positions = torch.arange(x.shape[1], device=x.device)
     return x, positions
-
-
-def _layers(params):
-    """Each layer's parameters in order: the prefix, then group by group
-    (views of the stacked tensors)."""
-    yield from params["prefix"]
-    stacked = params["groups"]
-    first = next(iter(stacked.values()))
-    for g in range(first["ln1"]["scale"].shape[0]):
-        grp = _group(stacked, g)
-        for p in range(len(grp)):
-            yield grp[f"pos{p}"]
 
 
 def forward(
@@ -194,14 +231,18 @@ def forward(
     *,
     block_skip: bool = False,
 ):
-    """tokens [B, S] -> (logits [B, S, V] f32, aux_loss)."""
-    check_supported(cfg)
+    """tokens [B, S] (+ frontend embeds [B, Nf, d]) -> (logits [B, Nf + S,
+    V] f32, aux loss: the sum of the MoE layers' load-balance losses,
+    f32)."""
     x, positions = _embed_inputs(params, cfg, tokens, frontend_embeds)
-    for lp in _layers(params):
-        x = _apply_layer_train(lp, cfg, x, positions, block_skip=block_skip)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for lp, kind, is_moe in iter_layers(params, cfg):
+        x, a = _apply_layer_train(lp, cfg, kind, is_moe, x, positions, block_skip=block_skip)
+        if a is not None:  # an MoE layer (never a prefix layer)
+            aux = aux + a
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = _head(params, cfg, x)
-    return logits.to(torch.float32), torch.zeros((), dtype=torch.float32, device=x.device)
+    return logits.to(torch.float32), aux
 
 
 # ---------------------------------------------------------------------------
@@ -209,43 +250,67 @@ def forward(
 # ---------------------------------------------------------------------------
 
 
+def _empty_layer_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int, device, lead=()):
+    if kind == "attn":
+        return C.make_attn_cache(cfg, batch, max_len, device=device, lead=lead)
+    if kind == "mamba":
+        dt = torch_dtype(cfg.compute_dtype)
+        return S.init_mamba_state(cfg, batch, dt, device=device, lead=lead)._asdict()
+    if kind == "mlstm":
+        return X.init_mlstm_state(cfg, batch, device=device, lead=lead)._asdict()
+    if kind == "slstm":
+        return X.init_slstm_state(cfg, batch, device=device, lead=lead)._asdict()
+    raise ValueError(kind)
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device):
     """Allocate the full decode cache (prefix + stacked groups) on
-    ``device``; ``len`` is the number of positions filled."""
-    check_supported(cfg)
+    ``device``: a KV (or MLA) cache per attention layer, a recurrent state
+    per Mamba / xLSTM layer; ``len`` is the number of positions filled."""
     dev = torch.device(device)
-    prefix = [C.make_attn_cache(cfg, batch, max_len, device=dev) for _ in range(n_prefix_layers(cfg))]
+    prefix = [
+        _empty_layer_cache(cfg, cfg.layer_kind(i), batch, max_len, dev)
+        for i in range(n_prefix_layers(cfg))
+    ]
     lead = (n_scan_groups(cfg),)
     groups = {
-        f"pos{p}": C.make_attn_cache(cfg, batch, max_len, device=dev, lead=lead)
-        for p in range(len(cfg.pattern))
+        f"pos{p}": _empty_layer_cache(cfg, kind, batch, max_len, dev, lead)
+        for p, kind in enumerate(cfg.pattern)
     }
     return {"prefix": prefix, "groups": groups, "len": 0}
 
 
-def _layer_caches(cache):
-    """Each layer's cache views, in the order of ``_layers``."""
-    yield from cache["prefix"]
-    stacked = cache["groups"]
-    first = next(iter(stacked.values()))
-    for g in range(first["k"].shape[0]):
-        grp = _group(stacked, g)
-        for p in range(len(grp)):
-            yield grp[f"pos{p}"]
+def _store_state(lcache: dict, state) -> None:
+    """Write a recurrent block's new state into its cache views in place."""
+    for name, t in state._asdict().items():
+        lcache[name].copy_(t)
 
 
-def _apply_layer_prefill(lp, cfg: ModelConfig, x, positions, lcache, start: int):
-    """Like the train apply, but fills the layer cache at ``start``."""
+def _apply_layer_prefill(lp, cfg: ModelConfig, kind, is_moe, x, positions, lcache, start: int):
+    """Like the train apply, but fills the layer cache (a KV cache at
+    ``start``, or a recurrent state)."""
     h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
-    q, k, v, mla = A.qkv_project(lp["block"], cfg, h, positions)
-    window = cfg.window if cfg.attn_kind == "swa" else 0
-    out = A.blockwise_attention(
-        q, k, v, causal=True, window=window, chunk_q=cfg.attn_chunk, chunk_kv=cfg.attn_chunk
-    )
-    compute = torch_dtype(cfg.compute_dtype)
-    x = x + L.dense(lp["block"]["o"], A._merge_heads(out), compute_dtype=compute)
-    C.write_attn_cache(cfg, lcache, k, v, mla, start)
-    return _ffn(lp, cfg, x)
+    if kind == "attn":
+        q, k, v, mla = A.qkv_project(lp["block"], cfg, h, positions)
+        window = cfg.window if cfg.attn_kind == "swa" else 0
+        out = A.blockwise_attention(
+            q, k, v, causal=True, window=window, chunk_q=cfg.attn_chunk, chunk_kv=cfg.attn_chunk
+        )
+        compute = torch_dtype(cfg.compute_dtype)
+        y = L.dense(lp["block"]["o"], A._merge_heads(out), compute_dtype=compute)
+        C.write_attn_cache(cfg, lcache, k, v, mla, start)
+    elif kind == "mamba":
+        y, st = S.mamba_block(lp["block"], cfg, h, S.MambaState(**lcache))
+        _store_state(lcache, st)
+    elif kind == "mlstm":
+        y, st = X.mlstm_prefill(lp["block"], cfg, h, X.MLSTMState(**lcache), chunk=cfg.attn_chunk)
+        _store_state(lcache, st)
+    elif kind == "slstm":
+        y, st = X.slstm_block(lp["block"], cfg, h, X.SLSTMState(**lcache))
+        _store_state(lcache, st)
+    else:
+        raise ValueError(kind)
+    return _ffn(lp, cfg, is_moe, x + y)[0]
 
 
 def prefill(
@@ -255,45 +320,62 @@ def prefill(
     cache,
     frontend_embeds: torch.Tensor | None = None,
 ):
-    """Run the prompt, filling ``cache`` (built by ``init_cache``) in
-    place.  Returns (last-position logits [B, 1, V] f32, cache).  As in the
-    reference, the prompt's positions count from 0 whatever ``cache["len"]``."""
-    check_supported(cfg)
+    """Run the prompt (after the frontend's embeddings, if any), filling
+    ``cache`` (built by ``init_cache``) in place.  Returns (last-position
+    logits [B, 1, V] f32, cache).  As in the reference, the prompt's
+    positions count from 0 whatever ``cache["len"]``."""
     x, positions = _embed_inputs(params, cfg, tokens, frontend_embeds)
     start = cache["len"]
-    for lp, lcache in zip(_layers(params), _layer_caches(cache), strict=True):
-        x = _apply_layer_prefill(lp, cfg, x, positions, lcache, start)
+    for (lp, kind, is_moe), lcache in zip(iter_layers(params, cfg), _stacked(cache, cfg), strict=True):
+        x = _apply_layer_prefill(lp, cfg, kind, is_moe, x, positions, lcache, start)
     x = L.rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
     logits = _head(params, cfg, x)
     cache["len"] = start + positions.shape[0]
     return logits.to(torch.float32), cache
 
 
-def _apply_layer_decode(lp, cfg: ModelConfig, x, lcache, cur_len: int, positions):
+def _apply_layer_decode(lp, cfg: ModelConfig, kind, is_moe, x, lcache, cur_len: int, positions):
     """One-token step.  x [B,1,d]; cur_len = tokens already in the cache,
     ``positions`` = [cur_len], this token's position."""
     h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
     compute = torch_dtype(cfg.compute_dtype)
-    q, k, v, mla = A.qkv_project(lp["block"], cfg, h, positions)
-    C.write_attn_cache(cfg, lcache, k, v, mla, cur_len)
-    window = cfg.window if cfg.attn_kind == "swa" else 0
-    kc, vc = C.read_attn_cache(cfg, lcache, compute)
-    out = A.decode_attention(q, kc, vc, cur_len + 1, window=window)
-    x = x + L.dense(lp["block"]["o"], A._merge_heads(out), compute_dtype=compute)
-    return _ffn(lp, cfg, x)
+    if kind == "attn":
+        q, k, v, mla = A.qkv_project(lp["block"], cfg, h, positions)
+        C.write_attn_cache(cfg, lcache, k, v, mla, cur_len)
+        if cfg.kv_lora_rank:
+            dh = cfg.head_dim_
+            out = A.mla_decode_attention(
+                lp["block"], cfg, q[..., :dh], q[..., dh:], lcache["latent"], lcache["k_rope"], cur_len + 1
+            )
+        else:
+            window = cfg.window if cfg.attn_kind == "swa" else 0
+            kc, vc = C.read_attn_cache(cfg, lcache, compute)
+            out = A.decode_attention(q, kc, vc, cur_len + 1, window=window)
+        y = L.dense(lp["block"]["o"], A._merge_heads(out), compute_dtype=compute)
+    elif kind == "mamba":
+        y, st = S.mamba_decode_step(lp["block"], cfg, h, S.MambaState(**lcache))
+        _store_state(lcache, st)
+    elif kind == "mlstm":
+        y, st = X.mlstm_decode_step(lp["block"], cfg, h, X.MLSTMState(**lcache))
+        _store_state(lcache, st)
+    elif kind == "slstm":
+        y, st = X.slstm_decode_step(lp["block"], cfg, h, X.SLSTMState(**lcache))
+        _store_state(lcache, st)
+    else:
+        raise ValueError(kind)
+    return _ffn(lp, cfg, is_moe, x + y)[0]
 
 
 def decode_step(params, cfg: ModelConfig, cache, token: torch.Tensor):
     """token [B, 1] -> (logits [B, 1, V] f32, cache), the cache updated in
     place."""
-    check_supported(cfg)
     cur_len = cache["len"]
     x = L.embed(params["embed"], token).to(torch_dtype(cfg.compute_dtype))
     # made on the device (no host-to-device copy, which would wait for the
     # queued work)
     positions = torch.arange(cur_len, cur_len + 1, device=x.device)
-    for lp, lcache in zip(_layers(params), _layer_caches(cache), strict=True):
-        x = _apply_layer_decode(lp, cfg, x, lcache, cur_len, positions)
+    for (lp, kind, is_moe), lcache in zip(iter_layers(params, cfg), _stacked(cache, cfg), strict=True):
+        x = _apply_layer_decode(lp, cfg, kind, is_moe, x, lcache, cur_len, positions)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = _head(params, cfg, x)
     cache["len"] = cur_len + 1

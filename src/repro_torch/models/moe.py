@@ -1,0 +1,117 @@
+"""Mixture-of-Experts FFN with GShard-style capacity dispatch.
+
+Tokens are routed to their top-k experts; each expert takes at most C
+tokens (GShard's capacity, C = max(ceil(T·k·cf / E), min(T, 16)), so tiny
+decode batches never drop), a token's slot in an expert is its rank among
+the (token, choice) pairs routed there in token-major, choice-minor order,
+and the pairs past capacity are dropped.  Shared experts (DeepSeek) run
+densely alongside.
+
+Port of ``repro.models.moe`` (``init_moe``, ``moe_ffn``).  The reference
+groups the tokens by data shard (G = the activation policy's dp size) and
+pins layouts with ``constrain``; on one card there is one group (G = 1,
+what the reference's ``_num_groups`` gives without a policy) and no
+layout to pin, so both are left out.  The slot fill, a scatter-max in
+the reference (``buf.at[e, p].max``), is ``scatter_reduce_(..., "amax")``:
+only dropped pairs collide, all at slot C - 1 with value 0, so the max
+keeps the kept token.  The router's ``dense`` takes f32 input and f32
+weights and so is routed to the kernel's f32 form under
+``scheduled_kernels``; the shared experts go through ``layers.mlp`` and
+are routed too; the expert products are batched matmuls outside any
+kernel, as in the reference, where they are einsums outside Pallas.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.ref import torch_dtype
+from repro_torch.models import layers as L
+from repro_torch.models.config import ModelConfig, MoEConfig
+
+
+def init_moe(gen, cfg: ModelConfig, dtype=torch.float32, *, lead=()):
+    m = cfg.moe
+    d, ff, e = cfg.d_model, m.d_ff_expert, m.n_experts
+    scale = (2.0 / (d + ff)) ** 0.5
+    # each expert's matrix drawn on its own (lead + expert), as one tensor
+    params = {
+        "router": L.init_dense(gen, d, e, dtype=torch.float32, lead=lead),
+        "gate": L.draw_normal(gen, (d, ff), scale, dtype, (*lead, e)),
+        "up": L.draw_normal(gen, (d, ff), scale, dtype, (*lead, e)),
+        "down": L.draw_normal(gen, (ff, d), scale, dtype, (*lead, e)),
+    }
+    if m.n_shared_experts:
+        params["shared"] = L.init_mlp(gen, d, ff * m.n_shared_experts, dtype, lead=lead)
+    return params
+
+
+def capacity(m: MoEConfig, t: int) -> int:
+    """Slots per expert for ``t`` tokens (the reference's formula)."""
+    return int(max(-(-t * m.top_k * m.capacity_factor // m.n_experts), min(t, 16)))
+
+
+def route(params, cfg: ModelConfig, xt: torch.Tensor):
+    """[T, d] -> (weights [T, k] f32, expert ids [T, k], aux loss): the f32
+    router, its softmax, the top-k renormalized, the load-balance loss."""
+    m: MoEConfig = cfg.moe
+    logits = L.dense(params["router"], xt.to(torch.float32))  # [T, E]
+    probs = torch.softmax(logits, dim=-1)
+    weights, idx = torch.topk(probs, m.top_k, dim=-1)
+    weights = weights / torch.clamp_min(weights.sum(-1, keepdim=True), 1e-9)
+    density = torch.nn.functional.one_hot(idx[:, 0], m.n_experts).to(torch.float32).mean(0)
+    aux = m.n_experts * torch.sum(density * probs.mean(0)) * m.aux_loss_weight
+    return weights, idx, aux
+
+
+def dispatch(idx: torch.Tensor, n_experts: int, cap: int):
+    """Slots of the flattened [T·k] (token, choice) pairs: (position within
+    the expert, kept, slot -> source token + 1 as [E, C] with 0 = empty)."""
+    t, k = idx.shape
+    flat = idx.reshape(-1)
+    onehot = torch.nn.functional.one_hot(flat, n_experts).to(torch.int32)  # [T*k, E]
+    pos = ((torch.cumsum(onehot, dim=0) - onehot) * onehot).sum(-1)  # [T*k]
+    keep = pos < cap
+    safe_pos = torch.where(keep, pos, torch.full_like(pos, cap - 1))
+    token_of = torch.arange(t, device=idx.device).repeat_interleave(k)
+    src = torch.where(keep, token_of + 1, torch.zeros_like(token_of))
+    slot_src = torch.zeros(n_experts * cap, dtype=src.dtype, device=idx.device)
+    slot_src.scatter_reduce_(0, flat * cap + safe_pos, src, "amax", include_self=True)
+    return safe_pos, keep, slot_src.reshape(n_experts, cap)
+
+
+def moe_ffn(params, cfg: ModelConfig, x: torch.Tensor):
+    """x [B, S, d] -> ([B, S, d], aux load-balance loss)."""
+    m: MoEConfig = cfg.moe
+    b, s, d = x.shape
+    t = b * s
+    e, k = m.n_experts, m.top_k
+    compute = torch_dtype(cfg.compute_dtype)
+    xt = x.reshape(t, d)
+
+    weights, idx, aux = route(params, cfg, xt)
+    cap = capacity(m, t)
+    safe_pos, keep, slot_src = dispatch(idx, e, cap)
+    slot_valid = slot_src > 0
+    slot_tok = torch.clamp_min(slot_src - 1, 0)
+
+    # gather into the expert buffers [E, C, d]
+    buf = xt[slot_tok.reshape(-1)].reshape(e, cap, d)
+    buf = torch.where(slot_valid[..., None], buf, torch.zeros((), dtype=buf.dtype, device=buf.device))
+    buf = buf.to(compute)
+
+    # expert SwiGLU
+    gate = torch.bmm(buf, params["gate"].to(compute))
+    up = torch.bmm(buf, params["up"].to(compute))
+    h = torch.nn.functional.silu(gate.to(torch.float32)).to(compute) * up
+    out_buf = torch.bmm(h, params["down"].to(compute))  # [E, C, d]
+
+    # combine: each (token, choice)'s slot back, weighted, summed over k
+    gathered = out_buf[idx.reshape(-1), safe_pos]  # [T*k, d]
+    gathered = torch.where(keep[:, None], gathered, torch.zeros((), dtype=gathered.dtype, device=x.device))
+    mixed = (gathered.reshape(t, k, d) * weights.reshape(t, k, 1).to(compute)).sum(1)
+
+    if m.n_shared_experts:
+        mixed = mixed + L.mlp(params["shared"], xt, compute_dtype=compute)
+
+    return mixed.reshape(b, s, d).to(x.dtype), aux

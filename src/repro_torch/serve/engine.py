@@ -61,7 +61,6 @@ class ServingEngine:
             "repro_torch.serve.ServingEngine",
             "repro_torch.serve.ContinuousBatchingEngine (the compiled decode path)",
         )
-        lm.check_supported(cfg)
         self.cfg = cfg
         self.params = params
         self.scfg = serve_cfg

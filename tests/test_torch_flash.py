@@ -180,8 +180,3 @@ def test_heads_split_and_merge_like_the_reference():
     split = attention._split_heads(torch.from_numpy(x), 3)
     np.testing.assert_array_equal(split.numpy(), np.asarray(ref_attention._split_heads(jnp.asarray(x), 3)))
     np.testing.assert_array_equal(attention._merge_heads(split).numpy(), x)
-
-
-def test_mla_decode_is_not_ported():
-    with pytest.raises(NotImplementedError, match="Queue A item 5"):
-        attention.mla_decode_attention()

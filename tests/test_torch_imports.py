@@ -27,6 +27,7 @@ SERVING_MODULES = (
     "repro_torch.serve.microbatch",
     "repro_torch.launch.serve",
     "repro_torch.core.descriptions.edge_npu",
+    "repro_torch.core.descriptions.tpu_v5e",
 )
 
 
@@ -52,6 +53,9 @@ LM_MODULES = (
     "repro_torch.models.flash",
     "repro_torch.models.attention",
     "repro_torch.models.lm",
+    "repro_torch.models.moe",
+    "repro_torch.models.ssm",
+    "repro_torch.models.xlstm",
     "repro_torch.configs",
     *(f"repro_torch.configs.{arch}" for arch in (
         "paligemma_3b", "mixtral_8x7b", "deepseek_v2_236b", "qwen1_5_32b", "granite_34b",
@@ -204,7 +208,8 @@ def test_lm_modules_are_checked_files():
 
 
 def test_lm_path_runs_with_jax_blocked():
-    """Every config, and the smoke LM served with its GEMMs routed through
+    """Every config, a forward of each new block kind's smoke arch, and the
+    smoke LM served with its GEMMs routed through
     the scheduled kernel's policy, in a process where importing jax or
     repro fails."""
     code = (
@@ -216,6 +221,14 @@ def test_lm_path_runs_with_jax_blocked():
         "    importlib.import_module(name)\n"
         "from repro_torch.configs import all_configs\n"
         "assert len(all_configs()) == 10\n"
+        "import torch\n"
+        "from repro_torch.configs import get_smoke_config\n"
+        "from repro_torch.models import lm\n"
+        "for arch in ('jamba_v0_1_52b', 'xlstm_125m', 'deepseek_v2_236b'):\n"
+        "    cfg = get_smoke_config(arch)\n"
+        "    logits, _ = lm.forward(lm.init_lm(0, cfg, device='cpu'), cfg,\n"
+        "                           torch.zeros((1, 4), dtype=torch.int32))\n"
+        "    assert logits.shape == (1, 4, cfg.vocab)\n"
         "from repro_torch.core.configurators import build_backend\n"
         "from repro_torch.core.descriptions import make_gemmini_description\n"
         "from repro_torch.kernels.policy import scheduled_kernels\n"

@@ -105,12 +105,24 @@ def test_temperature_sampling_is_seeded_by_the_step():
 
 
 def test_engine_serves_on_the_params_device_and_refuses_other_families():
+    """The engine serves on its parameters' device, and serves the MoE
+    family too: mixtral's smoke config (sliding-window attention, every
+    layer MoE), greedy tokens equal to the reference engine's."""
     cfg = get_smoke_config("qwen1_5_32b")
     with pytest.warns(ReproDeprecationWarning):
         engine = ServingEngine(cfg, lm.init_lm(0, cfg, device="cpu"), ServeConfig(batch=1, max_len=8))
     assert engine.device == torch.device("cpu")
-    with pytest.warns(ReproDeprecationWarning), pytest.raises(NotImplementedError, match="Queue A item 5"):
-        ServingEngine(get_smoke_config("mixtral_8x7b"), {}, ServeConfig())
+    ref_cfg, cfg = ref_get_smoke_config("mixtral_8x7b"), get_smoke_config("mixtral_8x7b")
+    ref_params = ref_lm.init_lm(jax.random.key(0), ref_cfg)
+    params = lm.params_from_numpy(jax.tree.map(np.asarray, ref_params), cfg, device="cpu")
+    scfg = dict(batch=2, max_len=16, max_new_tokens=4)
+    prompts = _prompts(cfg, (6, 4, 7), seed=1)
+    with pytest.warns(RefDeprecationWarning):
+        want = ref_engine.ServingEngine(ref_cfg, ref_params, ref_engine.ServeConfig(**scfg)).generate(prompts)
+    with pytest.warns(ReproDeprecationWarning):
+        got = ServingEngine(cfg, params, ServeConfig(**scfg)).generate(prompts)
+    assert [r.output for r in got] == [r.output for r in want]
+    assert all(len(r.output) == 4 and r.done for r in got)
 
 
 def test_serve_lm_returns_what_it_served(capsys):
@@ -125,6 +137,30 @@ def test_serve_lm_returns_what_it_served(capsys):
     assert result.tokens_per_s > 0
     out = capsys.readouterr().out
     assert "[serve] granite-34b on cpu: 3 requests, 9 tokens" in out
+
+
+@pytest.mark.parametrize("arch", ["jamba_v0_1_52b", "xlstm_125m", "deepseek_v2_236b"])
+def test_serve_lm_serves_every_block_kind(arch, capsys):
+    """``serve --arch <arch> --smoke``: Mamba, attention and MoE (jamba),
+    mLSTM and sLSTM (xlstm), MLA with shared experts (deepseek)."""
+    args = serve.build_parser().parse_args(
+        ["--arch", arch, "--smoke", "--device", "cpu", "--requests", "2", "--batch", "2",
+         "--prompt-len", "5", "--new-tokens", "3"]
+    )
+    with pytest.warns(ReproDeprecationWarning):
+        result = serve.serve_lm(args)
+    assert [len(r.output) for r in result.requests] == [3, 3]
+    assert all(0 <= t < result.cfg.vocab for r in result.requests for t in r.output)
+    assert f"[serve] {result.cfg.name} on cpu: 2 requests, 6 tokens" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch", ["musicgen_medium", "paligemma_3b"])
+def test_serve_lm_refuses_the_frontend_archs(arch):
+    """As the reference's CLI: an arch that needs frontend embeddings is
+    not served from text prompts."""
+    args = serve.build_parser().parse_args(["--arch", arch, "--smoke", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="needs frontend embeddings; use a text arch for the demo"):
+        serve.serve_lm(args)
 
 
 def test_serve_cli_arch_smoke_runs_on_the_cpu(tmp_path):

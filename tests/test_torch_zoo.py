@@ -22,10 +22,11 @@ import pytest
 import repro
 from repro.core import zoo as ref_zoo
 from repro.core.descriptions import make_edge_npu_description as ref_edge_npu
+from repro.core.descriptions import make_tpu_v5e_description as ref_tpu_v5e
 from repro.core.lowering import kernel_config_for as ref_kernel_config_for
 import repro_torch
 from repro_torch.core import zoo
-from repro_torch.core.descriptions import make_edge_npu_description
+from repro_torch.core.descriptions import make_edge_npu_description, make_tpu_v5e_description
 from repro_torch.core.lowering import kernel_config_for
 from repro_torch.kernels import gemm
 
@@ -155,13 +156,19 @@ def test_bad_parameter_dict_is_refused(name):
 
 
 def test_registry_holds_gemmini_and_edge_npu():
-    assert repro_torch.REGISTRY.names() == ["edge_npu", "gemmini"]
+    """All three of the reference's descriptions are registered, with the
+    reference's fingerprints; an unknown name lists them."""
+    assert repro_torch.REGISTRY.names() == repro.REGISTRY.names() == ["edge_npu", "gemmini", "tpu_v5e"]
     assert make_edge_npu_description().fingerprint() == ref_edge_npu().fingerprint()
-    assert repro_torch.validate_description(make_edge_npu_description()) == []
-    with pytest.raises(KeyError, match="unknown accelerator 'tpu_v5e'; registered: edge_npu, gemmini"):
-        repro_torch.REGISTRY.get("tpu_v5e")
-    with pytest.raises(repro_torch.TargetError, match="registered: edge_npu, gemmini"):
-        repro_torch.Target("tpu_v5e", device="cpu", cache=False)
+    assert make_tpu_v5e_description().fingerprint() == ref_tpu_v5e().fingerprint()
+    assert repro_torch.REGISTRY.get("tpu_v5e").fingerprint() == ref_tpu_v5e().fingerprint()
+    for make in (make_edge_npu_description, make_tpu_v5e_description):
+        assert repro_torch.validate_description(make()) == []
+    assert repro_torch.Target("tpu_v5e", device="cpu", cache=False).accelerator == "tpu_v5e"
+    with pytest.raises(KeyError, match="unknown accelerator 'tpu_v6'; registered: edge_npu, gemmini, tpu_v5e"):
+        repro_torch.REGISTRY.get("tpu_v6")
+    with pytest.raises(repro_torch.TargetError, match="registered: edge_npu, gemmini, tpu_v5e"):
+        repro_torch.Target("tpu_v6", device="cpu", cache=False)
 
 
 def test_edge_npu_schedules_are_weight_stationary_and_8_wide():
