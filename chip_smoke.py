@@ -150,18 +150,43 @@ fails; nothing is caught and passed over:
      input within BLOCK_TOL of its largest |out|; a prefill of 8 x 128
      tokens and a decode step with exactly 49 / 18 / 83 scheduled-kernel
      launches each (the f32 routers among them), the end-to-end logits
-     and the router choices compared (printed, not gated); jamba and
-     xlstm served through ``ServingEngine`` (8 prompts, 16 new tokens),
-     deepseek a prefill and 4 decode steps, routed and not; every (m, k,
-     n, dtype, config) they launched against its plain version, timed;
-     prefill and decode-step times split into kernels and the rest, and
-     the peak device memory.
+     and the router choices compared (printed, not gated); each served
+     through ``ServingEngine`` (8 prompts, 16 new tokens), routed and not;
+     every (m, k, n, dtype, config) they launched against its plain
+     version, timed; prefill and decode-step times split into kernels and
+     the rest, and the peak device memory.
+ 17. training on the card (after 16), unrouted, as the reference trains:
+     a train step of a smoke arch under ``scheduled_kernels`` raises
+     before any launch (the kernel has no backward); the flash backward
+     against autograd through the plain forward at yi-34b's attention
+     shapes (B = 2, 56 query heads over 8 KV heads, S = 1024, D = 128,
+     chunks of 512), causal, windowed and block-skipped, f32 and bf16:
+     dq, dk, dv within F32_TOL (f32) or FLASH_BF16_ULPS bf16 ulps of the
+     largest |grad| (bf16), the backward's time (CUDA events around each
+     call, the median of FLASH_BWD_TIMED) and peak memory of each; the ten smoke archs (f32, TF32 off)
+     one train step each on ``cuda`` against the CPU: loss and grad_norm
+     within F32_TOL, every gradient leaf within GRAD_LEAF_TOL of its max
+     |grad|, the step's change to each parameter within UPDATE_TOL x lr
+     where |grad| is clear of 0 (UPDATE_CLEAR) and one normalized step or
+     less elsewhere;
+     xlstm-125m uncut through ``launch.train.build_trainer`` (bf16, batch
+     8 x 128, 12 steps, a checkpoint every 6 under ``build/chip_smoke/``):
+     the loss finite and falling, a resume at step 12 bit-equal, a resume
+     at step 6 (the step-12 checkpoint removed) bit-equal to the state
+     saved there, with an injected failing step restored and retried and
+     its loss at step 11 within RESUME_LOSS_TOL of the first run's; step
+     p50, tok/s, save and restore times, checkpoint bytes, peak memory;
+     then yi-34b at its published widths cut to 2 layers (bf16, 2.0 B
+     weights), 3 steps at batch 2 x 1024: losses finite, the attention
+     weights' gradients finite and non-zero, step times and peak memory,
+     and a fourth step's forward-and-backward and AdamW timed apart.
 
 The launch counts are set to 0 just before each of phases 4, 6-10, the
 paths of 11 (each serve call too), the LM's served runs and smoke
 archs of 13, the traced modules' runs of 14, the sharded modules'
-runs and serve call of 15, and the tpu_v5e modules' runs and each
-full-width model's routed run of 16, and read just after; the
+runs and serve call of 15, the tpu_v5e modules' runs and each
+full-width model's routed run of 16, and phase 17 (which must launch
+none), and read just after; the
 ``launches`` of the kernels line are their sum.  It prints a ``{"kernels": [...]}`` line (the toycar@16
 sums of phase 3; the per-case times of phases 5 and 13 go to the report
 only, to keep the line short), a summary of the paths, and as its last
@@ -210,12 +235,20 @@ from repro_torch.kernels import build, gemm, ops  # noqa: E402
 from repro_torch.kernels.gemm import GemmKernelConfig, gemm_plain, scheduled_gemm  # noqa: E402
 from repro_torch.kernels.policy import ScheduledKernelPolicy, scheduled_kernels  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.kernels.ref import torch_dtype  # noqa: E402
 from repro_torch.models import attention as A  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
-from repro_torch.models import lm, moe  # noqa: E402
+from repro_torch.models import flash, lm, moe  # noqa: E402
 from repro_torch.models import ssm as S  # noqa: E402
 from repro_torch.models import xlstm as X  # noqa: E402
+from repro_torch.checkpoint import latest_step  # noqa: E402
+from repro_torch.tree import flatten, tree_map  # noqa: E402
+from repro_torch.data import DataConfig, SyntheticTokenPipeline  # noqa: E402
+from repro_torch.optim import AdamWConfig, adamw_init, adamw_update  # noqa: E402
+from repro_torch.train import TrainState, make_train_step  # noqa: E402
+from repro_torch.train import step as train_step_mod  # noqa: E402
+from repro_torch.train import trainer as trainer_mod  # noqa: E402
 from repro_torch.serve import (  # noqa: E402
     ServeConfig,
     ServingEngine,
@@ -1944,15 +1977,6 @@ def lm_kernel_cases(dev: torch.device, calls: set[tuple], card_line: str) -> dic
     return results
 
 
-def tree_map(fn, tree):
-    """``fn`` of each tensor of a parameter or cache tree."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [tree_map(fn, v) for v in tree]
-    return fn(tree) if isinstance(tree, torch.Tensor) else tree
-
-
 def tree_leaves(tree, path=()):
     if isinstance(tree, dict):
         for k, v in tree.items():
@@ -2099,7 +2123,7 @@ def lm_phase(dev: torch.device, card_line: str, windows: dict, cfg=None) -> dict
         c4 = lm.init_cache(cfg, 4, LM_MAX_LEN, device=dev)
         logits4, c4 = lm.prefill(params, cfg, lm_wave(waves[0][:4], dev), c4)
         nxt = torch.argmax(logits4[:, -1:], -1)
-        copy = tree_map(torch.clone, c4)
+        copy = tree_map(lambda t: t.clone() if isinstance(t, torch.Tensor) else t, c4)
         want4, _ = lm.decode_step(params, cfg, c4, nxt)
         gemm.reset_launches()
         with scheduled_kernels(backend):
@@ -2197,16 +2221,15 @@ def lm_phase(dev: torch.device, card_line: str, windows: dict, cfg=None) -> dict
 # -- phase 16: tpu_v5e on the card; the other block kinds at full width --------
 
 TPU_MODELS = ("toycar_mlp", "mlp_tiny", "qcnn", "transformer_block")
-#: (arch, layers kept or None for the published depth, served through
-#: ServingEngine (else one prefill and FW_DECODE_STEPS steps), launches per
-#: prefill and per decode step as (bf16, f32 routers))
+#: (arch, layers kept or None for the published depth, launches per
+#: prefill and per decode step as (bf16, f32 routers)); each is served
+#: through ServingEngine
 FULL_WIDTH = (
-    ("jamba_v0_1_52b", 8, True, (45, 4)),
-    ("deepseek_v2_236b", 2, False, (17, 1)),
-    ("xlstm_125m", None, True, (83, 0)),
+    ("jamba_v0_1_52b", 8, (45, 4)),
+    ("deepseek_v2_236b", 2, (17, 1)),
+    ("xlstm_125m", None, (83, 0)),
 )
 FW_BATCH, FW_PROMPT, FW_NEW = 8, 128, 16
-FW_DECODE_STEPS = 4
 #: one block's routed against unrouted output on one input, |diff| / max
 #: |out| (codeqwen's logit bound)
 BLOCK_TOL = LM_LOGIT_TOL
@@ -2320,15 +2343,15 @@ def block_kind_checks(dev: torch.device, params, cfg, backend, card_line: str) -
     return out
 
 
-def full_width_lm(dev: torch.device, card_line: str, windows: dict, arch: str, n_layers, served: bool,
+def full_width_lm(dev: torch.device, card_line: str, windows: dict, arch: str, n_layers,
                   expected: tuple[int, int]) -> dict:
     """Phase 16: one arch at its published widths (cut to ``n_layers``),
     bf16 weights from seed 0 on the card: each block kind routed against
     unrouted; a prefill of FW_BATCH x FW_PROMPT tokens and a decode step,
     routed and not, with the launches per call, the end-to-end logits and
-    the router choices compared; then served (FW_NEW new tokens) or a
-    prefill and FW_DECODE_STEPS steps, routed and not, in its launch
-    window; prefill and decode step times and the peak memory."""
+    the router choices compared; then served through ``ServingEngine``
+    (FW_NEW new tokens), routed and not, in its launch window; prefill and
+    decode step times and the peak memory."""
     cfg = get_config(arch).with_(n_layers=n_layers) if n_layers else get_config(arch)
     short = arch.split("_")[0]
     backend = build_backend(make_gemmini_description())
@@ -2342,7 +2365,7 @@ def full_width_lm(dev: torch.device, card_line: str, windows: dict, arch: str, n
     params = lm.init_lm(0, cfg, device=dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    weights = sum(t.numel() for _, t in tree_leaves(params))
+    weights = sum(t.numel() for t in flatten(params))
     kinds = sorted({k for k, _ in lm.layer_kinds(cfg)})
     print(f"lm {cfg.name}: {cfg.n_layers} layers ({', '.join(kinds)}; {n_moe} MoE), d_model {cfg.d_model}, "
           f"{cfg.param_dtype}: {weights:,} weights drawn on {dev} in {init_s:.2f} s [{card_line}]")
@@ -2386,41 +2409,27 @@ def full_width_lm(dev: torch.device, card_line: str, windows: dict, arch: str, n
           f"differ on {flips} of {FW_BATCH * FW_PROMPT * n_moe} (token, layer) pairs (not gated) [{card_line}]")
 
     served_runs = {}
-    engine = None
-    if served:
-        with warnings.catch_warnings():
-            warnings.simplefilter("ignore", ReproDeprecationWarning)
-            engine = ServingEngine(cfg, params, ServeConfig(batch=FW_BATCH, max_len=max_len, max_new_tokens=FW_NEW))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", ReproDeprecationWarning)
+        engine = ServingEngine(cfg, params, ServeConfig(batch=FW_BATCH, max_len=max_len, max_new_tokens=FW_NEW))
     for routed in (True, False):
         gemm.reset_launches()  # this arch's window starts here
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with scheduled_kernels(backend) if routed else contextlib.nullcontext():
-            if served:
-                tokens = [r.output for r in engine.generate(prompts)]
-            else:
-                with torch.inference_mode():
-                    c = lm.init_cache(cfg, FW_BATCH, max_len, device=dev)
-                    out, c = lm.prefill(params, cfg, toks, c)
-                    nxt = [torch.argmax(out[:, -1:], -1)]
-                    for _ in range(FW_DECODE_STEPS):
-                        out, c = lm.decode_step(params, cfg, c, nxt[-1])
-                        nxt.append(torch.argmax(out[:, -1:], -1))
-                    tokens = torch.cat(nxt, 1).tolist()
+            tokens = [r.output for r in engine.generate(prompts)]
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         window = dict(gemm.LAUNCHES)  # read just after it
-        steps = FW_NEW if served else FW_DECODE_STEPS
-        want = {v: (per["prefill"] + steps * per["decode"] if routed and v == "gemm_float" else 0)
+        want = {v: (per["prefill"] + FW_NEW * per["decode"] if routed and v == "gemm_float" else 0)
                 for v in gemm.LAUNCHES}
         check(window == want, f"{cfg.name} {'routed' if routed else 'unrouted'} run: launches {window}, want {want}")
         check(all(0 <= t < cfg.vocab for row in tokens for t in row), f"{cfg.name}: tokens out of the vocabulary")
         if routed:
             windows[f"LM {short} routed"] = window
-        new = FW_BATCH * (FW_NEW if served else FW_DECODE_STEPS + 1)
-        served_runs["routed" if routed else "unrouted"] = {"wall_s": wall, "tok_per_s": new / wall}
-    print(f"lm {cfg.name} {'served' if served else 'prefill + ' + str(FW_DECODE_STEPS) + ' steps'} at batch "
-          f"{FW_BATCH}, prompts of {FW_PROMPT}: routed {served_runs['routed']['tok_per_s']:.1f} tok/s "
+        served_runs["routed" if routed else "unrouted"] = {"wall_s": wall, "tok_per_s": FW_BATCH * FW_NEW / wall}
+    print(f"lm {cfg.name} served at batch {FW_BATCH}, prompts of {FW_PROMPT}: routed "
+          f"{served_runs['routed']['tok_per_s']:.1f} tok/s "
           f"({served_runs['routed']['wall_s']:.3f} s, {windows[f'LM {short} routed']['gemm_float']} launches), "
           f"unrouted {served_runs['unrouted']['tok_per_s']:.1f} tok/s ({served_runs['unrouted']['wall_s']:.3f} s, "
           f"0 launches) [{card_line}]")
@@ -2438,7 +2447,7 @@ def full_width_lm(dev: torch.device, card_line: str, windows: dict, arch: str, n
                     torch.cuda.synchronize()
                     pf_ms.append((time.perf_counter() - t0) * 1e3)
                 nxt = torch.argmax(out[:, -1:], -1)
-                for _ in range(LM_DECODE_SAMPLES if served else FW_DECODE_STEPS):
+                for _ in range(LM_DECODE_SAMPLES):
                     torch.cuda.synchronize()
                     t0 = time.perf_counter()
                     out, c = lm.decode_step(params, cfg, c, nxt)
@@ -2468,7 +2477,7 @@ def full_width_lm(dev: torch.device, card_line: str, windows: dict, arch: str, n
     torch.cuda.empty_cache()
     return {"arch": cfg.name, "layers": cfg.n_layers, "weights": weights, "init_s": init_s, "per_call": per,
             "split": expected, "blocks": blocks, "logit_rel_diff": e2e_rel, "f32_gap": f32_gap, "router_flips": flips,
-            "router_pairs": FW_BATCH * FW_PROMPT * n_moe, "runs": served_runs, "served": served,
+            "router_pairs": FW_BATCH * FW_PROMPT * n_moe, "runs": served_runs,
             "timing": timing, "peak_bytes": peak, "calls": calls}
 
 
@@ -2493,6 +2502,372 @@ def full_width_phase(dev: torch.device, card_line: str, windows: dict) -> dict:
               f"{r['timing']['unrouted']['decode_step_ms_p50']:.3f} ms; peak device memory "
               f"{r['peak_bytes'] / 2**30:.2f} GiB [{card_line}]")
     return {"models": runs, "cases": list(cases.values())}
+
+
+# -- phase 17: training on the card -------------------------------------------
+
+#: the smoke arch whose train step is refused under the kernel policy
+REFUSAL_ARCH = "yi_34b"
+#: the flash backward at yi-34b's attention shapes: (B, query heads, KV
+#: heads, S, D, chunk); (window, skip) per case, every case causal
+FLASH_BWD_SHAPE = (2, 56, 8, 1024, 128, 512)
+FLASH_BWD_CASES = {"causal": (0, False), "windowed 256": (256, False), "causal, block-skipped": (0, True)}
+#: bf16: the custom backward within this many bf16 ulps of the largest
+#: |grad| of autograd through the plain forward (both sum in f32; they
+#: round the probabilities to bf16 at different points; 2 on the CPU at
+#: S = 256)
+FLASH_BF16_ULPS = 4
+#: timed backward calls per case and form (their median), after a warm-up
+FLASH_BWD_TIMED = 3
+TRAIN_SMOKE_BATCH, TRAIN_SMOKE_SEQ = 2, 16
+#: a smoke step's gradient leaves: max |cuda - cpu| within this share of
+#: the leaf's max |grad|
+GRAD_LEAF_TOL = 1e-4
+#: a smoke step's change to each parameter, in units of its lr (the
+#: schedule warmed up in one step, so lr is the config's): cuda within
+#: UPDATE_TOL of the CPU where |grad| exceeds UPDATE_CLEAR of its leaf's
+#: max (10x the gradient's own tolerance, so g's sign is the same on both);
+#: elsewhere g's sign is noise and AdamW's first step is about sign(g), so
+#: the change is held to one normalized step, |change / lr + wd p| <= 1;
+#: both bounds also allow 2 f32 ulps of the parameter, the rounding of
+#: the new parameter
+UPDATE_TOL = 1e-3
+UPDATE_CLEAR = 10 * GRAD_LEAF_TOL
+#: xlstm-125m through build_trainer: the launcher's batch and sequence
+XLSTM_TRAIN = dict(steps=12, global_batch=8, seq_len=128, checkpoint_every=6)
+#: the resumed run's loss at the last step, relative to the first run's
+#: (the embedding's backward sums with atomics on the card)
+RESUME_LOSS_TOL = 0.01
+#: (arch, layers kept, batch, sequence, steps)
+YI_TRAIN = ("yi_34b", 2, 2, 1024, 3)
+
+
+def train_batch(cfg, batch: int, seq: int, step: int, dev) -> dict[str, torch.Tensor]:
+    """The synthetic pipeline's batch ``step`` (seed 1) on ``dev``; a
+    frontend arch's embeddings are drawn with numpy by the pipeline."""
+    pipe = SyntheticTokenPipeline(DataConfig(
+        vocab=cfg.vocab, seq_len=seq, global_batch=batch, seed=1,
+        n_frontend_tokens=cfg.n_frontend_tokens if cfg.frontend else 0, d_model=cfg.d_model))
+    return {k: torch.from_numpy(v).to(dev) for k, v in pipe.batch_at(step).items()}
+
+
+def train_refusal(dev: torch.device, card_line: str) -> None:
+    """Phase 17, step 1: under ``scheduled_kernels`` a train step raises
+    before any launch of any instantiation."""
+    cfg = get_smoke_config(REFUSAL_ARCH)
+    params = lm.init_lm(0, cfg, device=dev)
+    opt = AdamWConfig()
+    step = make_train_step(cfg, opt)
+    batch = train_batch(cfg, TRAIN_SMOKE_BATCH, TRAIN_SMOKE_SEQ, 0, dev)
+    before = dict(gemm.LAUNCHES)
+    refusal = None
+    with scheduled_kernels(build_backend(make_gemmini_description())):
+        try:
+            step(TrainState(params, adamw_init(opt, params)), batch)
+        except RuntimeError as e:  # the refusal this step checks for
+            refusal = str(e)
+    torch.cuda.synchronize()
+    check(refusal is not None and "no backward" in refusal,
+          f"train step under scheduled_kernels on cuda: {refusal or 'no error'}, not the refusal")
+    check(dict(gemm.LAUNCHES) == before, f"the refused train step launched {gemm.LAUNCHES} (was {before})")
+    print(f"train refusal: a {cfg.name} train step under scheduled_kernels on {dev} raised before any launch "
+          f"({refusal.split(':')[0]}: ... no backward ...); launch counts unchanged [{card_line}]")
+
+
+def flash_backward_phase(dev: torch.device, card_line: str) -> dict:
+    """Phase 17, step 2: the flash backward against autograd through the
+    plain forward: per case and form a warm-up, then FLASH_BWD_TIMED
+    timed calls, their median time and the last one's peak memory."""
+    b, h, hkv, s, d, chunk = FLASH_BWD_SHAPE
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    shapes = {"q": (b, hkv, h // hkv, s, d), "k": (b, hkv, s, d), "v": (b, hkv, s, d), "g": (b, hkv, h // hkv, s, d)}
+    base = {n: torch.randn(shape, generator=gen, device=dev) for n, shape in shapes.items()}
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for label, (window, skip) in FLASH_BWD_CASES.items():
+            statics = (True, window, chunk, chunk, 0, skip)
+            forms = {"custom": lambda *qkv: flash.flash_attention(*qkv, *statics),
+                     "plain": lambda *qkv: flash._flash_fwd_impl(*qkv, *statics)[0]}
+            runs = {}
+            for form, fwd in forms.items():
+                times = []
+                for _ in range(1 + FLASH_BWD_TIMED):  # a warm-up, then the timed runs
+                    ins = [base[n].to(dtype).requires_grad_() for n in "qkv"]
+                    g_out = base["g"].to(dtype)
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats(dev)
+                    floor = torch.cuda.memory_allocated(dev)
+                    o = fwd(*ins)
+                    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    grads = torch.autograd.grad(o, ins, g_out)
+                    end.record()
+                    end.synchronize()
+                    times.append(start.elapsed_time(end))
+                    peak = torch.cuda.max_memory_allocated(dev) - floor
+                    del o, ins
+                runs[form] = {"grads": grads, "ms": float(np.median(times[1:])), "peak_bytes": peak}
+            errs = []
+            for name, got, want in zip(("dq", "dk", "dv"), runs["custom"]["grads"], runs["plain"]["grads"]):
+                err = max_err(got, want)
+                if dtype == torch.float32:
+                    check(torch.allclose(got, want, **F32_TOL), f"flash bwd f32 {label} {name}: max |err| {err}")
+                else:
+                    bound_ = FLASH_BF16_ULPS * float(bf16_ulp(want.float().abs().max()))
+                    check(err <= bound_, f"flash bwd bf16 {label} {name}: max |err| {err} > {bound_}")
+                check(bool(torch.isfinite(got).all()), f"flash bwd {label} {name}: not finite")
+                errs.append(err)
+            key = f"{str(dtype).split('.')[-1]} {label}"
+            out[key] = {"max_abs_err": errs, **{f"{f}_{k}": runs[f][k] for f in runs for k in ("ms", "peak_bytes")}}
+            del runs
+            c = out[key]
+            print(f"train flash bwd {key} (B {b}, {h} heads over {hkv}, S {s}, D {d}, chunks {chunk}): dq/dk/dv max "
+                  f"|err| vs plain autograd {errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e}; backward {c['custom_ms']:.3f} ms "
+                  f"custom vs {c['plain_ms']:.3f} ms plain (CUDA events around each call, median of "
+                  f"{FLASH_BWD_TIMED}); peak over forward and backward {c['custom_peak_bytes'] / 2**30:.3f} vs "
+                  f"{c['plain_peak_bytes'] / 2**30:.3f} GiB [{card_line}]")
+    return out
+
+
+def smoke_train_phase(dev: torch.device, card_line: str) -> dict:
+    """Phase 17, step 3: the ten smoke archs (f32), one train step each on
+    ``cuda`` against the same step on the CPU, the gradients that step
+    takes (``value_and_grad``, which ``make_train_step`` calls) and the
+    change it makes to each parameter."""
+    out = {}
+    opt = AdamWConfig(warmup_steps=1)
+    for arch in ARCH_IDS:
+        cfg = get_smoke_config(arch)
+        step = make_train_step(cfg, opt)
+        cpu_params = lm.init_lm(0, cfg, device="cpu")
+        res = {}
+        for where, d in (("cuda", dev), ("cpu", torch.device("cpu"))):
+            params = tree_map(lambda t: t.to(d), cpu_params)
+            batch = train_batch(cfg, TRAIN_SMOKE_BATCH, TRAIN_SMOKE_SEQ, 0, d)
+            _, grads = train_step_mod.value_and_grad(params, cfg, batch)
+            new, metrics = step(TrainState(params, adamw_init(opt, params)), batch)
+            res[where] = {"loss": metrics["loss"].cpu(), "grad_norm": metrics["grad_norm"].cpu(),
+                          "lr": float(metrics["lr"]), "grads": [t.cpu() for t in flatten(grads)],
+                          "change": [(a - b_).cpu() for a, b_ in zip(flatten(new.params), flatten(params))]}
+        got, want = res["cuda"], res["cpu"]
+        for k in ("loss", "grad_norm"):
+            check(torch.allclose(got[k], want[k], **F32_TOL), f"{arch} train {k}: cuda {got[k]} vs cpu {want[k]}")
+        lr = want["lr"]
+        lr_f32 = float(torch.tensor(opt.lr, dtype=torch.float32))
+        check(got["lr"] == lr == lr_f32, f"{arch} train lr: cuda {got['lr']}, cpu {lr}, config {lr_f32}")
+        grad_rel = upd_err = 0.0
+        n_clear = n_all = 0
+        for a, b_, ca, cb, p in zip(got["grads"], want["grads"], got["change"], want["change"], flatten(cpu_params),
+                                    strict=True):
+            scale = float(b_.abs().max())
+            err = max_err(a, b_)
+            check(err <= GRAD_LEAF_TOL * scale, f"{arch} train grad: cuda vs cpu max |err| {err} > "
+                  f"{GRAD_LEAF_TOL} x leaf max {scale}")
+            grad_rel = max(grad_rel, err / max(scale, 1e-30))
+            clear = b_.abs() > UPDATE_CLEAR * scale
+            u_cuda, u_cpu = ca.double() / lr, cb.double() / lr
+            rounding = 2 * torch.exp2(torch.floor(torch.log2(p.double().abs().clamp_min(2.0**-126))) - 23) / lr
+            if clear.any():
+                e = max(((u_cuda - u_cpu).abs() - rounding)[clear].max().item(), 0.0)
+                check(e <= UPDATE_TOL, f"{arch} train update: cuda vs cpu {e} lr > {UPDATE_TOL} lr")
+                upd_err = max(upd_err, e)
+            step_size = ((u_cuda + opt.weight_decay * p.double()).abs() - rounding).max().item()
+            check(step_size <= 1 + UPDATE_TOL, f"{arch} train update: a normalized step of {step_size} > 1")
+            n_clear += int(clear.sum())
+            n_all += clear.numel()
+        out[arch] = {"loss": float(got["loss"]), "loss_err": max_err(got["loss"], want["loss"]),
+                     "grad_norm_err": max_err(got["grad_norm"], want["grad_norm"]),
+                     "grad_max_rel_to_leaf_max": grad_rel, "update_max_err_in_lr": upd_err,
+                     "update_share_compared": n_clear / n_all, "leaves": len(got["grads"])}
+        print(f"train smoke {arch}: loss {float(got['loss']):.5f} (cuda vs cpu {out[arch]['loss_err']:.2e}), grad_norm "
+              f"err {out[arch]['grad_norm_err']:.2e}, {len(got['grads'])} gradient leaves max |err| {grad_rel:.2e} of "
+              f"the leaf's max (<= {GRAD_LEAF_TOL}); the step's change cuda vs cpu {upd_err:.2e} lr beyond the "
+              f"parameter's rounding (<= {UPDATE_TOL}) "
+              f"on the {100 * n_clear / n_all:.2f} % of parameters whose |grad| > {UPDATE_CLEAR} of the leaf's max, "
+              f"one normalized step or less on the rest (lr {lr}, TF32 off) [{card_line}]")
+    return out
+
+
+class CheckpointTimer:
+    """Times the trainer's checkpoint saves and the restores that found a
+    checkpoint, and keeps what those restores returned, while active (the
+    calls pass straight through)."""
+
+    def __enter__(self):
+        real_save, real_restore = self._real = (trainer_mod.save_checkpoint, trainer_mod.restore_checkpoint)
+        self.save_s: list[float] = []
+        self.restore_s: list[float] = []
+        self.restored: list[tuple] = []
+
+        def save(*a, **k):
+            t0 = time.perf_counter()
+            path = real_save(*a, **k)
+            self.save_s.append(time.perf_counter() - t0)
+            return path
+
+        def restore(*a, **k):
+            t0 = time.perf_counter()
+            got = real_restore(*a, **k)
+            if got[0] is not None:
+                self.restore_s.append(time.perf_counter() - t0)
+                self.restored.append(got)
+            return got
+
+        trainer_mod.save_checkpoint, trainer_mod.restore_checkpoint = save, restore
+        return self
+
+    def __exit__(self, *exc):
+        trainer_mod.save_checkpoint, trainer_mod.restore_checkpoint = self._real
+        return False
+
+
+def xlstm_train_phase(dev: torch.device, card_line: str, work: Path) -> dict:
+    """Phase 17, step 4: xlstm-125m uncut through ``build_trainer``: a
+    run, a resume at its end, and a resume from its middle with an
+    injected failing step."""
+    ckpt = work / "train_xlstm"
+    kw = dict(smoke=False, checkpoint_dir=str(ckpt), device=dev, **XLSTM_TRAIN)
+    steps, every = XLSTM_TRAIN["steps"], XLSTM_TRAIN["checkpoint_every"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with CheckpointTimer() as timer:
+        trainer, state, cfg = launch_train.build_trainer("xlstm_125m", **kw)
+        trainer.cfg.log_every = 1
+        real_step, calls, saved = trainer.train_step, [0], {}
+
+        def keep_middle(st, batch):  # the state after `every` steps, on the host
+            new, metrics = real_step(st, batch)
+            calls[0] += 1
+            if calls[0] == every:
+                saved["params"] = [t.detach().cpu().clone() for t in flatten(new.params)]
+            return new, metrics
+
+        trainer.train_step = keep_middle
+        final = trainer.run(state)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev)
+        losses = [h["loss"] for h in trainer.history]
+        secs = [h["sec"] for h in trainer.history]
+        check(len(losses) == steps and all(np.isfinite(losses)), f"xlstm train losses {losses}")
+        check(losses[-1] < losses[0], f"xlstm train loss did not fall: {losses}")
+        check(latest_step(str(ckpt)) == steps, f"xlstm train: latest checkpoint {latest_step(str(ckpt))}")
+        ckpt_bytes = sum(f.stat().st_size for f in (ckpt / f"step_{every:08d}").iterdir())
+        del state
+
+        trainer2, state2, _ = launch_train.build_trainer("xlstm_125m", **kw)
+        resumed = trainer2.run(state2)
+        check(trainer2.history == [], f"the resumed run took steps: {trainer2.history}")
+        check(all(torch.equal(a, b) for a, b in zip(flatten(resumed), flatten(final), strict=True)),
+              "xlstm resumed at its last step: state differs from the run's")
+        del trainer2, state2, resumed
+
+        shutil.rmtree(ckpt / f"step_{steps:08d}")
+        trainer3, state3, _ = launch_train.build_trainer("xlstm_125m", **kw)
+        timer.restored.clear()
+        trainer3.cfg.log_every = 1
+        real3, fails = trainer3.train_step, [0]
+
+        def flaky(st, batch):
+            if fails[0] == 0:
+                fails[0] += 1
+                raise RuntimeError("injected device failure")
+            return real3(st, batch)
+
+        trainer3.train_step = flaky
+        trainer3.run(state3)
+        check(fails[0] == 1 and latest_step(str(ckpt)) == steps, "xlstm: the injected fault was not retried to the end")
+        check([r[1] for r in timer.restored] == [every, every] and timer.restored[0][2]["data_step"] == every,
+              f"xlstm resume and retry restored steps {[r[1] for r in timer.restored]}, not {every} twice")
+        check(all(torch.equal(a.cpu(), b) for a, b in zip(flatten(timer.restored[0][0][0]), saved["params"],
+                                                          strict=True)),
+              f"xlstm restored parameters at step {every} differ from the ones saved")
+        timer.restored.clear()
+        last = {h["step"]: h["loss"] for h in trainer3.history}
+        rel = abs(last[steps - 1] - losses[-1]) / abs(losses[-1])
+        check(rel <= RESUME_LOSS_TOL, f"xlstm resumed loss at step {steps - 1} {last[steps - 1]} vs {losses[-1]}")
+    del final, trainer, trainer3, state3
+    torch.cuda.empty_cache()
+    p50 = float(np.percentile(secs, 50))
+    tokens = XLSTM_TRAIN["global_batch"] * XLSTM_TRAIN["seq_len"]
+    out = {"losses": losses, "step_s": secs, "step_s_p50": p50, "tok_per_s": tokens / p50, "peak_bytes": peak,
+           "save_s": timer.save_s, "restore_s": timer.restore_s, "checkpoint_bytes": ckpt_bytes,
+           "resumed_loss_rel": rel}
+    print(f"train {cfg.name} (bf16, {XLSTM_TRAIN['global_batch']} x {XLSTM_TRAIN['seq_len']}, {steps} steps): loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}; step p50 {p50 * 1e3:.1f} ms (first {secs[0] * 1e3:.1f}), "
+          f"{tokens / p50:.0f} tok/s; peak {peak / 2**30:.2f} GiB; checkpoint {ckpt_bytes / 2**30:.2f} GiB, save "
+          f"{np.median(timer.save_s):.2f} s, restore {np.median(timer.restore_s):.2f} s (medians of "
+          f"{len(timer.save_s)} / {len(timer.restore_s)}); resumed at {steps} bit-equal, at {every} bit-equal with "
+          f"an injected fault retried, its step-{steps - 1} loss within {rel:.2e} [{card_line}]")
+    return out
+
+
+def yi_train_phase(dev: torch.device, card_line: str) -> dict:
+    """Phase 17, step 5: yi-34b at its published widths, cut to YI_TRAIN's
+    layers, trained a few steps at batch x sequence."""
+    arch, layers, batch, seq, steps = YI_TRAIN
+    cfg = get_config(arch).with_(n_layers=layers)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = lm.init_lm(0, cfg, device=dev)
+    weights = sum(t.numel() for t in flatten(params))
+    opt = AdamWConfig(total_steps=steps, warmup_steps=max(steps // 20, 5))  # as build_trainer sets it
+    state = TrainState(params, adamw_init(opt, params))
+    del params
+    (_, _), grads = train_step_mod.value_and_grad(state.params, cfg, train_batch(cfg, batch, seq, 0, dev))
+    attn = grads["groups"]["pos0"]["block"]
+    for name in ("q", "k", "v", "o"):
+        g = attn[name]["w"].float()
+        check(bool(torch.isfinite(g).all()) and all(float(g[i].abs().max()) > 0 for i in range(g.shape[0])),
+              f"{cfg.name} attention {name} gradients not finite or zero in a layer")
+    del grads, attn, g
+    step_fn = make_train_step(cfg, opt)
+    losses, secs = [], []
+    for i in range(steps):
+        b = train_batch(cfg, batch, seq, i, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, b)
+        losses.append(float(metrics["loss"]))
+        secs.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated(dev)
+    check(all(np.isfinite(losses)), f"{cfg.name} train losses {losses}")
+    # one more step's two halves timed apart: forward and backward, AdamW
+    b = train_batch(cfg, batch, seq, steps, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (_, _), grads = train_step_mod.value_and_grad(state.params, cfg, b)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    adamw_update(opt, state.params, grads, state.opt_state)
+    torch.cuda.synchronize()
+    split = {"forward_backward_s": t1 - t0, "adamw_s": time.perf_counter() - t1}
+    del state, metrics, grads
+    torch.cuda.empty_cache()
+    out = {"arch": cfg.name, "layers": layers, "weights": weights, "losses": losses, "step_s": secs,
+           "peak_bytes": peak, **split}
+    print(f"train {cfg.name} {layers} layers (d_model {cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab}, bf16, {weights:,} weights), batch {batch} x {seq}: losses "
+          f"{', '.join(f'{x:.4f}' for x in losses)}; step times {', '.join(f'{x * 1e3:.1f}' for x in secs)} ms "
+          f"(a fourth step's forward and backward {split['forward_backward_s'] * 1e3:.1f} ms, AdamW "
+          f"{split['adamw_s'] * 1e3:.1f} ms); attention gradients finite and non-zero; peak {peak / 2**30:.2f} GiB "
+          f"[{card_line}]")
+    return out
+
+
+def train_phase(dev: torch.device, card_line: str, work: Path, windows: dict) -> dict:
+    """Phase 17: training on the card, in one launch window that must
+    count no launch of any instantiation."""
+    train_refusal(dev, card_line)
+    gemm.reset_launches()  # the training window starts here
+    summary = {"flash_backward": flash_backward_phase(dev, card_line),
+               "smoke": smoke_train_phase(dev, card_line),
+               "xlstm": xlstm_train_phase(dev, card_line, work),
+               "yi": yi_train_phase(dev, card_line)}
+    windows["training (no policy)"] = dict(gemm.LAUNCHES)  # read just after it
+    check(not any(windows["training (no policy)"].values()),
+          f"training launched the scheduled kernel: {windows['training (no policy)']}")
+    return summary
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -2577,6 +2952,7 @@ def main(argv: list[str] | None = None) -> int:
     host_ops = host_ops_phase(dev, card_line)
     lm_run = lm_phase(dev, card_line, windows)  # sets the counts to 0 before each LM window
     full_width = full_width_phase(dev, card_line, windows)  # phase 16: likewise, after codeqwen is freed
+    training = train_phase(dev, card_line, work, windows)  # phase 17, after phase 16's models are freed
     lm_cases = lm_run["cases"] + full_width["cases"]
     for window, counts in windows.items():
         print(f"launch window {window}: {counts}")
@@ -2633,13 +3009,13 @@ def main(argv: list[str] | None = None) -> int:
               "decode_paths": decode_paths, "decode_serve": decode_served, "decode_checks": decode_checks,
               "verify_gate": gate, "host_ops": host_ops, "lm": lm_run, "launch_windows": windows,
               "frontend": frontend, "sharded": sharded, "tpu_v5e": tpu, "full_width": full_width,
-              "path_cases": path_cases}
+              "training": training, "path_cases": path_cases}
     if args.report:
         Path(args.report).parent.mkdir(parents=True, exist_ok=True)
         Path(args.report).write_text(json.dumps({**report, **line}, indent=1))
     # the per-path summaries are long and printed above, path by path
     long = ("paths", "measured_dse", "pipelined", "decode_paths", "path_cases", "lm", "frontend", "sharded",
-            "tpu_v5e", "full_width")
+            "tpu_v5e", "full_width", "training")
     print(json.dumps({k: v for k, v in report.items() if k not in long}))
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,5 @@
+"""The synthetic token pipeline.  Port of ``repro.data``."""
+
+from repro_torch.data.pipeline import DataConfig, SyntheticTokenPipeline
+
+__all__ = ["DataConfig", "SyntheticTokenPipeline"]

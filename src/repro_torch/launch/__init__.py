@@ -1,2 +1,2 @@
-"""Launch entry points: zoo-model serving (``python -m
-repro_torch.launch.serve``)."""
+"""Launch entry points: serving (``python -m repro_torch.launch.serve``)
+and training (``python -m repro_torch.launch.train``)."""

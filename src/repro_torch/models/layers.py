@@ -54,14 +54,26 @@ def dense(params, x: torch.Tensor, *, compute_dtype=None) -> torch.Tensor:
     least ``min_m`` rows (m = the product of x's leading dims) runs on the
     scheduled GEMM kernel with the f32 accumulator, bias added there in
     f32, output in x's dtype; otherwise ``x @ w`` runs first and the bias
-    is added in the output dtype."""
+    is added in the output dtype.
+
+    The scheduled kernel has no backward (nor has the reference's Pallas
+    kernel), so under a policy a product that autograd would differentiate
+    raises ``RuntimeError`` before any launch, on every device: training
+    runs unrouted."""
     w = params["w"]
     b = params.get("b")
+    pol = policy.get_policy()
+    differentiated = any(t is not None and t.requires_grad for t in (x, w, b))
+    if pol is not None and torch.is_grad_enabled() and differentiated:
+        raise RuntimeError(
+            "layers.dense: a scheduled-kernel policy is installed and autograd would differentiate "
+            "this product, but the scheduled GEMM kernel has no backward; run training outside "
+            "scheduled_kernels (unrouted), as the reference does"
+        )
     if compute_dtype is not None:
         x = x.to(compute_dtype)
         w = w.to(compute_dtype)
 
-    pol = policy.get_policy()
     if pol is not None:
         m = 1
         for s in x.shape[:-1]:

@@ -15,8 +15,9 @@ A modality frontend's embeddings ([B, Nf, d], vision patches or audio
 frames) are prepended to the token embeddings by ``forward`` and
 ``prefill``, as in the reference.
 
-Port of ``repro.models.lm``.  ``jax.checkpoint`` (training only) and the
-sharding ``constrain`` calls are left out; the serving path runs under
+Port of ``repro.models.lm``.  The sharding ``constrain`` calls are left
+out (on one card they are identities); ``forward`` is differentiable and
+writes nothing in place, while the serving path runs under
 ``torch.inference_mode``.  The caches are written in place: the KV and
 MLA caches by ``repro_torch.models.cache``, the Mamba and xLSTM states
 (stacked over the groups like the KV cache) by copying each block's new
@@ -30,6 +31,7 @@ from typing import Any
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.api import torch_device
 from repro_torch.kernels.ref import torch_dtype
@@ -40,6 +42,7 @@ from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
 from repro_torch.models import xlstm as X
 from repro_torch.models.config import ModelConfig
+from repro_torch.tree import tree_map
 
 
 # ---------------------------------------------------------------------------
@@ -123,14 +126,6 @@ def init_lm(seed: int, cfg: ModelConfig, *, device="cuda"):
     return params
 
 
-def _tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [_tree_map(fn, v) for v in tree]
-    return fn(tree)
-
-
 def _to_tensor(arr, device, dtype):
     arr = np.array(arr)  # a writable copy
     if arr.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: reinterpret the bits
@@ -151,12 +146,25 @@ def params_from_numpy(tree, cfg: ModelConfig, *, device, dtype=None):
             raise ValueError(f"{cfg.name}: the tree stacks {lead} groups, the config {ng}")
     dev = torch.device(device)
     dt = torch_dtype(dtype) if dtype is not None else None
-    return _tree_map(lambda a: _to_tensor(a, dev, dt), tree)
+    return tree_map(lambda a: _to_tensor(a, dev, dt), tree)
+
+
+def opt_state_from_numpy(state, cfg: ModelConfig, *, device):
+    """The reference's ``adamw_init`` / ``adamw_update`` state ({"m", "v",
+    "step"}, numpy leaves) as the port's: the moments as
+    ``params_from_numpy`` converts a parameter tree, on ``device``; the
+    step an int32 scalar on the host, where ``repro_torch.optim`` keeps
+    it."""
+    return {
+        "m": params_from_numpy(state["m"], cfg, device=device),
+        "v": params_from_numpy(state["v"], cfg, device=device),
+        "step": torch.tensor(np.asarray(state["step"]).item(), dtype=torch.int32),
+    }
 
 
 def _group(tree, g: int):
     """Group ``g``'s slice of a stacked tree (views, no copies)."""
-    return _tree_map(lambda t: t[g], tree)
+    return tree_map(lambda t: t[g], tree)
 
 
 def _stacked(tree, cfg: ModelConfig):
@@ -223,6 +231,17 @@ def _embed_inputs(params, cfg: ModelConfig, tokens, frontend_embeds):
     return x, positions
 
 
+def _group_body(gp, cfg: ModelConfig, x, aux, positions, block_skip: bool):
+    """One repeat of ``cfg.pattern`` -> (x, aux plus its MoE layers' aux)."""
+    for p, kind in enumerate(cfg.pattern):
+        x, a = _apply_layer_train(
+            gp[f"pos{p}"], cfg, kind, _position_is_moe(cfg, p), x, positions, block_skip=block_skip
+        )
+        if a is not None:
+            aux = aux + a
+    return x, aux
+
+
 def forward(
     params,
     cfg: ModelConfig,
@@ -233,13 +252,24 @@ def forward(
 ):
     """tokens [B, S] (+ frontend embeds [B, Nf, d]) -> (logits [B, Nf + S,
     V] f32, aux loss: the sum of the MoE layers' load-balance losses,
-    f32)."""
+    f32).  Differentiable: with ``cfg.remat`` each pattern group's
+    activations are recomputed in the backward
+    (``torch.utils.checkpoint``, as the reference's ``jax.checkpoint`` of
+    its scan body); the prefix layers are not."""
     x, positions = _embed_inputs(params, cfg, tokens, frontend_embeds)
+    for i, lp in enumerate(params["prefix"]):
+        x, _ = _apply_layer_train(
+            lp, cfg, cfg.layer_kind(i), False, x, positions, block_skip=block_skip
+        )
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for lp, kind, is_moe in iter_layers(params, cfg):
-        x, a = _apply_layer_train(lp, cfg, kind, is_moe, x, positions, block_skip=block_skip)
-        if a is not None:  # an MoE layer (never a prefix layer)
-            aux = aux + a
+    for g in range(n_scan_groups(cfg)):
+        gp = _group(params["groups"], g)
+        if cfg.remat:
+            x, aux = checkpoint(
+                _group_body, gp, cfg, x, aux, positions, block_skip, use_reentrant=False
+            )
+        else:
+            x, aux = _group_body(gp, cfg, x, aux, positions, block_skip)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = _head(params, cfg, x)
     return logits.to(torch.float32), aux

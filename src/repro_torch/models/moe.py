@@ -7,12 +7,14 @@ the (token, choice) pairs routed there in token-major, choice-minor order,
 and the pairs past capacity are dropped.  Shared experts (DeepSeek) run
 densely alongside.
 
-Port of ``repro.models.moe`` (``init_moe``, ``moe_ffn``).  The reference
-groups the tokens by data shard (G = the activation policy's dp size) and
-pins layouts with ``constrain``; on one card there is one group (G = 1,
-what the reference's ``_num_groups`` gives without a policy) and no
-layout to pin, so both are left out.  The slot fill, a scatter-max in
-the reference (``buf.at[e, p].max``), is ``scatter_reduce_(..., "amax")``:
+Port of ``repro.models.moe`` (``init_moe``, ``_num_groups``, ``moe_ffn``).
+As in the reference, the tokens are grouped by data shard: G = the
+activation policy's dp size (``repro_torch.parallel.policy``), or 1
+without a policy or when it does not divide the token count; the slots,
+the capacity and the combine are per group.  The reference's
+``constrain`` calls pin layouts on a mesh; on one card there is none to
+pin, so they are left out.  The slot fill, a scatter-max in the
+reference (``buf.at[e, p].max``), is ``scatter_reduce_(..., "amax")``:
 only dropped pairs collide, all at slot C - 1 with value 0, so the max
 keeps the kept token.  The router's ``dense`` takes f32 input and f32
 weights and so is routed to the kernel's f32 form under
@@ -28,6 +30,7 @@ import torch
 from repro_torch.kernels.ref import torch_dtype
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig, MoEConfig
+from repro_torch.parallel.policy import get_policy
 
 
 def init_moe(gen, cfg: ModelConfig, dtype=torch.float32, *, lead=()):
@@ -64,9 +67,16 @@ def route(params, cfg: ModelConfig, xt: torch.Tensor):
     return weights, idx, aux
 
 
+def _num_groups(t: int) -> int:
+    pol = get_policy()
+    g = pol.dp_size if pol is not None else 1
+    return g if t % g == 0 else 1
+
+
 def dispatch(idx: torch.Tensor, n_experts: int, cap: int):
-    """Slots of the flattened [T·k] (token, choice) pairs: (position within
-    the expert, kept, slot -> source token + 1 as [E, C] with 0 = empty)."""
+    """Slots of one group's flattened [T·k] (token, choice) pairs:
+    (position within the expert, kept, slot -> source token + 1 as [E, C]
+    with 0 = empty)."""
     t, k = idx.shape
     flat = idx.reshape(-1)
     onehot = torch.nn.functional.one_hot(flat, n_experts).to(torch.int32)  # [T*k, E]
@@ -90,25 +100,31 @@ def moe_ffn(params, cfg: ModelConfig, x: torch.Tensor):
     xt = x.reshape(t, d)
 
     weights, idx, aux = route(params, cfg, xt)
-    cap = capacity(m, t)
-    safe_pos, keep, slot_src = dispatch(idx, e, cap)
+    g = _num_groups(t)
+    tl = t // g
+    cap = capacity(m, tl)
+    # [G, Tl*k], [G, Tl*k], [G, E, C]: each group's slots, as the reference's vmap
+    per_group = [dispatch(i, e, cap) for i in idx.reshape(g, tl, k)]
+    safe_pos, keep, slot_src = (torch.stack(z) for z in zip(*per_group))
     slot_valid = slot_src > 0
     slot_tok = torch.clamp_min(slot_src - 1, 0)
+    rows = torch.arange(g, device=x.device)[:, None]
 
-    # gather into the expert buffers [E, C, d]
-    buf = xt[slot_tok.reshape(-1)].reshape(e, cap, d)
+    # per-group gather into the expert buffers [G, E, C, d], as [E, G·C, d]
+    buf = xt.reshape(g, tl, d)[rows, slot_tok.reshape(g, -1)].reshape(g, e, cap, d)
     buf = torch.where(slot_valid[..., None], buf, torch.zeros((), dtype=buf.dtype, device=buf.device))
-    buf = buf.to(compute)
+    buf = buf.to(compute).transpose(0, 1).reshape(e, g * cap, d)
 
     # expert SwiGLU
     gate = torch.bmm(buf, params["gate"].to(compute))
     up = torch.bmm(buf, params["up"].to(compute))
     h = torch.nn.functional.silu(gate.to(torch.float32)).to(compute) * up
-    out_buf = torch.bmm(h, params["down"].to(compute))  # [E, C, d]
+    out_buf = torch.bmm(h, params["down"].to(compute))  # [E, G·C, d]
+    out_buf = out_buf.reshape(e, g, cap, d).transpose(0, 1)  # [G, E, C, d]
 
     # combine: each (token, choice)'s slot back, weighted, summed over k
-    gathered = out_buf[idx.reshape(-1), safe_pos]  # [T*k, d]
-    gathered = torch.where(keep[:, None], gathered, torch.zeros((), dtype=gathered.dtype, device=x.device))
+    gathered = out_buf[rows, idx.reshape(g, tl * k), safe_pos]  # [G, Tl*k, d]
+    gathered = torch.where(keep[..., None], gathered, torch.zeros((), dtype=gathered.dtype, device=x.device))
     mixed = (gathered.reshape(t, k, d) * weights.reshape(t, k, 1).to(compute)).sum(1)
 
     if m.n_shared_experts:

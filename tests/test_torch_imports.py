@@ -78,6 +78,26 @@ FRONTEND_SHARDED_MODULES = (
 )
 
 
+#: the training path: the policy and its dp axes, the tree utilities,
+#: optimizer, data, checkpoints, the step and trainer, and the launcher
+TRAIN_MODULES = (
+    "repro_torch.parallel",
+    "repro_torch.parallel.policy",
+    "repro_torch.parallel.sharding",
+    "repro_torch.tree",
+    "repro_torch.optim",
+    "repro_torch.optim.adamw",
+    "repro_torch.data",
+    "repro_torch.data.pipeline",
+    "repro_torch.checkpoint",
+    "repro_torch.checkpoint.store",
+    "repro_torch.train",
+    "repro_torch.train.step",
+    "repro_torch.train.trainer",
+    "repro_torch.launch.train",
+)
+
+
 def _imported_modules(path: Path) -> list[str]:
     names = []
     for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
@@ -243,6 +263,48 @@ def test_lm_path_runs_with_jax_blocked():
     proc = subprocess.run(
         [sys.executable, "-W", "ignore", "-c", code], capture_output=True, text=True, env=env,
         timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert "ok ['jax', 'repro']" in proc.stdout
+
+
+def test_train_modules_are_checked_files():
+    checked = {str(p.relative_to(ROOT / "src")) for p in PORT_FILES if p.is_relative_to(ROOT / "src")}
+    for module in TRAIN_MODULES:
+        path = module.replace(".", "/")
+        assert f"{path}.py" in checked or f"{path}/__init__.py" in checked, module
+
+
+def test_train_path_runs_with_jax_blocked(tmp_path):
+    """A train step, a checkpoint round trip and ``build_trainer(smoke=True,
+    device="cpu")`` run for a few steps, in a process where importing jax
+    or repro fails."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "import importlib\n"
+        f"for name in {TRAIN_MODULES!r}:\n"
+        "    importlib.import_module(name)\n"
+        "import torch\n"
+        "from repro_torch.checkpoint import restore_checkpoint, save_checkpoint\n"
+        "from repro_torch.launch.train import build_trainer\n"
+        "from repro_torch.train import TrainState\n"
+        f"trainer, state, cfg = build_trainer('deepseek_v2_236b', smoke=True, steps=3, global_batch=2,\n"
+        f"    seq_len=8, checkpoint_dir={str(tmp_path / 'run')!r}, checkpoint_every=2, device='cpu')\n"
+        "batch = trainer.shard_batch(trainer.pipeline.batch_at(0))\n"
+        "new, metrics = trainer.train_step(state, batch)\n"
+        "assert torch.isfinite(metrics['loss']) and int(new.opt_state['step']) == 1\n"
+        f"save_checkpoint({str(tmp_path / 'one')!r}, 1, tuple(new))\n"
+        f"got, step, _ = restore_checkpoint({str(tmp_path / 'one')!r}, tuple(state))\n"
+        "assert step == 1 and torch.equal(got[0]['embed']['table'], new.params['embed']['table'])\n"
+        "trainer.run(state)\n"
+        "assert [h['step'] for h in trainer.history] == [0]\n"
+        "print('ok', [k for k in sys.modules if k.split('.')[0] in ('jax', 'repro')])\n"
+    )
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, env=env, timeout=120
     )
     assert proc.returncode == 0, proc.stderr
     assert "ok ['jax', 'repro']" in proc.stdout
