@@ -180,13 +180,29 @@ fails; nothing is caught and passed over:
      weights), 3 steps at batch 2 x 1024: losses finite, the attention
      weights' gradients finite and non-zero, step times and peak memory,
      and a fourth step's forward-and-backward and AdamW timed apart.
+ 18. the emulated-intrinsic route (run right after phase 6): the 4 zoo
+     models x gemmini, edge_npu x 3 modes compiled with ``Target(acc,
+     mode, use_pallas=False)`` on ``cuda`` and on the CPU, with the
+     descriptions' compute intrinsics wrapped to count their calls: on
+     ``cuda`` each ``run``, ``run(use_plan=False)`` and ``run_many`` (both
+     ways) bit-equal to the CPU run and to the kernel route's module on
+     ``cuda``, the intrinsic calls per run equal to the reference's
+     (``EMULATED_CALLS``), one run's plan steps issued under
+     ``torch.cuda.set_sync_debug_mode("error")`` (no host copy, no wait;
+     feeds uploaded and outputs read outside it), and 0 kernel launches
+     in the window; run p50 of the emulated, interpreted and kernel
+     routes.  Then a saturating intrinsic on ``cuda`` equal to the CPU and
+     off the kernel's answer (its batched probe falls back), an in-place
+     intrinsic stable over 5 runs, smaller tile limits refused at compile
+     time, and ``integrate`` + ``backend.compile`` warning twice and equal
+     to ``repro_torch.compile`` on both routes.
 
 The launch counts are set to 0 just before each of phases 4, 6-10, the
 paths of 11 (each serve call too), the LM's served runs and smoke
 archs of 13, the traced modules' runs of 14, the sharded modules'
 runs and serve call of 15, the tpu_v5e modules' runs and each
-full-width model's routed run of 16, and phase 17 (which must launch
-none), and read just after; the
+full-width model's routed run of 16, and phases 17 and 18 (which must
+launch none), and read just after; the
 ``launches`` of the kernels line are their sum.  It prints a ``{"kernels": [...]}`` line (the toycar@16
 sums of phase 3; the per-case times of phases 5 and 13 go to the report
 only, to keep the line short), a summary of the paths, and as its last
@@ -2870,6 +2886,286 @@ def train_phase(dev: torch.device, card_line: str, work: Path, windows: dict) ->
     return summary
 
 
+# -- phase 18: the emulated-intrinsic route and the interpreter on the card -----
+
+#: intrinsic calls per run of each zoo model at batch 1 on the emulated
+#: route, the same in every mode: (gemmini, edge_npu), as the reference's
+#: numpy emulation makes them (tests/test_torch_emulated.py holds both)
+EMULATED_CALLS = {"qcnn": (64, 386), "toycar_mlp": (912, 3616), "mlp_tiny": (8, 32),
+                  "transformer_block": (136, 1088)}
+EMULATED_ACCELERATORS = ("gemmini", "edge_npu")
+EMULATED_FEEDS = 2
+EMULATED_SAMPLES = 5
+INTERPRETED_SAMPLES = 3
+
+
+def counted_description(acc: str):
+    """A fresh ``acc`` description whose compute intrinsics count their calls."""
+    desc = repro_torch.REGISTRY.get(acc)
+    calls = [0]
+    for intr in desc.intrinsics.values():
+        if intr.kind == "compute":
+            def wrapped(a, b, acc_tile, _fn=intr.fn):
+                calls[0] += 1
+                return _fn(a, b, acc_tile)
+
+            intr.fn = wrapped
+    return desc, calls
+
+
+def with_intrinsic(acc: str, fn):
+    desc = repro_torch.REGISTRY.get(acc)
+    for intr in desc.intrinsics.values():
+        if intr.kind == "compute":
+            intr.fn = fn
+    return desc
+
+
+def emulated_target(acc, mode: str, where) -> repro_torch.Target:
+    return repro_torch.Target(acc, mode=mode, device=str(where), use_pallas=False)
+
+
+def to_cpu(*args, **kwargs) -> bool:
+    """Whether ``Tensor.to(*args, **kwargs)`` moves the tensor to the CPU."""
+    for v in (*args, kwargs.get("device")):
+        if isinstance(v, torch.Tensor):
+            v = v.device
+        if isinstance(v, (str, torch.device)) and torch.device(v).type == "cpu":
+            return True
+    return False
+
+
+class NoHostReads:
+    """While active, reading a CUDA tensor on the host raises: ``cpu``,
+    ``numpy``, ``item``, ``tolist``, ``to`` a CPU device and the implicit
+    conversions (``bool``, ``int``, ``float``).  A check beside the sync
+    debug mode, which torch calls a prototype that does not yet detect
+    every synchronizing operation."""
+
+    NAMES = ("cpu", "numpy", "item", "tolist", "to", "__bool__", "__int__", "__float__", "__index__")
+
+    def __enter__(self):
+        self._own = {name: torch.Tensor.__dict__.get(name) for name in self.NAMES}
+        self._saved = {name: getattr(torch.Tensor, name) for name in self.NAMES}
+
+        def guard(name, fn):
+            def guarded(t, *a, **kw):
+                if t.is_cuda and (name != "to" or to_cpu(*a, **kw)):
+                    raise RuntimeError(f"host read of a CUDA tensor ({name}) inside a step")
+                return fn(t, *a, **kw)
+            return guarded
+
+        for name, fn in self._saved.items():
+            setattr(torch.Tensor, name, guard(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for name, own in self._own.items():
+            if own is None:
+                delattr(torch.Tensor, name)  # inherited from the C base class
+            else:
+                setattr(torch.Tensor, name, own)
+        return False
+
+
+def steps_without_host_copy(module, feeds: dict) -> list[np.ndarray]:
+    """One run of ``module``'s plan with its feeds put on the card first and
+    every step issued under ``torch.cuda.set_sync_debug_mode("error")`` and
+    ``NoHostReads``: a step that copies to or from the host, or waits for
+    the card, raises."""
+    plan = module.plan
+    arena = plan.new_arena()
+    for name, slot in plan.input_slots:
+        arena[slot] = to_tensor(feeds[name], plan.device)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with NoHostReads():
+            for step in plan.steps:
+                arena[step.slot] = step.fn(*[arena[i] for i in step.arg_slots])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return [to_numpy(arena[i]) for i in plan.output_slots]
+
+
+def same_outputs(got, want) -> bool:
+    return len(got) == len(want) and all(
+        g.shape == w.shape and g.dtype == w.dtype and np.array_equal(g, w) for g, w in zip(got, want))
+
+
+def wall_p50_ms(fn, samples: int) -> float:
+    times = []
+    for _ in range(samples):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.percentile(times, 50))
+
+
+def custom_intrinsic_checks(dev: torch.device, card_line: str) -> dict:
+    """A saturating intrinsic changes the answer as on the CPU (and its
+    batched probe falls back), an in-place one stays stable, and smaller
+    tile limits are refused at compile time; the deprecated two-step flow
+    equals the front door on both routes."""
+    from repro_torch.core.example_graphs import quantized_conv_dense_graph
+    from repro_torch.core.intrinsics import int32_tile_product
+
+    out = {}
+    model = zoo.get_model("transformer_block")
+    feeds = model.feeds(0, batch=2)
+    sat_calls, plain_calls = [0], [0]
+
+    def saturating(a, b, acc_tile):
+        sat_calls[0] += 1
+        return acc_tile + torch.clamp(int32_tile_product(a, b), -300, 300)
+
+    def plain(a, b, acc_tile):
+        plain_calls[0] += 1
+        return acc_tile + int32_tile_product(a, b)
+
+    sat = {where: repro_torch.compile(model.build(batch=2), emulated_target(
+        with_intrinsic("gemmini", saturating), "optimized", where)) for where in (dev, "cpu")}
+    mul_add = repro_torch.compile(model.build(batch=2), emulated_target(
+        with_intrinsic("gemmini", plain), "optimized", dev))
+    kernel = repro_torch.compile(model.build(batch=2), repro_torch.Target("gemmini", device=str(dev)))
+    sat_calls[0] = plain_calls[0] = 0
+    got = sat[dev].run(feeds)
+    check(same_outputs(got, sat["cpu"].run(feeds)), "saturating intrinsic: cuda != cpu")
+    on_card = sat_calls[0] // 2
+    check(not np.array_equal(got[0], kernel.run(feeds)[0]), "saturating intrinsic: equals the kernel's answer")
+    mul_add.run(feeds)
+    check(on_card > plain_calls[0], f"saturating intrinsic: {on_card} calls, the multiply-add "
+          f"{plain_calls[0]}: the batched probe did not fall back")
+    out["saturating"] = {"calls_per_run": on_card, "multiply_add_calls_per_run": plain_calls[0],
+                         "codes_changed": int((got[0] != kernel.run(feeds)[0]).sum())}
+
+    def inplace(a, b, acc_tile):
+        acc_tile.add_(int32_tile_product(a, b))
+        return acc_tile
+
+    mlp = zoo.get_model("mlp_tiny")
+    ip = {where: repro_torch.compile(mlp.build(), emulated_target(
+        with_intrinsic("edge_npu", inplace), "optimized", where)) for where in (dev, "cpu")}
+    f = mlp.feeds(3)
+    first = ip[dev].run(f)
+    check(same_outputs(first, ip["cpu"].run(f)), "in-place intrinsic: cuda != cpu")
+    for _ in range(3):
+        check(same_outputs(ip[dev].run(f), first), "in-place intrinsic: repeated runs differ")
+    check(same_outputs(ip[dev].run(f, use_plan=False), first), "in-place intrinsic: interpreted != planned")
+    out["in_place_runs_equal"] = 5
+
+    def shrunk(acc):
+        desc = repro_torch.REGISTRY.get(acc)
+        for intr in desc.intrinsics.values():
+            if intr.kind == "compute":
+                intr.tile_limits = {"N": 4, "C": 4, "K": 4}
+        return desc
+
+    try:
+        repro_torch.compile(zoo.get_model("toycar_mlp").build(), emulated_target(shrunk("gemmini"), "optimized", dev))
+    except ValueError as e:
+        check("Eq.(1) violated upstream" in str(e), f"smaller tile limits: {e}")
+        out["tensorize_refusal"] = str(e)
+    else:
+        check(False, "smaller tile limits: compiled")
+
+    x = {"x": np.random.default_rng(1).integers(-128, 128, (1, 10, 10, 8)).astype(np.int8)}
+    legacy = {}
+    for use_pallas in (False, True):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            backend = repro_torch.integrate("gemmini", use_pallas=use_pallas)
+            module = backend.compile(quantized_conv_dense_graph(), device=str(dev))
+        n = sum(issubclass(w.category, ReproDeprecationWarning) for w in caught)
+        check(n == 2, f"legacy surface (use_pallas={use_pallas}): {n} deprecation warnings, expected 2")
+        front = repro_torch.compile(quantized_conv_dense_graph(), repro_torch.Target(
+            "gemmini", device=str(dev), use_pallas=use_pallas))
+        legacy[use_pallas] = module.run(x)
+        check(same_outputs(legacy[use_pallas], front.run(x)),
+              f"legacy surface (use_pallas={use_pallas}): integrate + compile != repro_torch.compile")
+    out["legacy_routes_agree"] = same_outputs(legacy[False], legacy[True])
+    print(f"emulated: saturating intrinsic on cuda equal to cpu, {out['saturating']['codes_changed']} codes "
+          f"off the kernel's, {on_card} intrinsic calls per run (multiply-add {plain_calls[0]}: the batched "
+          f"probe fell back); in-place intrinsic stable over 5 runs; smaller tile limits refused; "
+          f"integrate + backend.compile warned twice and equal repro_torch.compile on both routes "
+          f"(routes agree: {out['legacy_routes_agree']}) [{card_line}]")
+    return out
+
+
+def emulated_phase(dev: torch.device, compiled: dict, card_line: str, windows: dict) -> dict:
+    """Phase 18: the 24 emulated modules (4 zoo models x gemmini, edge_npu x
+    3 modes) on the card against the CPU and the kernel route, with the
+    intrinsic calls per run, the interpreter, no kernel launch and no host
+    copy in the emulated window; then the custom intrinsics and the
+    legacy surface."""
+    t_phase = time.perf_counter()
+    modules = {}
+    for name in EMULATED_CALLS:
+        model = zoo.get_model(name)
+        for acc in EMULATED_ACCELERATORS:
+            for mode in MODES:
+                desc, calls = counted_description(acc)
+                cpu_desc, _ = counted_description(acc)
+                kern = compiled.get((name, acc, mode, None), {}).get("cuda") or repro_torch.compile(
+                    model.build(), repro_torch.Target(acc, mode=mode, device=str(dev)))
+                modules[name, acc, mode] = {
+                    "cuda": repro_torch.compile(model.build(), emulated_target(desc, mode, dev)),
+                    "cpu": repro_torch.compile(model.build(), emulated_target(cpu_desc, mode, "cpu")),
+                    "kernel": kern, "calls": calls,
+                }
+    summary = {}
+    wants = {}
+    for (name, acc, mode), mods in modules.items():
+        feeds = [zoo.get_model(name).feeds(seed) for seed in range(EMULATED_FEEDS)]
+        wants[name, acc, mode] = [mods["cpu"].run(f) for f in feeds]
+    gemm.reset_launches()  # the emulated window starts here
+    for (name, acc, mode), mods in modules.items():
+        label = path_label(name, acc, mode, None)
+        emu, calls = mods["cuda"], mods["calls"]
+        check(not emu.backend.use_pallas, f"{label}: not on the emulated route")
+        check(emu.modeled_cycles() == mods["cpu"].modeled_cycles() == mods["kernel"].modeled_cycles(),
+              f"{label}: modeled cycles differ")
+        feeds = [zoo.get_model(name).feeds(seed) for seed in range(EMULATED_FEEDS)]
+        want = wants[name, acc, mode]
+        expected = EMULATED_CALLS[name][acc == "edge_npu"]
+        for f, w in zip(feeds, want):
+            calls[0] = 0
+            check(same_outputs(emu.run(f), w), f"{label}: emulated cuda != cpu")
+            check(calls[0] == expected, f"{label}: {calls[0]} intrinsic calls per run, expected {expected}")
+            calls[0] = 0
+            check(same_outputs(emu.run(f, use_plan=False), w), f"{label}: interpreted != cpu")
+            check(calls[0] == expected, f"{label}: interpreted: {calls[0]} intrinsic calls per run")
+        for got, w in zip(emu.run_many(feeds) + emu.run_many(feeds, use_plan=False), want + want):
+            check(same_outputs(got, w), f"{label}: run_many != cpu")
+        check(same_outputs(steps_without_host_copy(emu, feeds[0]), want[0]),
+              f"{label}: steps under the sync check != cpu")
+        summary[label] = {
+            "intrinsic_calls_per_run": expected,
+            "emulated_run_ms_p50": wall_p50_ms(lambda: emu.run(feeds[0]), EMULATED_SAMPLES),
+            "interpreted_run_ms_p50": wall_p50_ms(lambda: emu.run(feeds[0], use_plan=False),
+                                                  INTERPRETED_SAMPLES),
+        }
+    windows["emulated route"] = dict(gemm.LAUNCHES)  # read just after it
+    check(not any(windows["emulated route"].values()),
+          f"the emulated route launched the kernel: {windows['emulated route']}")
+    for (name, acc, mode), mods in modules.items():
+        label = path_label(name, acc, mode, None)
+        feeds = [zoo.get_model(name).feeds(seed) for seed in range(EMULATED_FEEDS)]
+        for f, w in zip(feeds, wants[name, acc, mode]):
+            check(same_outputs(mods["kernel"].run(f), w), f"{label}: emulated != kernel route")
+        summary[label]["kernel_run_ms_p50"] = wall_p50_ms(lambda: mods["kernel"].run(feeds[0]), EMULATED_SAMPLES)
+        s_ = summary[label]
+        print(f"emulated {label}: bit-equal to cpu and to the kernel route, {s_['intrinsic_calls_per_run']} "
+              f"intrinsic calls per run, no host copy in its steps; run p50 emulated "
+              f"{s_['emulated_run_ms_p50']:.3f} ms, interpreted {s_['interpreted_run_ms_p50']:.3f} ms, "
+              f"kernel route {s_['kernel_run_ms_p50']:.3f} ms [{card_line}]")
+    custom = custom_intrinsic_checks(dev, card_line)
+    seconds = time.perf_counter() - t_phase
+    print(f"emulated route: {len(summary)} modules on {dev.type}, 0 kernel launches in its window, "
+          f"phase time {seconds:.1f} s [{card_line}]")
+    return {"modules": summary, "custom": custom, "seconds": seconds}
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description="drive the port on one NVIDIA card")
     ap.add_argument("--report", help="also write everything measured to this JSON file")
@@ -2935,6 +3231,7 @@ def main(argv: list[str] | None = None) -> int:
     gemm.reset_launches()  # the new paths' run starts here
     paths = new_paths_phase(compiled, cases, card_line)
     windows["new paths"] = dict(gemm.LAUNCHES)  # read just after it
+    emulated = emulated_phase(dev, compiled, card_line, windows)  # phase 18: sets the counts to 0 first
     served = serve_phase(dev, cases, card_line, windows)
     measured = measured_dse_phase(dev, card_line, work, windows)
     artifact = artifact_phase(dev, card_line, work, windows)
@@ -3009,13 +3306,13 @@ def main(argv: list[str] | None = None) -> int:
               "decode_paths": decode_paths, "decode_serve": decode_served, "decode_checks": decode_checks,
               "verify_gate": gate, "host_ops": host_ops, "lm": lm_run, "launch_windows": windows,
               "frontend": frontend, "sharded": sharded, "tpu_v5e": tpu, "full_width": full_width,
-              "training": training, "path_cases": path_cases}
+              "training": training, "emulated": emulated, "path_cases": path_cases}
     if args.report:
         Path(args.report).parent.mkdir(parents=True, exist_ok=True)
         Path(args.report).write_text(json.dumps({**report, **line}, indent=1))
     # the per-path summaries are long and printed above, path by path
     long = ("paths", "measured_dse", "pipelined", "decode_paths", "path_cases", "lm", "frontend", "sharded",
-            "tpu_v5e", "full_width", "training")
+            "tpu_v5e", "full_width", "training", "emulated")
     print(json.dumps({k: v for k, v in report.items() if k not in long}))
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

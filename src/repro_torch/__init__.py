@@ -31,7 +31,12 @@ cache (``~/.cache/repro_torch``), and ``repro_torch.save`` /
 boots with no DSE and no passes.
 
 The target runs on the card by default; ``Target(..., device="cpu")``
-runs the kernels' plain PyTorch versions instead.  The package imports
+runs the kernels' plain PyTorch versions instead.  ``Target(...,
+use_pallas=False)`` takes the reference's emulated route: a tiled loop
+that calls the description's registered compute intrinsic once per PE
+tile, on the target's device.  The deprecated two-step flow
+(``repro_torch.integrate`` + ``backend.compile``) still works and warns
+``ReproDeprecationWarning``.  The package imports
 ``torch`` and numpy, never ``jax`` and nothing of ``repro``, whose
 modules it mirrors path for path.
 """
@@ -50,14 +55,16 @@ from repro_torch.api import (
 )
 from repro_torch.core.accel import AcceleratorDescription
 from repro_torch.core.artifact import ArtifactError
-from repro_torch.core.arch_spec import ArchSpec, GemmWorkload
+from repro_torch.core.arch_spec import ArchSpec, GemmWorkload, conv2d_as_gemm
 from repro_torch.core.batching import BatchedModule
+from repro_torch.core.deprecation import ReproDeprecationWarning
 from repro_torch.core.executor import CompiledModule, FeedError
 from repro_torch.core.registry import (
     REGISTRY,
     AcceleratorRegistry,
     IntegrationError,
     build_integrated_backend,
+    integrate,
     register_accelerator,
     validate_description,
 )
@@ -85,6 +92,7 @@ __all__ = [
     "GemmWorkload",
     "IntegrationError",
     "REGISTRY",
+    "ReproDeprecationWarning",
     "ScheduleCache",
     "ShardedModule",
     "Target",
@@ -95,9 +103,11 @@ __all__ = [
     "build_integrated_backend",
     "clear_backend_cache",
     "compile",
+    "conv2d_as_gemm",
     "decode_model_names",
     "default_cache_dir",
     "get_decode_model",
+    "integrate",
     "load",
     "register_accelerator",
     "save",

@@ -44,8 +44,11 @@ memoized in-process (``backend_for``), so repeated compiles repeat no
 DSE sweep.  ``CompileOptions(measure_top_k=K)`` re-ranks each node's K
 best modeled schedules by timing the kernel on the target's device.
 
-Port of ``repro.api``: ``Target`` (without ``use_pallas``: the route
-follows the device), ``CompileOptions``, the backend memo, ``compile``
+Port of ``repro.api``: ``Target`` (its ``use_pallas`` defaults to True,
+the kernel route, where the reference's defaults to False, its numpy
+emulation; ``Target(..., use_pallas=False)`` runs the emulated route over
+the description's compute intrinsics, on the target's device too),
+``CompileOptions``, the backend memo, ``compile``
 for a graph, a zoo name (the decode zoo's names included: their
 decode-step form) or a callable, sharded compiles (``Target(devices=,
 mesh=)``), ``save`` and ``load``, and the ``verify`` gate.  A zoo name
@@ -61,7 +64,7 @@ from __future__ import annotations
 
 import threading
 from collections import OrderedDict
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from pathlib import Path
 
 import torch
@@ -75,7 +78,6 @@ from repro_torch.core.pass_manager import PassContext
 from repro_torch.core import pipeline
 from repro_torch.core.pipeline import PUBLIC_MODES, CompilerBackend, resolve_mode
 from repro_torch.core.registry import REGISTRY, build_integrated_backend
-from repro_torch.core.scheduler import mip_installable
 from repro_torch.core.sharded import ShardedModule
 from repro_torch.core.verify import VerifyError, resolve_verify, verify_collectives
 from repro_torch.core.zoo import DECODE_ZOO, get_decode_model, get_model
@@ -137,10 +139,13 @@ class Target:
     ``accelerator`` is a registered name or an ``AcceleratorDescription``;
     ``mode`` is one of ``naive`` / ``baseline`` / ``optimized`` (the paper's
     evaluation matrix; the internal mode names are accepted as aliases);
-    ``use_mip`` is the reference's switch for the extended-CoSA MIP, which
-    is not ported: where ``pulp`` is absent, True schedules with the greedy
-    heuristic as the reference does there, and where ``pulp`` is installed
-    the compile refuses True; ``cache`` attaches the persistent schedule
+    ``use_mip`` solves the extended-CoSA MIP where ``pulp`` is installed
+    (the greedy heuristic answers elsewhere, as in the reference);
+    ``use_pallas`` selects the route: True (the default) runs every
+    accelerator step on the scheduled GEMM kernel, False on the emulated
+    tiled loop that calls the description's compute intrinsic once per PE
+    tile (``tpu*`` descriptions take the kernel either way); ``cache``
+    attaches the persistent schedule
     cache at ``cache_dir`` (default ``$REPRO_TORCH_CACHE_DIR`` or
     ``~/.cache/repro_torch``); ``parallel_dse`` sweeps cold-cache
     candidates on a thread pool; ``device`` is ``"cuda"`` (the default:
@@ -161,6 +166,7 @@ class Target:
     accelerator: str | AcceleratorDescription
     mode: str = "optimized"
     use_mip: bool = True
+    use_pallas: bool = True
     cache: bool = True
     cache_dir: str | Path | None = None
     parallel_dse: bool = False
@@ -258,6 +264,8 @@ class Target:
             else getattr(self.accelerator, "name", "<description>")
         )
         base = f"{name}:{self.mode}@{self.device}"
+        if not self.use_pallas:
+            base += "/emulated"
         if isinstance(self.devices, int) and self.devices > 1:
             try:
                 dp, mp = self.resolved_mesh
@@ -282,6 +290,9 @@ class Target:
     @property
     def internal_mode(self) -> str:
         return resolve_mode(self.mode)
+
+    def with_mode(self, mode: str) -> "Target":
+        return replace(self, mode=mode)
 
     def torch_device(self) -> torch.device:
         """The device the module runs on; raises when it is a card that
@@ -370,6 +381,18 @@ def clear_backend_cache() -> None:
         _BACKENDS.clear()
 
 
+def _intrinsic_key(target: Target, desc: AcceleratorDescription) -> tuple:
+    """What the emulated route's backend memo must also tell apart: the
+    fingerprint keys schedules, which do not depend on what the compute
+    intrinsics compute, but the emulated route calls them.  A registered
+    factory defines its intrinsics, so their code names them; a
+    description object is told apart by its intrinsic functions."""
+    fns = [(i.name, i.fn) for i in desc.intrinsics.values() if i.kind == "compute"]
+    if isinstance(target.accelerator, str):
+        return tuple((name, getattr(fn, "__code__", fn)) for name, fn in fns)
+    return tuple(fns)
+
+
 def backend_for(target: Target, *, fresh: bool = False) -> CompilerBackend:
     """Resolve (and memoize) the generated backend for a target.  The mode
     and the device are compile-time properties, so all modes and devices
@@ -383,12 +406,11 @@ def backend_for(target: Target, *, fresh: bool = False) -> CompilerBackend:
     key = (
         desc.fingerprint(),
         target.use_mip,
-        # where pulp is installed use_mip=True is refused at backend build
-        # (core/scheduler.py); a backend built without it must not answer
-        mip_installable(),
+        target.use_pallas,
         target.cache,
         str(target.cache_dir),
         target.parallel_dse,
+        None if target.use_pallas else _intrinsic_key(target, desc),
     )
     if not fresh:
         with _BACKENDS_LOCK:
@@ -399,6 +421,7 @@ def backend_for(target: Target, *, fresh: bool = False) -> CompilerBackend:
     backend = build_integrated_backend(
         desc,
         use_mip=target.use_mip,
+        use_pallas=target.use_pallas,
         cache=target.cache,
         cache_dir=target.cache_dir,
         parallel_dse=target.parallel_dse,
@@ -598,7 +621,7 @@ def compile(
                 source_fingerprint=src_fp,
                 arch_fingerprint=backend.desc.fingerprint(),
                 mode=target.internal_mode,
-                use_pallas=True,  # the kernel route, as the manifests say
+                use_pallas=backend.use_pallas,
                 bucket=bucket,
                 measure_top_k=options.measure_top_k,
                 measure_device=options.measure_top_k and pipeline.device_tag(device),

@@ -36,15 +36,17 @@ Port of ``repro.core.artifact``: the module and batched parts, with the
 reference's manifest schema (``SCHEMA_VERSION`` 1, the same keys), so an
 artifact saved by either package loads in the other.  An artifact does
 not depend on the device: ``load_module(path, device=...)`` names where
-the restored module runs.  Two manifest keys describe the port's route:
+the restored module runs.  Two manifest keys describe the route:
 
-  * ``use_pallas`` is always True: every accelerator step of the port runs
-    the scheduled GEMM kernel, which is the reference's Pallas route (its
-    ``use_pallas=True``); a reference artifact saved with False (the numpy
-    emulation) restores onto the kernel too, bit-equal on the zoo;
+  * ``use_pallas`` names the module's route, as in the reference: True
+    for the scheduled GEMM kernel, False for the emulated tiled loop over
+    the compute intrinsics; ``load`` builds its backend with the
+    manifest's route, so a reference artifact saved with the reference's
+    default (False) restores onto the port's emulated route;
   * ``kernel_configs`` holds the port's configs (``GemmKernelConfig``
-    fields, the schedule's exact tiles); load re-derives configs from the
-    schedules in both packages and never reads them.
+    fields, the schedule's exact tiles) where the route is the kernel;
+    load re-derives configs from the schedules in both packages and never
+    reads them.
 
 A graph's decode-state contract (``cache_spec``) travels with it and is
 part of its fingerprint, as in the reference, so decode artifacts
@@ -333,13 +335,15 @@ def save_module(
     schedules = {}
     kernel_configs = {}
     backend = module.backend
+    use_pallas = bool(getattr(backend, "use_pallas", True))
+    kernel_route = backend is not None and (use_pallas or module.desc.name.startswith("tpu"))
     for n, op in module.ops.items():
         sd = result_to_dict(op.strategy.schedule_result)
         # the ranked candidate list only feeds measured DSE, which never
         # runs at load time — drop it to keep artifacts lean
         sd.pop("top", None)
         schedules[str(idx[n])] = sd
-        if backend is not None:
+        if kernel_route:
             cfg = kernel_config_for(module.desc, backend.mapping_gen, n, op.strategy)
             kernel_configs[str(idx[n])] = _encode_attr(dataclasses.asdict(cfg))
     use_mip = bool(getattr(getattr(backend, "scheduler", None), "use_mip", True))
@@ -349,8 +353,7 @@ def save_module(
         "accelerator": module.desc.name,
         "arch_fingerprint": module.desc.fingerprint(),
         "mode": module.mode,
-        # the port's route is the reference's kernel route (module docstring)
-        "use_pallas": True,
+        "use_pallas": use_pallas,
         "use_mip": use_mip,
         "graph_fingerprint": graph_fingerprint(module.graph),
         "source_fingerprint": source_fingerprint,
@@ -462,7 +465,11 @@ def load_module(path: str | Path, *, device: torch.device, desc=None) -> Compile
     # a fresh, clean-counter backend: nothing below touches the scheduler,
     # the stopwatch, or the pass manager — the zero-work cold start is
     # checkable on its counters (n_solver_calls == 0, n_measurements == 0)
-    backend = build_backend(desc, use_mip=manifest.get("use_mip", True))
+    backend = build_backend(
+        desc,
+        use_mip=manifest.get("use_mip", True),
+        use_pallas=manifest.get("use_pallas", True),
+    )
     module = CompiledModule(
         graph=graph,
         desc=desc,
@@ -477,7 +484,7 @@ def load_module(path: str | Path, *, device: torch.device, desc=None) -> Compile
         sr = result_from_dict(sd)
         strat = backend.strategy_gen.generate(n, sr)
         module.ops[n] = CompiledOp(
-            node=n, strategy=strat, executor=backend.executor_for(n, strat)
+            node=n, strategy=strat, executor=backend.executor_for(n, strat, module.device)
         )
     missing = [n.name for n in order if n.target == "accel" and n not in module.ops]
     if missing:

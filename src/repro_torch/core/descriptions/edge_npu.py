@@ -14,9 +14,11 @@ with the accelerator registry — no compiler internals are touched:
     module = repro_torch.compile(model, repro_torch.Target("edge_npu"))
 
 Port of ``repro.core.descriptions.edge_npu``: plain Python and numpy,
-copied with import changes only.  On the card every step runs the
-scheduled GEMM kernel with this description's 8-wide, weight-stationary
-block configs.
+copied with import changes only, except the compute intrinsic, which
+takes and returns torch tensors (``repro_torch.core.intrinsics``).  On
+the kernel route every step runs the scheduled GEMM kernel with this
+description's 8-wide, weight-stationary block configs; the emulated
+route (``Target(use_pallas=False)``) calls the intrinsic per 8x8x8 tile.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from repro_torch.core.arch_spec import (
     HardwareConstraints,
     MemLevel,
 )
+from repro_torch.core.intrinsics import int32_tile_product
 from repro_torch.core.registry import register_accelerator
 
 DIM = 8  # PE array dimension
@@ -131,7 +134,7 @@ def make_edge_npu_description() -> AcceleratorDescription:
     )
     def mma(a_tile, b_tile, acc_tile):
         # weight panel preloaded; activations streamed through the array
-        return acc_tile + a_tile.astype(np.int32) @ b_tile.astype(np.int32)
+        return acc_tile + int32_tile_product(a_tile, b_tile)
 
     @desc.register_hw_intrinsic(
         "edge_npu.mma_conv",

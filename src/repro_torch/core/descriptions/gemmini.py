@@ -8,7 +8,11 @@ together are ~200 LoC, which is exactly the paper's Table 1 claim — the
 LoC benchmark counts this file.
 
 Port of ``repro.core.descriptions.gemmini``: plain Python and numpy, copied with import changes
-only unless noted here.
+only, except the compute intrinsics, which follow the port's intrinsic
+contract (``repro_torch.core.intrinsics``): torch tensors on the module's
+device in, a torch tensor out, bit-equal to the reference's numpy
+``acc_tile + a_tile.astype(np.int32) @ b_tile.astype(np.int32)``.  The
+emulated route (``Target(use_pallas=False)``) calls them once per PE tile.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from repro_torch.core.arch_spec import (
     HardwareConstraints,
     MemLevel,
 )
+from repro_torch.core.intrinsics import int32_tile_product
 
 DIM = 16  # PE array dimension
 
@@ -123,7 +128,7 @@ def make_gemmini_description() -> AcceleratorDescription:
     )
     def matmul_ws(a_tile, b_tile, acc_tile):
         # matmul.preload / matmul.compute.preloaded semantics
-        return acc_tile + a_tile.astype(np.int32) @ b_tile.astype(np.int32)
+        return acc_tile + int32_tile_product(a_tile, b_tile)
 
     @desc.register_hw_intrinsic(
         "gemmini.matmul_os",
@@ -133,7 +138,7 @@ def make_gemmini_description() -> AcceleratorDescription:
         dataflow="OS",
     )
     def matmul_os(a_tile, b_tile, acc_tile):
-        return acc_tile + a_tile.astype(np.int32) @ b_tile.astype(np.int32)
+        return acc_tile + int32_tile_product(a_tile, b_tile)
 
     @desc.register_hw_intrinsic(
         "gemmini.mvin", kind="memory", operand="In", stride_elems=DIM

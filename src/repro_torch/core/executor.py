@@ -12,11 +12,11 @@ stage assignment, ``build_plan``, ``CompiledModule.run``/``run_many``
 ``modeled_cycles`` (with the ring-interconnect ``comm`` term of sharded
 plans), ``schedules``, the KV-cache ops, ``shard_slice`` and the
 collective steps (``collective.collective_fn``, a rendezvous through the
-thread's ``CollectiveSession``).  The per-node interpreter
-(``use_plan=False``) waits for its slice.  Host ops are torch ops with
-every cast written out: numpy 2 and torch promote differently, so each op
-computes in the dtype numpy's promotion would give, decided when the plan
-is built.
+thread's ``CollectiveSession``), and the per-node interpreter
+(``use_plan=False``), which runs on the module's device too.  Host ops
+are torch ops with every cast written out: numpy 2 and torch promote
+differently, so each op computes in the dtype numpy's promotion would
+give, decided when the plan is built.
 
 ``pipelined=True`` keeps the reference's signature and its build-time
 stage assignment (each step's lane and cross-lane watermark, which the
@@ -98,6 +98,14 @@ def _float_result(dtype: str) -> torch.dtype:
     return t if t.is_floating_point else torch.float64
 
 
+def gelu64(x: torch.Tensor) -> torch.Tensor:
+    """The reference's ``ir.gelu_ref`` (tanh approximation, in float64) on
+    tensors: the one gelu of the host op and the fused epilogues."""
+    xf = x.to(torch.float64)
+    inner = math.sqrt(2.0 / math.pi) * (xf + 0.044715 * torch.pow(xf, 3))
+    return 0.5 * xf * (1.0 + torch.tanh(inner))
+
+
 def max_pool2d(x: torch.Tensor, size: int, stride: int) -> torch.Tensor:
     """NHWC window max, exact for every dtype (pure comparisons); the
     reference's ``ir.max_pool2d_ref`` on tensors."""
@@ -154,14 +162,7 @@ def compile_host_op(
     if op == "relu":
         return lambda x: torch.clamp_min(x, 0)
     if op == "gelu":
-        c = scalar(math.sqrt(2.0 / math.pi), torch.float64)
-
-        def _gelu(x):
-            xf = x.to(torch.float64)
-            inner = c * (xf + 0.044715 * torch.pow(xf, 3))
-            return (0.5 * xf * (1.0 + torch.tanh(inner))).to(dt)
-
-        return _gelu
+        return lambda x: gelu64(x).to(dt)
     if op in ("add", "sub", "mul"):
         rt = result_dtype(*in_dtypes)
         fn = {"add": torch.add, "sub": torch.sub, "mul": torch.mul}[op]
@@ -433,12 +434,14 @@ def build_plan(
     const_slots: list[tuple[int, torch.Tensor]] = []
     steps: list[PlanStep] = []
     append_checks: list[tuple[str, int, int]] = []
+    const_of: dict[Node, torch.Tensor] = {}
     for n in order:
         slot = slot_of[n]
         if n.op == "input":
             input_slots.append((n.name, slot))
         elif n.op == "const":
-            const_slots.append((slot, to_tensor(n.value, device)))
+            const_of[n] = to_tensor(n.value, device)
+            const_slots.append((slot, const_of[n]))
         else:
             arg_slots = tuple(
                 _NONE_SLOT if i is None else slot_of[i] for i in n.inputs
@@ -449,6 +452,19 @@ def build_plan(
                 append_checks.append((pos.name, update.shape[-2], cache.shape[-2]))
             if n in ops:
                 fn = ops[n].executor
+                # the emulated route's executors offer plan-time
+                # specialization over inputs that are compile-time
+                # constants (pre-padded weight panels, pre-widened bias)
+                specialize = getattr(fn, "specialize_consts", None)
+                if specialize is not None:
+                    consts = {
+                        i: const_of[inp]
+                        for i, inp in enumerate(n.inputs)
+                        if inp is not None and inp.is_const()
+                    }
+                    specialized = specialize(consts) if consts else None
+                    if specialized is not None:
+                        fn = specialized
             else:
                 fn = compile_host_op(n, device, pos_checked=pos_checked)
             lane = "accel" if n in ops else "host"
@@ -528,12 +544,21 @@ class CompiledModule:
         return self.plan
 
     def run(
-        self, feeds: dict[str, np.ndarray], *, pipelined: bool = False
+        self,
+        feeds: dict[str, np.ndarray],
+        *,
+        use_plan: bool = True,
+        pipelined: bool = False,
     ) -> list[np.ndarray]:
         """Execute the module on its device; outputs come back as numpy.
-        ``pipelined=True`` runs the same sequential loop (see the module
-        docstring)."""
+        ``use_plan=False`` runs the per-node interpreter (the planned
+        executor's equivalence baseline, and Table 2's).  ``pipelined=True``
+        runs the same sequential loop (see the module docstring)."""
         self._check_feeds(feeds)
+        if pipelined and not use_plan:
+            raise ValueError("pipelined execution requires use_plan=True")
+        if not use_plan:
+            return self._run_interpreted(feeds)
         plan = self.finalize()
         return [to_numpy(t) for t in plan.execute(feeds, plan.new_arena())]
 
@@ -541,18 +566,39 @@ class CompiledModule:
         self,
         feeds_list: list[dict[str, np.ndarray]],
         *,
+        use_plan: bool = True,
         pipelined: bool = False,
     ) -> list[list[np.ndarray]]:
         """Repeated invocation over a list of feeds (serving-style traffic):
         one arena for the whole loop, every call enqueued before the first
-        result is copied back.  ``pipelined=True`` runs the same loop (see
-        the module docstring)."""
+        result is copied back.  ``use_plan=False`` interprets each call;
+        ``pipelined=True`` runs the same loop (see the module docstring)."""
         for feeds in feeds_list:
             self._check_feeds(feeds)
+        if pipelined and not use_plan:
+            raise ValueError("pipelined execution requires use_plan=True")
+        if not use_plan:
+            return [self._run_interpreted(f) for f in feeds_list]
         plan = self.finalize()
         arena = plan.new_arena()
         outs = [plan.execute(feeds, arena) for feeds in feeds_list]
         return [[to_numpy(t) for t in call] for call in outs]
+
+    def _run_interpreted(self, feeds: dict[str, np.ndarray]) -> list[np.ndarray]:
+        """The per-node interpreter: re-toposorts and re-dispatches on every
+        call, on the module's device, with the unspecialised executors and
+        a host op compiled per node per call."""
+        vals: dict[Node, torch.Tensor] = {}
+        for n in self.graph.toposort():
+            if n.op == "input":
+                vals[n] = to_tensor(feeds[n.name], self.device)
+            elif n.op == "const":
+                vals[n] = to_tensor(n.value, self.device)
+            else:
+                ins = [vals[i] if i is not None else None for i in n.inputs]
+                fn = self.ops[n].executor if n in self.ops else compile_host_op(n, self.device)
+                vals[n] = fn(*ins)
+        return [to_numpy(vals[o]) for o in self.graph.outputs]
 
     # -- cycle model ---------------------------------------------------------
     def modeled_cycles(self) -> dict[str, float]:

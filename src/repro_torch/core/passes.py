@@ -32,11 +32,10 @@ Accelerator descriptions can contribute target-specific patterns via
 ``AcceleratorDescription.register_rewrite_pattern`` — they run right after
 the generic legalization rules.
 
-Port of ``repro.core.passes``: the three per-mode pipelines and the
-shard-partitioning pass of sharded plans (``make_shard_pass``).  The
-reference's functional wrappers of the pre-PassManager surface
-(``legalize``, ``fold_constants``, ``partition``, ``run_frontend``) are
-not ported.
+Port of ``repro.core.passes``: the three per-mode pipelines, the
+shard-partitioning pass of sharded plans (``make_shard_pass``), and the
+functional wrappers of the pre-PassManager surface (``legalize``,
+``fold_constants``, ``partition``, ``run_frontend``).
 """
 
 from __future__ import annotations
@@ -47,8 +46,8 @@ from repro_torch.core.accel import AcceleratorDescription
 from repro_torch.core.collective import ShardSpec
 from repro_torch.core import ir
 from repro_torch.core.ir import Graph, Node, const, execute_node
-from repro_torch.core.pass_manager import GraphPass, PassContext, rewrite_pass
-from repro_torch.core.rewrite import Match, P, any_, rule
+from repro_torch.core.pass_manager import GraphPass, PassContext, PassManager, rewrite_pass
+from repro_torch.core.rewrite import Match, P, any_, apply_rules, rule
 
 _CORE_OPS = ("dense", "conv2d")
 _GENERALIZED = ("generalized_dense", "generalized_conv2d")
@@ -771,3 +770,42 @@ def passes_for_mode(
     if shard is not None and shard.devices > 1:
         passes.insert(len(passes) - 1, make_shard_pass(shard))
     return passes
+
+
+# ---------------------------------------------------------------------------
+# Back-compat functional API (the pre-PassManager surface).
+# ---------------------------------------------------------------------------
+
+
+def legalize(graph: Graph) -> Graph:
+    """Fuse op sequences into generalized operators (rules in priority
+    order; the engine drives them to a fixed point)."""
+    apply_rules(graph, LEGALIZE_RULES)
+    return graph
+
+
+def fold_constants(graph: Graph) -> Graph:
+    _fold_constants(graph)
+    return graph
+
+
+def partition(graph: Graph, desc: AcceleratorDescription) -> Graph:
+    _partition(graph, PassContext(desc=desc))
+    return graph
+
+
+def run_frontend(
+    graph: Graph,
+    desc: AcceleratorDescription,
+    *,
+    fold: bool = True,
+    do_legalize: bool = True,
+) -> Graph:
+    """The Frontend Configurator's pass pipeline (§3.3) through the
+    PassManager: legalization + optimization, constant folding, then graph
+    partitioning.  Returns the (mutated) graph; use
+    ``PassManager(frontend_passes(...)).run(graph, ...)`` directly when the
+    instrumentation report is needed."""
+    pm = PassManager(frontend_passes(desc, legalize=do_legalize, fold=fold))
+    pm.run(graph, PassContext(desc=desc))
+    return graph

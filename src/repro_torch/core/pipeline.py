@@ -9,7 +9,9 @@ executables + cycle model (paper Fig. 1).
   2. **strategy & schedule selection** — ``CompilerBackend`` resolves an
      extended-CoSA (or baseline-heuristic) schedule per accelerator node;
   3. **backend lowering** — ``lowering.make_accel_executor`` turns each
-     (node, strategy) into a launch of the scheduled GEMM kernel;
+     (node, strategy) into a launch of the scheduled GEMM kernel, or on
+     the emulated route (``use_pallas=False``) into the tiled loop nest
+     over the description's compute intrinsic;
   4. **plan building** — the compiled graph lowers to a slot-indexed
      ``ExecutionPlan`` on the module's device (``executor``).
 
@@ -27,8 +29,9 @@ Three modes reproduce the paper's evaluation matrix (§4, Table 2):
 
 Port of ``repro.core.pipeline``, with the verify gate (``compile_graph(
 verify=...)``: the pass-invariant gate plus ``verify_plan`` of the built
-plan) and the ``shard=`` argument of one mesh shard's compile, and
-without the deprecated two-step ``compile``.
+plan) and the ``shard=`` argument of one mesh shard's compile.  The
+deprecated two-step ``compile`` takes the module's ``device`` (the card
+unless the caller asks for the CPU), as ``compile_graph`` does.
 A selected schedule that violates a hardware constraint raises
 ``VerifyError`` with ``S_SCHEDULE`` diagnostics, as the reference does.
 Measured DSE times the executor on the module's device, and its cache
@@ -43,7 +46,9 @@ from typing import Callable
 import torch
 
 from repro_torch.core.baselines import c_toolchain_schedule, naive_schedule
+from repro_torch.core.deprecation import warn_deprecated
 from repro_torch.core.executor import CompiledModule, CompiledOp, to_tensor
+from repro_torch.core.intrinsics import HardwareIntrinsicGenerator
 from repro_torch.core.ir import Graph, Node
 from repro_torch.core.lowering import make_accel_executor
 from repro_torch.core.mapping import MappingGenerator
@@ -99,7 +104,12 @@ class CompilerBackend:
     desc: object  # AcceleratorDescription
     scheduler: ExtendedCosaScheduler
     strategy_gen: StrategyGenerator
+    intrinsic_gen: HardwareIntrinsicGenerator
     mapping_gen: MappingGenerator
+    #: the route: True lowers every step to the scheduled GEMM kernel, False
+    #: to the emulated tiled loop over the compute intrinsic (``tpu*``
+    #: descriptions take the kernel either way)
+    use_pallas: bool = True
     #: persistent cross-process schedule store keyed by (workload, arch
     #: fingerprint, mode), attached by ``build_integrated_backend``
     schedule_cache: ScheduleCache | None = None
@@ -199,7 +209,7 @@ class CompilerBackend:
                 n_infeasible=modeled.n_infeasible,
             )
             strat = self.strategy_gen.generate(node, sr)
-            latencies.append(time_executor(self.executor_for(node, strat), args))
+            latencies.append(time_executor(self.executor_for(node, strat, device), args))
             self.n_measurements += 1
         winner = min(range(len(latencies)), key=latencies.__getitem__)
         best, report = cands[winner]
@@ -236,13 +246,40 @@ class CompilerBackend:
         return ScheduleResult(best=sched, report=rep, n_candidates=1, n_infeasible=0)
 
     # -- stage 3: backend lowering ------------------------------------------
-    def executor_for(self, node: Node, strategy) -> Callable:
+    def executor_for(self, node: Node, strategy, device: torch.device | None = None) -> Callable:
         """Lower one (node, strategy) to its executable kernel — the single
         spelling used by compile, measured DSE, and artifact restore (which
-        rebuilds executors from persisted schedules with zero DSE)."""
-        return make_accel_executor(self.desc, self.mapping_gen, node, strategy)
+        rebuilds executors from persisted schedules with zero DSE).
+        ``device`` is the module's (the emulated route probes there)."""
+        return make_accel_executor(
+            self.desc,
+            self.mapping_gen,
+            self.intrinsic_gen,
+            node,
+            strategy,
+            use_pallas=self.use_pallas,
+            device=device,
+        )
 
     # -- the compile entry point --------------------------------------------
+    def compile(
+        self,
+        graph: Graph,
+        mode: str = "proposed",
+        *,
+        passes: list | None = None,
+        pass_context: PassContext | None = None,
+        device: torch.device | str = "cuda",
+    ) -> CompiledModule:
+        """Deprecated spelling of :meth:`compile_graph` — the public entry
+        point is now ``repro_torch.compile(model, target=...)``."""
+        warn_deprecated(
+            "CompilerBackend.compile()", "repro_torch.compile(model, target=...)"
+        )
+        return self.compile_graph(
+            graph, mode, device=device, passes=passes, pass_context=pass_context
+        )
+
     def compile_graph(
         self,
         graph: Graph,
@@ -300,7 +337,7 @@ class CompilerBackend:
             sr = self._schedule_for(n, mode, measure_top_k, device)
             strat = self.strategy_gen.generate(n, sr)
             module.ops[n] = CompiledOp(
-                node=n, strategy=strat, executor=self.executor_for(n, strat)
+                node=n, strategy=strat, executor=self.executor_for(n, strat, device)
             )
         if self.schedule_cache is not None:
             self.schedule_cache.flush()

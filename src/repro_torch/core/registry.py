@@ -25,9 +25,10 @@ Out-of-tree accelerators use the same decorator as the in-tree ones:
         return AcceleratorDescription(...)
 
 Port of ``repro.core.registry``: ``REGISTRY`` holds ``edge_npu``,
-``gemmini`` and ``tpu_v5e``, as the reference's does; the deprecated
-``integrate()`` is not ported, and there is no ``use_pallas``: the route
-follows the module's device.
+``gemmini`` and ``tpu_v5e``, as the reference's does, and the deprecated
+``integrate()`` wraps the same machinery for the legacy two-step flow.
+``use_pallas`` defaults to True (the kernel route) where the reference's
+defaults to False (its numpy emulation).
 """
 
 from __future__ import annotations
@@ -39,6 +40,7 @@ from typing import Callable
 from repro_torch.core.accel import AcceleratorDescription
 from repro_torch.core.arch_spec import GEMM_DIMS
 from repro_torch.core.configurators import build_backend
+from repro_torch.core.deprecation import warn_deprecated
 from repro_torch.core.pipeline import CompilerBackend
 from repro_torch.core.schedule_cache import ScheduleCache, default_cache_dir
 
@@ -180,19 +182,20 @@ def build_integrated_backend(
     accelerator: AcceleratorDescription | str,
     *,
     use_mip: bool = True,
+    use_pallas: bool = True,
     cache: bool = True,
     cache_dir: str | Path | None = None,
     parallel_dse: bool = False,
 ) -> CompilerBackend:
     """Resolve, validate, and generate a backend — the integration machinery
-    behind ``repro_torch.compile()``.
+    behind ``repro_torch.compile()`` (and the deprecated ``integrate()``).
 
     Args:
       accelerator: an ``AcceleratorDescription`` or a registered name.
-      use_mip: the reference's MIP switch; with no MIP ported, True is
-        answered by the greedy heuristic where ``pulp`` is absent, as the
-        reference does, and refused where it is installed (see
-        ``repro_torch.core.scheduler``).
+      use_mip: solve the extended-CoSA MIP (falls back to the greedy
+        heuristic when no MIP solver is installed).
+      use_pallas: True lowers every step to the scheduled GEMM kernel,
+        False to the emulated tiled loop over the compute intrinsics.
       cache: attach the persistent schedule cache.  ``cache_dir`` defaults
         to ``$REPRO_TORCH_CACHE_DIR`` or ``~/.cache/repro_torch``.
       parallel_dse: evaluate cold-cache mapping candidates on a thread pool.
@@ -210,5 +213,25 @@ def build_integrated_backend(
         else None
     )
     return build_backend(
-        desc, use_mip=use_mip, parallel_dse=parallel_dse, schedule_cache=schedule_cache
+        desc,
+        use_mip=use_mip,
+        use_pallas=use_pallas,
+        parallel_dse=parallel_dse,
+        schedule_cache=schedule_cache,
     )
+
+
+def integrate(
+    accelerator: AcceleratorDescription | str,
+    **kwargs,
+) -> CompilerBackend:
+    """Deprecated spelling of the one-call integration — the public entry
+    point is now ``repro_torch.compile(model, target=repro_torch.Target(...))``,
+    which resolves and caches the backend itself.  This wrapper keeps the
+    old two-step flow working; it accepts the same keyword arguments as
+    ``build_integrated_backend``."""
+    warn_deprecated(
+        "repro_torch.integrate()",
+        "repro_torch.compile(model, target=repro_torch.Target(...))",
+    )
+    return build_integrated_backend(accelerator, **kwargs)

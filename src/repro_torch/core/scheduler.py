@@ -19,12 +19,11 @@ adds the cross-process persistent tier keyed by arch fingerprint + mode.
 thread pool for cold-cache compiles; the result is deterministic (ties
 break on candidate order, identical to the serial sweep).
 
-Port of ``repro.core.scheduler``: plain Python and numpy.  The
-extended-CoSA MIP (``repro.core.cosa.mip``) is not ported yet, so every
-candidate is solved by the greedy heuristic.  That is also what the
-reference runs when ``pulp`` is not installed (its ``solve_mip`` returns
-None there); where ``pulp`` is installed the reference would solve the
-MIP, so ``use_mip=True`` is refused there instead of answered differently.
+Port of ``repro.core.scheduler``: plain Python and numpy.  With
+``use_mip=True`` each candidate is solved by the extended-CoSA MIP
+(``repro_torch.core.cosa.mip``) where ``pulp`` is installed, and by the
+greedy heuristic where it is not or where the MIP finds no schedule, as
+in the reference.
 """
 
 from __future__ import annotations
@@ -37,6 +36,7 @@ from itertools import product
 
 from repro_torch.core.arch_spec import ArchSpec, Dataflow, GemmWorkload
 from repro_torch.core.cosa.heuristic import solve_heuristic
+from repro_torch.core.cosa.mip import solve_mip
 from repro_torch.core.schedule import Schedule, validate_schedule
 from repro_torch.core.simulator import SimReport, simulate
 
@@ -47,8 +47,8 @@ MAX_TOP_CANDIDATES = 8
 
 
 def mip_installable() -> bool:
-    """Whether ``pulp`` is importable here, so that the reference would
-    solve the MIP for ``use_mip=True``."""
+    """Whether ``pulp`` is importable here, so that ``use_mip=True``
+    solves the MIP."""
     return importlib.util.find_spec("pulp") is not None
 
 
@@ -74,9 +74,10 @@ class ScheduleResult:
 @dataclass
 class ExtendedCosaScheduler:
     arch: ArchSpec
-    #: the reference's switch: True asks for the MIP, which answers only
-    #: where ``pulp`` is installed (see the module docstring)
+    #: True asks for the MIP, which answers only where ``pulp`` is
+    #: installed (see the module docstring)
     use_mip: bool = True
+    mip_time_limit_s: float = 10.0
     parallel: bool = False
     max_workers: int | None = None
     # number of cold DSE sweeps performed (i.e. extended-CoSA invocations
@@ -88,18 +89,14 @@ class ExtendedCosaScheduler:
     # thread has published (or abandoned) the result for that key.
     _inflight: dict = field(default_factory=dict)
 
-    def __post_init__(self):
-        if self.use_mip and mip_installable():
-            raise NotImplementedError(
-                "use_mip=True: pulp is installed, so the reference would solve "
-                "the extended-CoSA MIP, which is not ported yet; pass "
-                "use_mip=False to schedule with the greedy heuristic"
-            )
-
     def solver_id(self) -> str:
-        """Which solver produces schedules — part of the persistent cache
-        key, spelled as the reference spells it, so the two packages'
-        heuristic entries share keys."""
+        """Which solver actually produces schedules — 'mip' only when the
+        MIP is both requested and installable.  Part of the persistent
+        cache key (spelled as the reference spells it, so the two
+        packages' entries share keys), so installing pulp (or flipping
+        use_mip) invalidates schedules produced by the other solver."""
+        if self.use_mip and mip_installable():
+            return "mip"
         return "heuristic"
 
     def schedule(self, workload: GemmWorkload) -> ScheduleResult:
@@ -145,7 +142,13 @@ class ExtendedCosaScheduler:
     ) -> tuple[Schedule, SimReport] | None:
         """One sweep point's schedule and cycle report, or None when it has
         no valid schedule."""
-        sched = solve_heuristic(workload, self.arch, dataflow, shares, dbuf)
+        sched = None
+        if self.use_mip:
+            sched = solve_mip(
+                workload, self.arch, dataflow, shares, dbuf, time_limit_s=self.mip_time_limit_s
+            )
+        if sched is None:
+            sched = solve_heuristic(workload, self.arch, dataflow, shares, dbuf)
         if sched is None:
             return None
         if validate_schedule(sched, self.arch):

@@ -108,15 +108,53 @@ def test_roundtrip_bit_exact_with_zero_work(name, acc, mode, tmp_path):
 @pytest.mark.parametrize("name,acc,mode", MATRIX)
 def test_reference_artifact_loads_in_the_port(name, acc, mode, tmp_path):
     """The reference's artifact (its default numpy-emulation route)
-    restores onto the port's kernel: bit-equal, zero sweeps, zero passes."""
+    restores onto the route its manifest names, the port's emulated one:
+    bit-equal, zero sweeps, zero passes."""
     want = _ref(name, acc, mode)
     repro.save(want, tmp_path / "art")
+    manifest = json.loads((tmp_path / "art" / "manifest.json").read_text())
+    assert manifest["use_pallas"] is False
     with _NoPasses():
         got = repro_torch.load(tmp_path / "art", device="cpu")
     _assert_zero_work(got)
+    assert got.backend.use_pallas is manifest["use_pallas"]
     feeds = zoo.get_model(name).feeds(seed=9)
     _assert_bit_equal(got.run(feeds), want.run(feeds))
     assert got.modeled_cycles() == want.modeled_cycles()
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+@pytest.mark.parametrize("name", ["qcnn", "transformer_block"])
+def test_route_roundtrips_through_the_manifest(name, use_pallas, tmp_path):
+    """A port module's route is saved and restored: the emulated route
+    writes ``use_pallas: false`` and no kernel configs, the kernel route
+    true and one config per step, and both load back onto their route,
+    bit-equal with zero work, in the port and in the reference."""
+    module = repro_torch.compile(
+        zoo.get_model(name).build(),
+        repro_torch.Target("gemmini", device="cpu", cache=False, use_pallas=use_pallas),
+    )
+    repro_torch.save(module, tmp_path / "art")
+    manifest = json.loads((tmp_path / "art" / "manifest.json").read_text())
+    assert manifest["use_pallas"] is use_pallas
+    assert len(manifest["kernel_configs"]) == (len(module.ops) if use_pallas else 0)
+    with _NoPasses():
+        got = repro_torch.load(tmp_path / "art", device="cpu")
+        ref = repro.load(tmp_path / "art")
+    _assert_zero_work(got)
+    assert got.backend.use_pallas is use_pallas and ref.backend.use_pallas is use_pallas
+    feeds = zoo.get_model(name).feeds(seed=5)
+    want = module.run(feeds)
+    _assert_bit_equal(got.run(feeds), want)
+    _assert_bit_equal(ref.run(feeds), want)
+    # the write-through store keys the two routes apart, as the reference's
+    keys = [
+        store.key_for(source_fingerprint="s", arch_fingerprint="a", mode="proposed",
+                      use_pallas=route, bucket=None, measure_top_k=None)
+        for store in (ArtifactStore, RefArtifactStore)
+        for route in (use_pallas, not use_pallas)
+    ]
+    assert keys[0] == keys[2] != keys[1] == keys[3]
 
 
 @pytest.mark.parametrize("name", ["mlp_tiny", "qcnn", "transformer_block"])

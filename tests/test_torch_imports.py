@@ -98,6 +98,21 @@ TRAIN_MODULES = (
 )
 
 
+#: the emulated-intrinsic route, the legacy integration surface and the MIP
+EMULATED_MODULES = (
+    "repro_torch.core",
+    "repro_torch.core.intrinsics",
+    "repro_torch.core.mapping",
+    "repro_torch.core.lowering",
+    "repro_torch.core.configurators",
+    "repro_torch.core.registry",
+    "repro_torch.core.passes",
+    "repro_torch.core.example_graphs",
+    "repro_torch.core.cosa",
+    "repro_torch.core.cosa.mip",
+)
+
+
 def _imported_modules(path: Path) -> list[str]:
     names = []
     for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
@@ -171,6 +186,45 @@ def test_compile_service_runs_with_jax_blocked(tmp_path):
         f"r = repro_torch.load({str(tmp_path / 'art')!r}, device='cpu')\n"
         "f = zoo.get_model('qcnn').feeds(0)\n"
         "assert (r.run(f)[0] == m.run(f)[0]).all() and m.backend.n_measurements > 0\n"
+        "print('ok', [k for k in sys.modules if k.split('.')[0] in ('jax', 'repro')])\n"
+    )
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, env=env, timeout=120
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert "ok ['jax', 'repro']" in proc.stdout
+
+
+def test_emulated_modules_are_checked_files():
+    checked = {str(p.relative_to(ROOT / "src")) for p in PORT_FILES if p.is_relative_to(ROOT / "src")}
+    for module in EMULATED_MODULES:
+        path = module.replace(".", "/")
+        assert f"{path}.py" in checked or f"{path}/__init__.py" in checked, module
+
+
+def test_emulated_route_and_legacy_surface_run_with_jax_blocked():
+    """The emulated route, its interpreter and the deprecated two-step flow,
+    in a process where importing jax or repro fails."""
+    code = (
+        "import sys, warnings\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "import importlib\n"
+        f"for name in {EMULATED_MODULES!r}:\n"
+        "    importlib.import_module(name)\n"
+        "import repro_torch\n"
+        "from repro_torch.core import zoo\n"
+        "from repro_torch.core.example_graphs import quantized_conv_dense_graph\n"
+        "t = repro_torch.Target('gemmini', device='cpu', cache=False, use_pallas=False)\n"
+        "m = repro_torch.compile('qcnn', t)\n"
+        "f = zoo.get_model('qcnn').feeds(0)\n"
+        "assert (m.run(f)[0] == m.run(f, use_plan=False)[0]).all()\n"
+        "with warnings.catch_warnings(record=True) as w:\n"
+        "    warnings.simplefilter('always')\n"
+        "    b = repro_torch.integrate('gemmini', cache=False, use_pallas=False)\n"
+        "    b.compile(quantized_conv_dense_graph(), device='cpu')\n"
+        "assert [x.category for x in w] == [repro_torch.ReproDeprecationWarning] * 2\n"
         "print('ok', [k for k in sys.modules if k.split('.')[0] in ('jax', 'repro')])\n"
     )
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
@@ -400,8 +454,10 @@ def test_serve_cli_defaults_to_the_card():
 
 
 def test_mip_request_is_refused_where_the_reference_would_solve_it(monkeypatch):
-    """With pulp importable the reference solves the MIP; the port has none,
-    so it refuses ``use_mip=True`` instead of answering with the heuristic."""
+    """With pulp importable the port, like the reference, asks the MIP for
+    ``use_mip=True`` (solver id ``mip``) instead of refusing; a MIP that
+    cannot solve (here pulp is only pretended) falls back to the greedy
+    heuristic's schedules, as the reference's does."""
     import importlib.util
 
     real_find_spec = importlib.util.find_spec
@@ -409,12 +465,15 @@ def test_mip_request_is_refused_where_the_reference_would_solve_it(monkeypatch):
         importlib.util, "find_spec",
         lambda name, *a: object() if name == "pulp" else real_find_spec(name, *a),
     )
-    with pytest.raises(NotImplementedError, match="use_mip=False"):
-        repro_torch.compile("mlp_tiny", repro_torch.Target("gemmini", device="cpu", cache=False))
-    module = repro_torch.compile(
+    module = repro_torch.compile("mlp_tiny", repro_torch.Target("gemmini", device="cpu", cache=False))
+    assert module.backend.scheduler.solver_id() == "mip"
+    heuristic = repro_torch.compile(
         "mlp_tiny", repro_torch.Target("gemmini", use_mip=False, device="cpu", cache=False)
     )
-    assert module.modeled_cycles()["total"] == 2624.0
+    assert heuristic.backend.scheduler.solver_id() == "heuristic"
+    levels = [[s["levels"] for s in m.schedules().values()] for m in (module, heuristic)]
+    assert levels[0] == levels[1]
+    assert module.modeled_cycles()["total"] == heuristic.modeled_cycles()["total"] == 2624.0
 
 
 def test_cuda_target_without_a_card_raises_at_compile_time():

@@ -421,16 +421,21 @@ def test_backend_memo_concurrent_churn_stays_bounded(small_backend_memo):
 
 
 def test_backend_memo_key_fields_match_the_reference():
-    """The memo keys on the reference's fields, less ``use_pallas`` (the
-    port's route follows the device) plus whether pulp is installed."""
+    """The memo keys on the reference's fields, plus (on the emulated route,
+    which calls them) the description's compute intrinsics."""
     repro_torch.clear_backend_cache()
-    repro_torch.backend_for(repro_torch.Target("edge_npu", cache=False, device="cpu"))
+    repro_torch.backend_for(repro_torch.Target("edge_npu", cache=False, device="cpu", use_pallas=False))
     (key,) = api._BACKENDS
     ref_api.clear_backend_cache()
     ref_api.backend_for(repro.Target("edge_npu", cache=False))
     (ref_key,) = ref_api._BACKENDS
-    assert key[0] == ref_key[0]  # the description fingerprint
-    assert (key[1], *key[3:]) == (ref_key[1], *ref_key[3:])
+    assert key[:-1] == ref_key
+    assert [name for name, _ in key[-1]] == ["edge_npu.mma", "edge_npu.mma_conv"]
+    repro_torch.clear_backend_cache()
+    repro_torch.backend_for(repro_torch.Target("edge_npu", cache=False, device="cpu"))
+    (key,) = api._BACKENDS
+    assert key[-1] is None and key[2] is True  # the kernel route calls no intrinsic
+    repro_torch.clear_backend_cache()
     ref_api.clear_backend_cache()
 
 
