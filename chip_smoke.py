@@ -73,7 +73,8 @@ fails; nothing is caught and passed over:
      sweeps, 0 measurements, 0 pass-manager runs and 0 rewrite fires;
      launches per run equal the compiled module's, responses bit-equal to
      per-request CPU runs; then ``serve_zoo`` boots from it through
-     ``--artifact``; load time beside the cold compile time;
+     ``--artifact``; load time beside the cold compile time, and the
+     served req/s, latency p50 / p99 and dispatch count;
  10. pipelined: ``run_many(pipelined=True)`` for every phase-6 module in
      optimized and naive, bit-equal to the sequential ``run_many`` with
      the same launch count, p50 of both; and a conv that a description
@@ -196,13 +197,29 @@ fails; nothing is caught and passed over:
      intrinsic stable over 5 runs, smaller tile limits refused at compile
      time, and ``integrate`` + ``backend.compile`` warning twice and equal
      to ``repro_torch.compile`` on both routes.
+ 19. the LM's multi-device layer (after 17), no kernel policy:
+     xlstm-125m through ``launch.train.build_trainer`` on the card's
+     ``make_elastic_mesh()`` (one NCCL rank, a (1, 1) ("data", "model")
+     mesh; every state leaf a DTensor on ``cuda``) and through the
+     unsharded trainer (``mesh=(1, 1)``), bf16, 8 x 128, 3 steps, seed
+     0, both with deterministic algorithms: losses, final state and
+     checkpoint sha256s bit-equal, the sharded checkpoint restored onto
+     its placements bit-equal; step p50 of both and peak memory.  Then
+     deepseek-v2 at its published widths cut to 2 layers, parameters and
+     cache placed by ``param_specs`` / ``cache_specs`` on that mesh, a
+     prefill of 4 x 64 tokens and 8 greedy steps through ``lm.prefill`` /
+     ``lm.decode_step`` (what the dry run runs): tokens equal to the
+     unsharded ``ServingEngine``'s.  Then four dry-run cells (DRYRUN_CELLS)
+     on a fake 256- or 512-rank process group with meta tensors, in a
+     subprocess that sees no card: each prints OK with its bytes, FLOPs,
+     collective bytes, dominant term and wall time.
 
 The launch counts are set to 0 just before each of phases 4, 6-10, the
 paths of 11 (each serve call too), the LM's served runs and smoke
 archs of 13, the traced modules' runs of 14, the sharded modules'
 runs and serve call of 15, the tpu_v5e modules' runs and each
-full-width model's routed run of 16, and phases 17 and 18 (which must
-launch none), and read just after; the
+full-width model's routed run of 16, and phases 17, 18 and 19 (which
+must launch none), and read just after; the
 ``launches`` of the kernels line are their sum.  It prints a ``{"kernels": [...]}`` line (the toycar@16
 sums of phase 3; the per-case times of phases 5 and 13 go to the report
 only, to keep the line short), a summary of the paths, and as its last
@@ -258,7 +275,11 @@ from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import flash, lm, moe  # noqa: E402
 from repro_torch.models import ssm as S  # noqa: E402
 from repro_torch.models import xlstm as X  # noqa: E402
-from repro_torch.checkpoint import latest_step  # noqa: E402
+from repro_torch.checkpoint import latest_step, restore_checkpoint  # noqa: E402
+from repro_torch.launch.mesh import make_elastic_mesh  # noqa: E402
+from repro_torch.parallel import policy as act_policy  # noqa: E402
+from repro_torch.parallel import sharding as shd  # noqa: E402
+from torch.distributed.tensor import DTensor, distribute_tensor  # noqa: E402
 from repro_torch.tree import flatten, tree_map  # noqa: E402
 from repro_torch.data import DataConfig, SyntheticTokenPipeline  # noqa: E402
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update  # noqa: E402
@@ -1234,13 +1255,17 @@ def artifact_phase(dev: torch.device, card_line: str, work: Path, windows: dict)
     for i, (feeds, got) in enumerate(zip(result.traffic, result.outputs)):
         want = cpu.run(feeds)
         check(np.array_equal(got[0], want[0]), f"serve --artifact: response {i} != per-request cpu result")
+    lat_us = np.asarray(result.latencies_s) * 1e6
+    p50, p99 = float(np.percentile(lat_us, 50)), float(np.percentile(lat_us, 99))
     print(f"serve {name} --artifact: boot {result.boot_s * 1e3:.1f} ms (cold compile {cold_s * 1e3:.1f} ms); "
           f"{requests} responses bit-equal to per-request cpu runs, "
-          f"{requests / result.wall_s:.1f} req/s [{card_line}]")
+          f"{requests / result.wall_s:.1f} req/s, latency p50 {p50:.1f} us / p99 {p99:.1f} us, "
+          f"{result.stats.batches} dispatches (mean batch {result.stats.mean_batch():.1f}) [{card_line}]")
     return {"model": name, "batch": batch, "buckets": list(loaded.bucket_sizes()), "cold_compile_ms": cold_s * 1e3,
             "save_ms": save_s * 1e3, "load_ms": load_s * 1e3, "load_work": work_done.counts,
             "launches_per_run": per_run, "serve_boot_ms": result.boot_s * 1e3,
-            "serve_req_per_s": requests / result.wall_s}
+            "serve_req_per_s": requests / result.wall_s, "serve_p50_us": p50, "serve_p99_us": p99,
+            "serve_dispatches": result.stats.batches}
 
 
 def pipelined_phase(compiled: dict, card_line: str, windows: dict) -> dict:
@@ -2743,7 +2768,8 @@ def xlstm_train_phase(dev: torch.device, card_line: str, work: Path) -> dict:
     run, a resume at its end, and a resume from its middle with an
     injected failing step."""
     ckpt = work / "train_xlstm"
-    kw = dict(smoke=False, checkpoint_dir=str(ckpt), device=dev, **XLSTM_TRAIN)
+    # unsharded: every leaf a whole tensor (phase 19 trains on a DeviceMesh)
+    kw = dict(smoke=False, checkpoint_dir=str(ckpt), device=dev, mesh=(1, 1), **XLSTM_TRAIN)
     steps, every = XLSTM_TRAIN["steps"], XLSTM_TRAIN["checkpoint_every"]
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -2884,6 +2910,204 @@ def train_phase(dev: torch.device, card_line: str, work: Path, windows: dict) ->
     check(not any(windows["training (no policy)"].values()),
           f"training launched the scheduled kernel: {windows['training (no policy)']}")
     return summary
+
+
+# -- phase 19: the LM's multi-device layer on a DeviceMesh ----------------------
+
+#: xlstm-125m through build_trainer, unsharded (phase 17's trainer) and on
+#: the (1, 1) mesh of this card: same seed, batch, sequence and steps
+SHARDED_TRAIN = dict(steps=3, global_batch=8, seq_len=128, checkpoint_every=3, seed=0)
+#: deepseek-v2 at its published widths cut to 2 of 60 layers (as phase
+#: 16): (arch, layers, batch, prompt, greedy steps)
+SHARDED_SERVE = ("deepseek_v2_236b", 2, 4, 64, 8)
+#: the dry-run cells, each on a fake process group in a subprocess:
+#: (arch, shape, multi-pod)
+DRYRUN_CELLS = (("yi_34b", "train_4k", False), ("mixtral_8x7b", "decode_32k", True),
+                ("deepseek_v2_236b", "decode_32k", False), ("jamba_v0_1_52b", "long_500k", False))
+
+
+def _whole(t):
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def _on_card(tree, dev: torch.device) -> bool:
+    return all(isinstance(t, DTensor) and t.device.type == dev.type for t in flatten(tree))
+
+
+def sharded_train_phase(dev: torch.device, card_line: str, work: Path) -> dict:
+    """Phase 19, step 1: xlstm-125m trained by ``build_trainer`` on the
+    card's (1, 1) mesh, every state leaf a DTensor, against the same run
+    unsharded: losses, final state and checkpoint bytes bit-equal, and a
+    save and restore of the sharded state bit-equal.  Both run with
+    deterministic algorithms (the embedding's backward otherwise sums
+    with atomics)."""
+    mesh = make_elastic_mesh(device_type=dev.type)
+    check(tuple(mesh.shape) == (1, 1) and mesh.mesh_dim_names == ("data", "model"), f"elastic mesh {mesh}")
+    steps = SHARDED_TRAIN["steps"]
+    runs = {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for label, given in (("unsharded", (1, 1)), ("sharded", mesh)):
+            ckpt = work / f"train19_{label}"
+            shutil.rmtree(ckpt, ignore_errors=True)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            trainer, state, cfg = launch_train.build_trainer(
+                "xlstm_125m", smoke=False, checkpoint_dir=str(ckpt), device=dev, mesh=given, **SHARDED_TRAIN)
+            if label == "sharded":
+                check(_on_card(state, dev), "sharded xlstm state: a leaf is not a DTensor on the card")
+            trainer.cfg.log_every = 1
+            final = trainer.run(state)
+            torch.cuda.synchronize()
+            manifest = json.loads((ckpt / f"step_{steps:08d}" / "manifest.json").read_text())
+            runs[label] = {"losses": [h["loss"] for h in trainer.history], "secs": [h["sec"] for h in trainer.history],
+                           "peak": torch.cuda.max_memory_allocated(dev), "final": final, "ckpt": ckpt,
+                           "hashes": [leaf["sha256"] for leaf in manifest["leaves"]]}
+            del trainer, state
+    finally:
+        torch.use_deterministic_algorithms(False)
+    plain, shard = runs["unsharded"], runs["sharded"]
+    check(len(shard["losses"]) == steps and shard["losses"] == plain["losses"],
+          f"sharded xlstm losses {shard['losses']} != unsharded {plain['losses']}")
+    check(_on_card(shard["final"], dev), "sharded xlstm final state: a leaf is not a DTensor on the card")
+    differ = [i for i, (a, b) in enumerate(zip(flatten(shard["final"]), flatten(plain["final"]), strict=True))
+              if not torch.equal(_whole(a).cpu(), b.cpu())]  # the unsharded step counter is on the host
+    check(not differ, f"sharded xlstm final state differs from the unsharded run's at leaves {differ}")
+    check(shard["hashes"] == plain["hashes"], "sharded xlstm checkpoint bytes differ from the unsharded run's")
+    t0 = time.perf_counter()
+    restored, step, _ = restore_checkpoint(str(shard["ckpt"]), tuple(shard["final"]))
+    restore_s = time.perf_counter() - t0
+    check(step == steps and _on_card(restored, dev), "sharded xlstm restore: not DTensors on the card")
+    check(all(a.placements == b.placements and torch.equal(_whole(a), _whole(b))
+              for a, b in zip(flatten(restored), flatten(tuple(shard["final"])), strict=True)),
+          "sharded xlstm checkpoint did not round-trip bit-equal")
+    del restored
+    out = {}
+    for label, r in runs.items():
+        out[label] = {"losses": r["losses"], "step_s": r["secs"], "step_s_p50": float(np.percentile(r["secs"], 50)),
+                      "peak_bytes": r["peak"]}
+    out["restore_s"] = restore_s
+    print(f"sharded train xlstm-125m (bf16, {SHARDED_TRAIN['global_batch']} x {SHARDED_TRAIN['seq_len']}, {steps} "
+          f"steps) on the {tuple(mesh.shape)} {mesh.device_type} mesh: losses "
+          f"{', '.join(f'{x:.4f}' for x in shard['losses'])} bit-equal to the unsharded trainer's, final state and "
+          f"checkpoint sha256s equal, sharded restore bit-equal ({restore_s:.2f} s); step p50 sharded "
+          f"{out['sharded']['step_s_p50'] * 1e3:.1f} ms vs unsharded {out['unsharded']['step_s_p50'] * 1e3:.1f} ms; "
+          f"peak {shard['peak'] / 2**30:.2f} / {plain['peak'] / 2**30:.2f} GiB [{card_line}]")
+    del runs, plain, shard
+    torch.cuda.empty_cache()
+    return out
+
+
+def sharded_serve_phase(dev: torch.device, card_line: str) -> dict:
+    """Phase 19, step 2: the dry run's prefill and decode (``lm.prefill`` /
+    ``lm.decode_step``) for real on the card's (1, 1) mesh: deepseek-v2 at
+    its published widths cut to SHARDED_SERVE's layers, parameters placed
+    by ``param_specs`` and the MLA latent cache by ``cache_specs``; its
+    greedy tokens must equal the unsharded engine's."""
+    arch, layers, batch, prompt_len, new = SHARDED_SERVE
+    cfg = get_config(arch).with_(n_layers=layers)
+    mesh = make_elastic_mesh(device_type=dev.type)
+    act_policy.install(mesh)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = lm.init_lm(0, cfg, device=dev)
+    rng = np.random.default_rng(19)
+    prompts = [rng.integers(0, cfg.vocab, prompt_len).astype(np.int32) for _ in range(batch)]
+    max_len = prompt_len + new
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", ReproDeprecationWarning)
+        engine = ServingEngine(cfg, params, ServeConfig(batch=batch, max_len=max_len, max_new_tokens=new))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = [r.output for r in sorted(engine.generate(prompts), key=lambda r: r.rid)]
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+
+    dparams = shd.shard_tree(params, shd.param_specs(cfg, params, mesh), mesh)
+    del params, engine
+    rows = shd.placements(shd.batch_spec(mesh), mesh)
+    got = [[] for _ in range(batch)]
+    with torch.no_grad():  # DTensor views of the stacked cache cannot be inference tensors
+        cache = lm.init_cache(cfg, batch, max_len, device=dev)
+        cache = shd.shard_tree(cache, shd.cache_specs(cfg, cache, mesh), mesh)
+        check(_on_card(cache["prefix"], dev) and _on_card(cache["groups"], dev), "deepseek cache: not DTensors")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks = distribute_tensor(torch.from_numpy(np.stack(prompts)).to(dev), mesh, rows)
+        logits, cache = lm.prefill(dparams, cfg, toks, cache)
+        cur = torch.argmax(_whole(logits)[:, -1:], dim=-1).to(torch.int32)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        for _ in range(new):
+            for i, t in enumerate(cur[:, 0].tolist()):
+                got[i].append(t)
+            logits, cache = lm.decode_step(dparams, cfg, cache, distribute_tensor(cur, mesh, rows))
+            cur = torch.argmax(_whole(logits)[:, -1:], dim=-1).to(torch.int32)
+        torch.cuda.synchronize()
+        decode_s = (time.perf_counter() - t1) / new
+    peak = torch.cuda.max_memory_allocated(dev)
+    latent = cache["prefix"][0]["latent"]
+    check(got == want, f"sharded deepseek tokens {got} != the unsharded engine's {want}")
+    out = {"arch": cfg.name, "layers": layers, "batch": batch, "prompt": prompt_len, "new_tokens": new,
+           "tokens_equal": True, "unsharded_generate_s": plain_s, "sharded_prefill_s": prefill_s,
+           "sharded_decode_step_s": decode_s, "peak_bytes": peak, "latent_placements": str(latent.placements)}
+    print(f"sharded serve {cfg.name} {layers} of 60 layers (MLA, {cfg.moe.n_experts} experts, bf16) on the "
+          f"{tuple(mesh.shape)} mesh, latent cache {latent.placements}: {batch} x {prompt_len} prompts, {new} greedy "
+          f"tokens equal to the unsharded engine's; sharded prefill {prefill_s * 1e3:.1f} ms, decode step "
+          f"{decode_s * 1e3:.1f} ms (unsharded generate {plain_s * 1e3:.1f} ms); peak {peak / 2**30:.2f} GiB "
+          f"[{card_line}]")
+    del dparams, cache, logits
+    act_policy.set_policy(None)
+    torch.cuda.empty_cache()
+    return out
+
+
+_DRYRUN = r"""
+import json, sys
+from repro_torch.launch import dryrun
+from repro_torch.models.config import SHAPES
+print("[dryrun] roofline constants: " + dryrun.CONSTANTS["source"] + "; card: " + sys.argv[2])
+reports = {}
+for arch, shape, multi in json.loads(sys.argv[1]):
+    cell = next(c for c in SHAPES if c.name == shape)
+    rep = dryrun.run_cell(arch, cell, multi, None)
+    tag = f"{arch} x {shape} x {dryrun.mesh_name(multi)}"
+    print(dryrun.summary(tag, rep), flush=True)
+    reports[tag] = {k: rep[k] for k in ("n_chips", "memory", "flops_per_device", "bytes_per_device",
+                                         "collective_bytes_per_device", "collectives", "compute_s", "memory_s",
+                                         "collective_s", "dominant", "roofline_fraction", "build_s", "step_s",
+                                         "wall_s")}
+print("DRYRUN " + json.dumps(reports))
+"""
+
+
+def dryrun_phase(card_line: str) -> dict:
+    """Phase 19, step 3: DRYRUN_CELLS on a fake process group (256 or 512
+    ranks, meta tensors) in a subprocess that sees no card; every cell
+    must run (the subprocess exits non-zero otherwise)."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "CUDA_VISIBLE_DEVICES": ""}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", _DRYRUN, json.dumps(DRYRUN_CELLS), card_line],
+                          capture_output=True, text=True, env=env, timeout=900)
+    wall = time.perf_counter() - t0
+    for line in proc.stdout.splitlines():
+        if line.startswith("[dryrun]"):
+            print(line)
+    check(proc.returncode == 0, f"dry run failed: {proc.stderr[-3000:]}")
+    reports = json.loads(next(ln for ln in proc.stdout.splitlines() if ln.startswith("DRYRUN "))[7:])
+    check(len(reports) == len(DRYRUN_CELLS), f"dry run reported {sorted(reports)}")
+    print(f"dry run: {len(reports)} cells OK in {wall:.1f} s (subprocess) [counts per rank on meta tensors over a fake process group; "
+          f"roofline terms from the H100 SXM5 datasheet; {card_line}]")
+    return {"cells": reports, "subprocess_s": wall}
+
+
+def sharded_lm_phase(dev: torch.device, card_line: str, work: Path) -> dict:
+    """Phase 19: the LM's multi-device layer: sharded training and serving
+    on the card's (1, 1) NCCL mesh, and the dry-run cells."""
+    return {"train": sharded_train_phase(dev, card_line, work),
+            "serve": sharded_serve_phase(dev, card_line),
+            "dryrun": dryrun_phase(card_line)}
 
 
 # -- phase 18: the emulated-intrinsic route and the interpreter on the card -----
@@ -3250,6 +3474,11 @@ def main(argv: list[str] | None = None) -> int:
     lm_run = lm_phase(dev, card_line, windows)  # sets the counts to 0 before each LM window
     full_width = full_width_phase(dev, card_line, windows)  # phase 16: likewise, after codeqwen is freed
     training = train_phase(dev, card_line, work, windows)  # phase 17, after phase 16's models are freed
+    gemm.reset_launches()  # phase 19's window starts here
+    sharded_lm = sharded_lm_phase(dev, card_line, work)
+    windows["sharded LM and dry run (no policy)"] = dict(gemm.LAUNCHES)  # read just after it
+    check(not any(windows["sharded LM and dry run (no policy)"].values()),
+          f"phase 19 launched the scheduled kernel: {windows['sharded LM and dry run (no policy)']}")
     lm_cases = lm_run["cases"] + full_width["cases"]
     for window, counts in windows.items():
         print(f"launch window {window}: {counts}")
@@ -3306,13 +3535,13 @@ def main(argv: list[str] | None = None) -> int:
               "decode_paths": decode_paths, "decode_serve": decode_served, "decode_checks": decode_checks,
               "verify_gate": gate, "host_ops": host_ops, "lm": lm_run, "launch_windows": windows,
               "frontend": frontend, "sharded": sharded, "tpu_v5e": tpu, "full_width": full_width,
-              "training": training, "emulated": emulated, "path_cases": path_cases}
+              "training": training, "emulated": emulated, "sharded_lm": sharded_lm, "path_cases": path_cases}
     if args.report:
         Path(args.report).parent.mkdir(parents=True, exist_ok=True)
         Path(args.report).write_text(json.dumps({**report, **line}, indent=1))
     # the per-path summaries are long and printed above, path by path
     long = ("paths", "measured_dse", "pipelined", "decode_paths", "path_cases", "lm", "frontend", "sharded",
-            "tpu_v5e", "full_width", "training", "emulated")
+            "tpu_v5e", "full_width", "training", "emulated", "sharded_lm")
     print(json.dumps({k: v for k, v in report.items() if k not in long}))
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

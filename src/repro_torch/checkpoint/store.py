@@ -20,7 +20,11 @@ checkpoint written by either package restores in the port: leaves in
 sha256 of each leaf's raw bytes.  A bfloat16 leaf is written as the
 reference writes one (2-byte void words, manifest dtype ``"bfloat16"``)
 and restored by viewing the words as ``torch.bfloat16``: the reference's
-own restore cannot cast them (ROADMAP Queue C).  The manifest's
+own restore cannot cast them (ROADMAP Queue C).  A DTensor leaf is
+gathered whole before it is hashed and written, so a sharded save holds
+the bytes of an unsharded one; on a multi-rank group every rank gathers
+and rank 0 writes.  A restored leaf takes the template leaf's mesh and
+placements.  The manifest's
 ``treedef`` is the port's own description of the tree; restore reads it
 in neither package.
 """
@@ -34,6 +38,8 @@ import shutil
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from repro_torch.tree import flatten, unflatten
 
@@ -51,6 +57,8 @@ def _describe(tree) -> str:
 def _to_host(leaf) -> np.ndarray:
     """A leaf as the numpy array the reference would write for it."""
     if isinstance(leaf, torch.Tensor):
+        if isinstance(leaf, DTensor):  # gathered: the bytes of an unsharded save
+            leaf = leaf.full_tensor()
         t = leaf.detach().cpu()
         if t.dtype == torch.bfloat16:  # ml_dtypes' bfloat16 is written as 2-byte void words
             return t.view(torch.int16).numpy().view(np.dtype("V2"))
@@ -70,15 +78,17 @@ def _dtype_name(leaf, host: np.ndarray) -> str:
 
 
 def save_checkpoint(directory: str, step: int, tree, extra: dict | None = None) -> str:
-    os.makedirs(directory, exist_ok=True)
     final = os.path.join(directory, f"step_{step:08d}")
+    leaves = flatten(tree)
+    host_leaves = [_to_host(leaf) for leaf in leaves]
+    if dist.is_initialized() and dist.get_rank() != 0:  # every rank gathers; rank 0 writes
+        return final
+    os.makedirs(directory, exist_ok=True)
     tmp = final + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp)
 
-    leaves = flatten(tree)
-    host_leaves = [_to_host(leaf) for leaf in leaves]
     arrays = {f"leaf_{i}": a for i, a in enumerate(host_leaves)}
     np.savez(os.path.join(tmp, "arrays.npz"), **arrays)
 
@@ -149,6 +159,15 @@ def _to_tensor(a: np.ndarray, dtype_name: str) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
+def _like(host: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """A restored leaf on the template leaf's device, in its dtype and
+    shape, and on its mesh with its placements when it is a DTensor."""
+    host = host.to(dtype=t.dtype).reshape(t.shape)
+    if isinstance(t, DTensor):
+        return distribute_tensor(host.to(t.device), t.device_mesh, t.placements)
+    return host.to(device=t.device)
+
+
 def restore_checkpoint(directory: str, template, step: int | None = None):
     """Restore into the structure of `template` (its leaves' shapes,
     dtypes and devices).
@@ -168,7 +187,7 @@ def restore_checkpoint(directory: str, template, step: int | None = None):
         if len(leaves) != len(t_leaves):
             continue
         cast = [
-            _to_tensor(a, meta["dtype"]).to(device=t.device, dtype=t.dtype).reshape(t.shape)
+            _like(_to_tensor(a, meta["dtype"]), t)
             for a, meta, t in zip(leaves, manifest["leaves"], t_leaves)
         ]
         return unflatten(template, iter(cast)), s, manifest.get("extra", {})

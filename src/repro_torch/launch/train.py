@@ -9,12 +9,16 @@ and on the CPU, with ``--device cpu``.
 
 Port of ``repro.launch.train``: ``build_trainer`` and the CLI, with a
 ``device`` (``--device``, ``cuda`` by default; a ``cuda`` request without
-a card raises).  The mesh is ``mesh_factorization(1)`` — one card, (1, 1)
-— installed as the activation policy; on one card every parameter and
-batch lives whole, so nothing is sharded (the reference's ``shard_tree``
-and its ``jit`` in/out shardings have no counterpart).  Parameters come
-from ``init_lm(seed, cfg, device=)``, and ``shard_batch`` moves each host
-batch to the device.
+a card raises).  As in the reference, the trainer is sharded: the mesh is
+``mesh or make_elastic_mesh(device_type=...)`` (the running process
+group's ranks; one rank started in this process when none runs: NCCL on
+the card, gloo on the CPU), installed as the activation policy; the
+parameters and optimizer state are placed on it as DTensors by
+``param_specs`` / ``opt_state_specs`` (``shard_tree``), and
+``shard_batch`` distributes each host batch over the data axes, as the
+reference's ``P(dp)``.  ``mesh`` given as a shape or an axis mapping
+instead of a ``DeviceMesh`` installs the policy for that shape and keeps
+every leaf a whole tensor on ``device`` (the unsharded trainer).
 """
 
 from __future__ import annotations
@@ -22,14 +26,17 @@ from __future__ import annotations
 import argparse
 
 import torch
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import distribute_tensor
 
 from repro_torch.api import torch_device
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.data import DataConfig, SyntheticTokenPipeline
-from repro_torch.launch.mesh import mesh_factorization
+from repro_torch.launch.mesh import make_elastic_mesh
 from repro_torch.models import lm
 from repro_torch.optim import AdamWConfig, adamw_init
 from repro_torch.parallel import policy
+from repro_torch.parallel import sharding as shd
 from repro_torch.train import Trainer, TrainerConfig, TrainState, make_train_step
 from repro_torch.train.trainer import default_checkpoint_dir
 
@@ -49,16 +56,27 @@ def build_trainer(
     seed: int = 0,
     device: str | torch.device = "cuda",
 ):
-    """(trainer, initial state, config) for ``arch`` on ``device``; the
+    """(trainer, initial state, config) for ``arch`` on ``device``, sharded
+    over ``mesh`` (a ``DeviceMesh``; the elastic mesh by default; a shape
+    or an axis mapping trains unsharded with that shape's policy); the
     checkpoints go to ``checkpoint_dir`` (default: ``repro_torch_ckpt`` in
     the temporary directory)."""
     dev = torch_device(device, "build_trainer")
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
-    policy.install(mesh or mesh_factorization(1))
+    mesh = mesh if mesh is not None else make_elastic_mesh(device_type=dev.type)
+    sharded = isinstance(mesh, DeviceMesh)
+    policy.install(mesh)
 
     params = lm.init_lm(seed, cfg, device=dev)
     opt_cfg = AdamWConfig(lr=lr, total_steps=steps, warmup_steps=max(steps // 20, 5))
-    state = TrainState(params, adamw_init(opt_cfg, params))
+    opt_state = adamw_init(opt_cfg, params)
+    if sharded:
+        pspecs = shd.param_specs(cfg, params, mesh)
+        ospecs = shd.opt_state_specs(cfg, opt_state, pspecs)
+        params = shd.shard_tree(params, pspecs, mesh)
+        opt_state = shd.shard_tree(opt_state, ospecs, mesh)
+        dp = tuple(shd.dp_axes(mesh))
+    state = TrainState(params, opt_state)
     step_fn = make_train_step(cfg, opt_cfg, block_skip=block_skip)
 
     pipe = SyntheticTokenPipeline(
@@ -73,7 +91,13 @@ def build_trainer(
     )
 
     def shard_batch(host_batch):
-        return {k: torch.from_numpy(v).to(dev) for k, v in host_batch.items()}
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in host_batch.items()}
+        if not sharded:
+            return batch
+        return {
+            k: distribute_tensor(v, mesh, shd.placements(shd.P(dp, *(None,) * (v.dim() - 1)), mesh))
+            for k, v in batch.items()
+        }
 
     trainer = Trainer(
         cfg=TrainerConfig(

@@ -10,8 +10,11 @@ the baseline; ``causal_block_skip_attention`` skips them.
 Port of ``repro.models.attention``, MLA included.  Head order follows
 the reference: ``jnp.repeat`` of the KV heads is ``repeat_interleave``
 (each KV head serves its consecutive query heads).  The reference's
-``constrain`` calls are the identity without a sharding policy and are
-left out.  MLA's four projections (q, kv_down, k_up, v_up) go through
+``constrain`` calls lay out q, k, v and the output on DTensors (batch on
+data, heads on model); the attention itself then runs on each shard's
+own heads under ``local_map`` (``on_local_heads``), and a decode over a
+cache whose positions are sharded combines its shards' softmax partials
+(``_sharded_decode``).  MLA's four projections (q, kv_down, k_up, v_up) go through
 ``layers.dense`` and so through the scheduled kernel; its absorbed
 decode contracts the up-projection weights directly, as the reference's
 einsums do.
@@ -19,12 +22,16 @@ einsums do.
 
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.distributed.tensor import DTensor, Shard
 
 from repro_torch.kernels.ref import torch_dtype
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.flash import gqa_flash_attention
+from repro_torch.parallel.policy import constrain, gather_fsdp, heads_axis, run_local
 
 NEG_INF = -1e30
 
@@ -52,12 +59,14 @@ def init_attention(gen, cfg: ModelConfig, dtype=torch.float32, *, lead=()):
 
 def _split_heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
     b, s, _ = x.shape
+    x = constrain(x, "dp", None, heads_axis(n_heads))  # whole heads per shard
     return x.reshape(b, s, n_heads, -1).permute(0, 2, 1, 3)  # [B,H,S,D]
 
 
 def _merge_heads(x: torch.Tensor) -> torch.Tensor:
     b, h, s, d = x.shape
-    return x.permute(0, 2, 1, 3).reshape(b, s, h * d)
+    # whole heads per shard, in the backward too
+    return constrain(x.permute(0, 2, 1, 3).reshape(b, s, h * d), "dp", None, heads_axis(h))
 
 
 def _rope_broadcast(t: torch.Tensor) -> torch.Tensor:
@@ -89,6 +98,7 @@ def qkv_project(params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tens
         v = _split_heads(L.dense(params["v_up"], latent, compute_dtype=compute), cfg.n_heads)
         q = torch.cat([q_nope, q_rope], dim=-1)
         k = torch.cat([k_nope, k_rope_r.expand(*k_nope.shape[:-1], dr)], dim=-1)
+        q, k, v = (constrain(t, "dp", "tp", None, None) for t in (q, k, v))
         return q, k, v, (latent, k_rope_r[:, 0])
     q = _split_heads(L.dense(params["q"], x, compute_dtype=compute), cfg.n_heads)
     k = _split_heads(L.dense(params["k"], x, compute_dtype=compute), cfg.n_kv_heads)
@@ -97,6 +107,9 @@ def qkv_project(params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tens
     cos, sin = _rope_broadcast(cos), _rope_broadcast(sin)
     q = L.apply_rope(q, cos, sin)
     k = L.apply_rope(k, cos, sin)
+    # anchor head-parallel attention: batch on data, heads on model (MQA/GQA
+    # kv heads that don't divide the axis stay replicated via the policy)
+    q, k, v = (constrain(t, "dp", "tp", None, None) for t in (q, k, v))
     return q, k, v, (None, None)
 
 
@@ -213,6 +226,21 @@ def causal_block_skip_attention(q, k, v, *, window: int = 0, chunk_q=512, chunk_
     return torch.cat(outs, dim=2)
 
 
+def on_local_heads(fn, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``fn(q, k, v)`` -> [B, H, S, Dv], an attention over whole heads.
+    On DTensors laid out by ``qkv_project`` (batch on data, heads on
+    model) it runs under ``local_map`` on each shard's own batch rows and
+    heads, so its chunk loop never meets a collective; KV heads that the
+    model axis does not divide are repeated to the query heads first, so
+    each shard holds the KV heads of its own query heads.  Plain tensors
+    go straight to ``fn``."""
+    h = q.shape[1]
+    if isinstance(q, DTensor) and k.shape[1] != h and heads_axis(k.shape[1]) is None and heads_axis(h) is not None:
+        k, v = _repeat_kv(k, v, h)
+        k, v = (constrain(t, "dp", "tp", None, None) for t in (k, v))
+    return run_local(fn, q, k, v)
+
+
 def decode_attention(
     q: torch.Tensor,  # [B,H,1,D]
     k_cache: torch.Tensor,  # [B,Hkv,S,D]
@@ -222,7 +250,10 @@ def decode_attention(
     window: int = 0,
 ) -> torch.Tensor:
     """One-token attention over the cache: logits in f32, the weights cast
-    to the cache's dtype for the value product, the result in q's dtype."""
+    to the cache's dtype for the value product, the result in q's dtype.
+    On DTensor caches see ``_sharded_decode``."""
+    if isinstance(k_cache, DTensor):
+        return _sharded_decode(q, k_cache, v_cache, cur_len, window=window)
     b, h, _, d = q.shape
     s = k_cache.shape[2]
     k_cache, v_cache = _repeat_kv(k_cache, v_cache, h)
@@ -237,6 +268,78 @@ def decode_attention(
     logits = torch.where(mask, logits, NEG_INF)
     p = torch.softmax(logits, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", p.to(v_cache.dtype), v_cache).to(q.dtype)
+
+
+def _seq_split(cache: torch.Tensor, seq_dim: int):
+    """(mesh, the model mesh dim index or None): the index when the
+    cache's sequence dim is sharded over the model axis
+    (sequence-parallel decode), else None."""
+    mesh = cache.device_mesh
+    names = mesh.mesh_dim_names
+    tp = names.index("model") if "model" in names else None
+    if tp is not None and cache.placements[tp] == Shard(seq_dim):
+        return mesh, tp
+    return mesh, None
+
+
+def _softmax_attend(logits: torch.Tensor, values: torch.Tensor, group):
+    """softmax(logits) @ values over the last logits dim, where each rank
+    of ``group`` (a (mesh, dim) pair, or None for one rank) holds a slice
+    of the positions: row maxes, row sums and the weighted values are
+    all-reduced over the group (flash-decoding's combine)."""
+    if group is None:
+        return torch.softmax(logits, dim=-1), None
+    from torch.distributed import _functional_collectives as funcol
+
+    m = funcol.all_reduce(logits.amax(-1, keepdim=True), "max", group)
+    p = torch.exp(logits - m)
+    den = funcol.all_reduce(p.sum(-1, keepdim=True), "sum", group)
+    return p, den
+
+
+def _local_positions(mesh, tp, s_local: int, device) -> torch.Tensor:
+    """The cache positions this rank holds: its slice of the model axis's
+    sequence shards (all of them without one)."""
+    off = mesh.get_local_rank(tp) * s_local if tp is not None else 0
+    return off + torch.arange(s_local, device=device)
+
+
+def _sharded_decode(q, k_cache, v_cache, cur_len: int, *, window: int = 0):
+    """``decode_attention`` over DTensor caches.  Each shard attends its
+    own batch rows under ``local_map``: KV heads over the model axis (the
+    query heads with them), or, when the cache's sequence dim is sharded
+    there (sequence-parallel decode), every head over its own slice of
+    positions, combined across the model axis as flash-decoding does."""
+    mesh, tp = _seq_split(k_cache, 2)
+    if tp is None and heads_axis(k_cache.shape[1]) is not None:
+        return run_local(
+            functools.partial(decode_attention, cur_len=cur_len, window=window), q, k_cache, v_cache
+        )
+    q = constrain(q, "dp", None, None, None)  # every head beside the cache slice
+    group = (mesh, tp) if tp is not None else None
+
+    def local(q, k_cache, v_cache):
+        h, d = q.shape[1], q.shape[-1]
+        k_cache, v_cache = _repeat_kv(k_cache, v_cache, h)
+        scale = 1.0 / (d**0.5)
+        logits = torch.einsum(
+            "bhqd,bhkd->bhqk", q.to(torch.float32), k_cache.to(torch.float32)
+        ) * scale
+        pos = _local_positions(mesh, tp, k_cache.shape[2], q.device)
+        mask = pos[None, None, None, :] < cur_len
+        if window:
+            mask &= pos[None, None, None, :] >= cur_len - window
+        logits = torch.where(mask, logits, NEG_INF)
+        p, den = _softmax_attend(logits, v_cache, group)
+        out = torch.einsum("bhqk,bhkd->bhqd", p.to(v_cache.dtype), v_cache)
+        if den is not None:
+            from torch.distributed import _functional_collectives as funcol
+
+            out = funcol.all_reduce(out.to(torch.float32), "sum", group) / den
+        return out.to(q.dtype)
+
+    out = run_local(local, q, k_cache, v_cache)
+    return constrain(out, "dp", "tp", None, None)
 
 
 def mla_decode_attention(
@@ -258,22 +361,52 @@ def mla_decode_attention(
     b, h, _, dh = q_nope.shape
     r, dr = cfg.kv_lora_rank, cfg.qk_rope_dim
     f32 = torch.float32
-    w_ku = params["k_up"]["w"].reshape(r, h, dh).to(f32)
-    w_vu = params["v_up"]["w"].reshape(r, h, dh).to(f32)
+    w_ku = gather_fsdp(params["k_up"]["w"]).reshape(r, h, dh).to(f32)
+    w_vu = gather_fsdp(params["v_up"]["w"]).reshape(r, h, dh).to(f32)
     scale = 1.0 / ((dh + dr) ** 0.5)
     latent = latent_cache.to(f32)
 
     q_lat = torch.einsum("bhqd,rhd->bhqr", q_nope.to(f32), w_ku)
+    if isinstance(latent, DTensor):
+        # every head beside each shard's slice of the sequence-parallel latent
+        q_lat = constrain(q_lat, "dp", None, None, None)
+        q_rope = constrain(q_rope, "dp", None, None, None)
+        ctx_lat = run_local(
+            functools.partial(_mla_context, scale=scale, cur_len=cur_len, split=_seq_split(latent, 1)),
+            q_lat,
+            q_rope,
+            latent,
+            k_rope_cache,
+        )
+        ctx_lat = constrain(ctx_lat, "dp", "tp", None, None)
+    else:
+        ctx_lat = _mla_context(q_lat, q_rope, latent, k_rope_cache, scale=scale, cur_len=cur_len)
+    out = torch.einsum("bhqr,rhd->bhqd", ctx_lat, w_vu)
+    return out.to(q_nope.dtype)
+
+
+def _mla_context(q_lat, q_rope, latent, k_rope_cache, *, scale: float, cur_len: int, split=None):
+    """The softmax-weighted latent [B, H, 1, r] of the absorbed MLA
+    decode, in f32; with ``split`` (``_seq_split`` of a sequence-parallel
+    latent) over this rank's slice of the positions, combined across the
+    model axis."""
+    f32 = torch.float32
+    mesh, tp = split if split is not None else (None, None)
+    latent = latent.to(f32)
     logits = torch.einsum("bhqr,bsr->bhqs", q_lat, latent)
     logits = logits + torch.einsum("bhqd,bsd->bhqs", q_rope.to(f32), k_rope_cache.to(f32))
     logits = logits * scale
-    s = latent_cache.shape[1]
-    mask = torch.arange(s, device=q_nope.device)[None, None, None, :] < cur_len
+    pos = _local_positions(mesh, tp, latent.shape[1], q_lat.device)
+    mask = pos[None, None, None, :] < cur_len
     logits = torch.where(mask, logits, NEG_INF)
-    p = torch.softmax(logits, dim=-1)
+    group = (mesh, tp) if tp is not None else None
+    p, den = _softmax_attend(logits, latent, group)
     ctx_lat = torch.einsum("bhqs,bsr->bhqr", p, latent)
-    out = torch.einsum("bhqr,rhd->bhqd", ctx_lat, w_vu)
-    return out.to(q_nope.dtype)
+    if den is not None:
+        from torch.distributed import _functional_collectives as funcol
+
+        ctx_lat = funcol.all_reduce(ctx_lat, "sum", group) / den
+    return ctx_lat
 
 
 def attention_block(
@@ -288,14 +421,18 @@ def attention_block(
     the flash forward; ``block_skip`` prunes causally-dead KV chunks."""
     q, k, v, _ = qkv_project(params, cfg, x, positions)
     window = cfg.window if cfg.attn_kind == "swa" else 0
-    out = gqa_flash_attention(
+    out = on_local_heads(
+        functools.partial(
+            gqa_flash_attention,
+            causal=True,
+            window=window,
+            chunk_q=cfg.attn_chunk,
+            chunk_kv=cfg.attn_chunk,
+            skip=block_skip,
+        ),
         q,
         k,
         v,
-        causal=True,
-        window=window,
-        chunk_q=cfg.attn_chunk,
-        chunk_kv=cfg.attn_chunk,
-        skip=block_skip,
     )
+    out = constrain(out, "dp", "tp", None, None)
     return L.dense(params["o"], _merge_heads(out), compute_dtype=torch_dtype(cfg.compute_dtype))

@@ -27,6 +27,7 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
 
 from repro_torch.kernels.ref import torch_dtype
 from repro_torch.models.config import ModelConfig
@@ -86,7 +87,37 @@ def _write(dst: torch.Tensor, src: torch.Tensor, pos: int) -> None:
             f"KV cache write of {s} rows at position {pos} overflows the "
             f"{max_len}-row cache"
         )
+    if isinstance(dst, DTensor):
+        _write_sharded(dst, src, pos)
+        return
     dst[..., pos : pos + s, :] = src.to(dst.dtype)
+
+
+def _write_sharded(dst, src: torch.Tensor, pos: int) -> None:
+    """The write into a DTensor cache, shard by shard: ``src`` laid out as
+    ``dst`` but whole along the rows, then each shard writes the rows
+    that fall in its own slice of the positions (the sequence-parallel
+    caches shard them over the model axis)."""
+    row = dst.ndim - 2
+    want = [Replicate() if p == Shard(row) else p for p in dst.placements]
+    if isinstance(src, DTensor):
+        src = src.redistribute(dst.device_mesh, want)
+    else:
+        src = distribute_tensor(src, dst.device_mesh, want)
+    local, src = dst.to_local(), src.to_local()
+    # this shard's first row: mesh dims split the rows in order, each into
+    # ceil-sized chunks (DTensor's layout)
+    first, extent = 0, dst.shape[row]
+    for i, p in enumerate(dst.placements):
+        if p == Shard(row):
+            chunk = -(-extent // dst.device_mesh.size(i))
+            c = dst.device_mesh.get_local_rank(i)
+            first += c * chunk
+            extent = max(0, min(chunk, extent - c * chunk))
+    lo = max(pos, first)
+    hi = min(pos + src.shape[row], first + local.shape[row])
+    if lo < hi:
+        local[..., lo - first : hi - first, :] = src[..., lo - pos : hi - pos, :].to(local.dtype)
 
 
 def write_attn_cache(cfg: ModelConfig, cache: dict, k, v, mla_payload, pos: int):

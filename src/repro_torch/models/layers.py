@@ -19,17 +19,22 @@ from __future__ import annotations
 import itertools
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 from repro_torch.kernels import ops, policy
 from repro_torch.kernels.ref import gelu_tanh
+from repro_torch.parallel.policy import gather_fsdp, gather_rows, reduce_partial
 
 
 def draw_normal(
     gen: torch.Generator, shape, scale: float, dtype: torch.dtype, lead=()
 ) -> torch.Tensor:
     """``normal(shape) * scale`` drawn in float32 on ``gen``'s device and
-    cast to ``dtype``, for each index of ``lead`` in turn."""
+    cast to ``dtype``, for each index of ``lead`` in turn; under a
+    ``FakeTensorMode`` (shapes without values) nothing is drawn."""
     out = torch.empty((*lead, *shape), dtype=dtype, device=gen.device)
+    if isinstance(out, FakeTensor):  # shapes only (a dry run): there are no values to draw
+        return out
     for idx in itertools.product(*(range(n) for n in lead)):
         out[idx].copy_(torch.randn(shape, generator=gen, device=gen.device) * scale)
     return out
@@ -60,8 +65,8 @@ def dense(params, x: torch.Tensor, *, compute_dtype=None) -> torch.Tensor:
     kernel), so under a policy a product that autograd would differentiate
     raises ``RuntimeError`` before any launch, on every device: training
     runs unrouted."""
-    w = params["w"]
-    b = params.get("b")
+    w = gather_fsdp(params["w"])
+    b = gather_fsdp(params.get("b"))
     pol = policy.get_policy()
     differentiated = any(t is not None and t.requires_grad for t in (x, w, b))
     if pol is not None and torch.is_grad_enabled() and differentiated:
@@ -70,6 +75,7 @@ def dense(params, x: torch.Tensor, *, compute_dtype=None) -> torch.Tensor:
             "this product, but the scheduled GEMM kernel has no backward; run training outside "
             "scheduled_kernels (unrouted), as the reference does"
         )
+    x = gather_rows(x)
     if compute_dtype is not None:
         x = x.to(compute_dtype)
         w = w.to(compute_dtype)
@@ -82,7 +88,9 @@ def dense(params, x: torch.Tensor, *, compute_dtype=None) -> torch.Tensor:
         if cfg is not None:
             return ops.matmul(x, w, cfg, b)
 
-    out = x @ w
+    # a row-parallel product's pending sums are reduced here (all-reduce),
+    # so its gradient comes back whole over the model axis
+    out = reduce_partial(x @ w)
     if b is not None:
         out = out + b.to(out.dtype)
     return out
@@ -165,11 +173,13 @@ def init_embedding(gen, vocab: int, d_model: int, dtype=torch.float32):
 
 
 def embed(params, tokens: torch.Tensor) -> torch.Tensor:
-    return params["table"][tokens.long()]
+    """Rows of the table; over a vocab-sharded table each shard looks up
+    its own rows and the partial rows are summed (all-reduce)."""
+    return reduce_partial(torch.nn.functional.embedding(tokens.long(), gather_fsdp(params["table"])))
 
 
 def unembed(params, x: torch.Tensor, *, compute_dtype=None) -> torch.Tensor:
-    t = params["table"]
+    t = gather_fsdp(params["table"])
     if compute_dtype is not None:
         x = x.to(compute_dtype)
         t = t.to(compute_dtype)

@@ -15,9 +15,13 @@ A modality frontend's embeddings ([B, Nf, d], vision patches or audio
 frames) are prepended to the token embeddings by ``forward`` and
 ``prefill``, as in the reference.
 
-Port of ``repro.models.lm``.  The sharding ``constrain`` calls are left
-out (on one card they are identities); ``forward`` is differentiable and
-writes nothing in place, while the serving path runs under
+Port of ``repro.models.lm``, with the reference's ``constrain`` calls
+(the embedding output, each group's and each layer's residual stream,
+the logits): on DTensor parameters (placed by
+``repro_torch.parallel.sharding``) they lay out the activations, and the
+entry points run under DTensor's ``implicit_replication``; on plain
+tensors they are identities.  ``forward`` is differentiable and writes
+nothing in place, while the unsharded serving path runs under
 ``torch.inference_mode``.  The caches are written in place: the KV and
 MLA caches by ``repro_torch.models.cache``, the Mamba and xLSTM states
 (stacked over the groups like the KV cache) by copying each block's new
@@ -27,10 +31,12 @@ were given, updated.
 
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.api import torch_device
@@ -42,6 +48,7 @@ from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
 from repro_torch.models import xlstm as X
 from repro_torch.models.config import ModelConfig
+from repro_torch.parallel.policy import constrain, on_mesh
 from repro_torch.tree import tree_map
 
 
@@ -227,21 +234,25 @@ def _embed_inputs(params, cfg: ModelConfig, tokens, frontend_embeds):
     x = L.embed(params["embed"], tokens).to(torch_dtype(cfg.compute_dtype))
     if cfg.frontend and frontend_embeds is not None:
         x = torch.cat([frontend_embeds.to(device=x.device, dtype=x.dtype), x], dim=1)
+    x = constrain(x, "dp", "boundary", None)  # batch on data + Megatron-SP seq shard
     positions = torch.arange(x.shape[1], device=x.device)
     return x, positions
 
 
 def _group_body(gp, cfg: ModelConfig, x, aux, positions, block_skip: bool):
     """One repeat of ``cfg.pattern`` -> (x, aux plus its MoE layers' aux)."""
+    x = constrain(x, "dp", "boundary", None)
     for p, kind in enumerate(cfg.pattern):
         x, a = _apply_layer_train(
             gp[f"pos{p}"], cfg, kind, _position_is_moe(cfg, p), x, positions, block_skip=block_skip
         )
+        x = constrain(x, "dp", "boundary", None)
         if a is not None:
             aux = aux + a
     return x, aux
 
 
+@on_mesh
 def forward(
     params,
     cfg: ModelConfig,
@@ -271,7 +282,7 @@ def forward(
         else:
             x, aux = _group_body(gp, cfg, x, aux, positions, block_skip)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    logits = _head(params, cfg, x)
+    logits = constrain(_head(params, cfg, x), "dp", None, "tp")
     return logits.to(torch.float32), aux
 
 
@@ -311,9 +322,15 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device):
 
 
 def _store_state(lcache: dict, state) -> None:
-    """Write a recurrent block's new state into its cache views in place."""
+    """Write a recurrent block's new state into its cache views in place
+    (a DTensor state is laid out as its cache first, and each shard
+    copies its own slice)."""
     for name, t in state._asdict().items():
-        lcache[name].copy_(t)
+        dst = lcache[name]
+        if isinstance(dst, DTensor):
+            dst.to_local().copy_(t.redistribute(dst.device_mesh, dst.placements).to_local())
+        else:
+            dst.copy_(t)
 
 
 def _apply_layer_prefill(lp, cfg: ModelConfig, kind, is_moe, x, positions, lcache, start: int):
@@ -323,8 +340,13 @@ def _apply_layer_prefill(lp, cfg: ModelConfig, kind, is_moe, x, positions, lcach
     if kind == "attn":
         q, k, v, mla = A.qkv_project(lp["block"], cfg, h, positions)
         window = cfg.window if cfg.attn_kind == "swa" else 0
-        out = A.blockwise_attention(
-            q, k, v, causal=True, window=window, chunk_q=cfg.attn_chunk, chunk_kv=cfg.attn_chunk
+        out = A.on_local_heads(
+            functools.partial(
+                A.blockwise_attention, causal=True, window=window, chunk_q=cfg.attn_chunk, chunk_kv=cfg.attn_chunk
+            ),
+            q,
+            k,
+            v,
         )
         compute = torch_dtype(cfg.compute_dtype)
         y = L.dense(lp["block"]["o"], A._merge_heads(out), compute_dtype=compute)
@@ -343,6 +365,7 @@ def _apply_layer_prefill(lp, cfg: ModelConfig, kind, is_moe, x, positions, lcach
     return _ffn(lp, cfg, is_moe, x + y)[0]
 
 
+@on_mesh
 def prefill(
     params,
     cfg: ModelConfig,
@@ -356,8 +379,15 @@ def prefill(
     positions count from 0 whatever ``cache["len"]``."""
     x, positions = _embed_inputs(params, cfg, tokens, frontend_embeds)
     start = cache["len"]
-    for (lp, kind, is_moe), lcache in zip(iter_layers(params, cfg), _stacked(cache, cfg), strict=True):
+    npre, period = n_prefix_layers(cfg), len(cfg.pattern)
+    layers = zip(iter_layers(params, cfg), _stacked(cache, cfg), strict=True)
+    for i, ((lp, kind, is_moe), lcache) in enumerate(layers):
+        in_group = i >= npre
+        if in_group and (i - npre) % period == 0:
+            x = constrain(x, "dp", "boundary", None)
         x = _apply_layer_prefill(lp, cfg, kind, is_moe, x, positions, lcache, start)
+        if in_group:
+            x = constrain(x, "dp", "boundary", None)
     x = L.rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
     logits = _head(params, cfg, x)
     cache["len"] = start + positions.shape[0]
@@ -396,6 +426,7 @@ def _apply_layer_decode(lp, cfg: ModelConfig, kind, is_moe, x, lcache, cur_len: 
     return _ffn(lp, cfg, is_moe, x + y)[0]
 
 
+@on_mesh
 def decode_step(params, cfg: ModelConfig, cache, token: torch.Tensor):
     """token [B, 1] -> (logits [B, 1, V] f32, cache), the cache updated in
     place."""
@@ -404,7 +435,11 @@ def decode_step(params, cfg: ModelConfig, cache, token: torch.Tensor):
     # made on the device (no host-to-device copy, which would wait for the
     # queued work)
     positions = torch.arange(cur_len, cur_len + 1, device=x.device)
-    for (lp, kind, is_moe), lcache in zip(iter_layers(params, cfg), _stacked(cache, cfg), strict=True):
+    npre, period = n_prefix_layers(cfg), len(cfg.pattern)
+    layers = zip(iter_layers(params, cfg), _stacked(cache, cfg), strict=True)
+    for i, ((lp, kind, is_moe), lcache) in enumerate(layers):
+        if i >= npre and (i - npre) % period == 0:
+            x = constrain(x, "dp", "boundary", None)
         x = _apply_layer_decode(lp, cfg, kind, is_moe, x, lcache, cur_len, positions)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = _head(params, cfg, x)

@@ -11,10 +11,14 @@ Port of ``repro.models.moe`` (``init_moe``, ``_num_groups``, ``moe_ffn``).
 As in the reference, the tokens are grouped by data shard: G = the
 activation policy's dp size (``repro_torch.parallel.policy``), or 1
 without a policy or when it does not divide the token count; the slots,
-the capacity and the combine are per group.  The reference's
-``constrain`` calls pin layouts on a mesh; on one card there is none to
-pin, so they are left out.  The slot fill, a scatter-max in the
-reference (``buf.at[e, p].max``), is ``scatter_reduce_(..., "amax")``:
+the capacity and the combine are per group.  On DTensors the layouts are
+pinned with ``constrain`` at the reference's sites: the input on the
+batch, the expert buffers in GShard's (G on data, E on model) layout;
+the slot fill and the combine run under ``local_map`` on each shard's
+own groups, so their inputs hold whole groups (G on data, a group's
+tokens on one shard, where the reference splits them over ``model``:
+a group's slots rank all its tokens).  The slot fill, a scatter-max in
+the reference (``buf.at[e, p].max``), is ``scatter_reduce_(..., "amax")``:
 only dropped pairs collide, all at slot C - 1 with value 0, so the max
 keeps the kept token.  The router's ``dense`` takes f32 input and f32
 weights and so is routed to the kernel's f32 form under
@@ -25,12 +29,14 @@ kernel, as in the reference, where they are einsums outside Pallas.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.kernels.ref import torch_dtype
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig, MoEConfig
-from repro_torch.parallel.policy import get_policy
+from repro_torch.parallel.policy import constrain, gather_fsdp, get_policy, run_local, spec_for
 
 
 def init_moe(gen, cfg: ModelConfig, dtype=torch.float32, *, lead=()):
@@ -62,7 +68,8 @@ def route(params, cfg: ModelConfig, xt: torch.Tensor):
     probs = torch.softmax(logits, dim=-1)
     weights, idx = torch.topk(probs, m.top_k, dim=-1)
     weights = weights / torch.clamp_min(weights.sum(-1, keepdim=True), 1e-9)
-    density = torch.nn.functional.one_hot(idx[:, 0], m.n_experts).to(torch.float32).mean(0)
+    experts = torch.arange(m.n_experts, device=xt.device)
+    density = (idx[:, :1] == experts).to(torch.float32).mean(0)  # one_hot(idx[:, 0]).mean(0)
     aux = m.n_experts * torch.sum(density * probs.mean(0)) * m.aux_loss_weight
     return weights, idx, aux
 
@@ -90,44 +97,82 @@ def dispatch(idx: torch.Tensor, n_experts: int, cap: int):
     return safe_pos, keep, slot_src.reshape(n_experts, cap)
 
 
+def _fill(xg: torch.Tensor, idx_g: torch.Tensor, n_experts: int, cap: int, compute):
+    """Per group: each (token, choice)'s slot, and the expert buffers.
+    xg [G, Tl, d], idx_g [G, Tl, k] -> (buf [G, E, C, d] in ``compute``,
+    safe_pos [G, Tl*k], keep [G, Tl*k])."""
+    g, tl, d = xg.shape
+    # [G, Tl*k], [G, Tl*k], [G, E, C]: each group's slots, as the reference's vmap
+    per_group = [dispatch(i, n_experts, cap) for i in idx_g]
+    safe_pos, keep, slot_src = (torch.stack(z) for z in zip(*per_group))
+    slot_valid = slot_src > 0
+    slot_tok = torch.clamp_min(slot_src - 1, 0)
+    rows = torch.arange(g, device=xg.device)[:, None]
+    buf = xg[rows, slot_tok.reshape(g, -1)].reshape(g, n_experts, cap, d)
+    buf = torch.where(slot_valid[..., None], buf, torch.zeros((), dtype=buf.dtype, device=buf.device))
+    return buf.to(compute), safe_pos, keep
+
+
+def _combine(out_buf: torch.Tensor, idx_g: torch.Tensor, safe_pos, keep, w_g: torch.Tensor):
+    """Per group: each (token, choice)'s slot back, weighted, summed over
+    k.  out_buf [G, E, C, d], idx_g / w_g [G, Tl, k] -> [G, Tl, d]."""
+    g, tl, k = idx_g.shape
+    d = out_buf.shape[-1]
+    rows = torch.arange(g, device=out_buf.device)[:, None]
+    gathered = out_buf[rows, idx_g.reshape(g, tl * k), safe_pos]  # [G, Tl*k, d]
+    zero = torch.zeros((), dtype=gathered.dtype, device=gathered.device)
+    gathered = torch.where(keep[..., None], gathered, zero)
+    mixed = (gathered.reshape(g * tl, k, d) * w_g.reshape(g * tl, k, 1).to(out_buf.dtype)).sum(1)
+    return mixed.reshape(g, tl, d)
+
+
 def moe_ffn(params, cfg: ModelConfig, x: torch.Tensor):
-    """x [B, S, d] -> ([B, S, d], aux load-balance loss)."""
+    """x [B, S, d] -> ([B, S, d], aux load-balance loss).
+
+    On DTensors the slot fill and the combine run per group under
+    ``local_map``, each shard on its own groups (G on the data axes), and
+    the expert products run on the buffers' GShard layout (G on data, E
+    on model)."""
     m: MoEConfig = cfg.moe
     b, s, d = x.shape
     t = b * s
     e, k = m.n_experts, m.top_k
     compute = torch_dtype(cfg.compute_dtype)
+    # re-anchor to batch-only sharding before flattening: a (dp-batch,
+    # tp-seq) layout flattens to an interleaving no placement expresses
+    x = constrain(x, "dp", None, None)
     xt = x.reshape(t, d)
 
     weights, idx, aux = route(params, cfg, xt)
     g = _num_groups(t)
     tl = t // g
     cap = capacity(m, tl)
-    # [G, Tl*k], [G, Tl*k], [G, E, C]: each group's slots, as the reference's vmap
-    per_group = [dispatch(i, e, cap) for i in idx.reshape(g, tl, k)]
-    safe_pos, keep, slot_src = (torch.stack(z) for z in zip(*per_group))
-    slot_valid = slot_src > 0
-    slot_tok = torch.clamp_min(slot_src - 1, 0)
-    rows = torch.arange(g, device=x.device)[:, None]
+    xg = constrain(xt.reshape(g, tl, d), "dp", None, None)
+    idx_g = constrain(idx.reshape(g, tl, k), "dp", None, None)
+    w_g = constrain(weights.reshape(g, tl, k), "dp", None, None)
+    gspec = spec_for((g,), "dp") or (None,)
+    buf, safe_pos, keep = run_local(
+        functools.partial(_fill, n_experts=e, cap=cap, compute=compute),
+        xg,
+        idx_g,
+        out_specs=(gspec + (None, None, None), gspec + (None,), gspec + (None,)),
+    )
+    buf = constrain(buf, "dp", "tp", None, None)  # the GShard (g, e) layout
 
-    # per-group gather into the expert buffers [G, E, C, d], as [E, G·C, d]
-    buf = xt.reshape(g, tl, d)[rows, slot_tok.reshape(g, -1)].reshape(g, e, cap, d)
-    buf = torch.where(slot_valid[..., None], buf, torch.zeros((), dtype=buf.dtype, device=buf.device))
-    buf = buf.to(compute).transpose(0, 1).reshape(e, g * cap, d)
-
-    # expert SwiGLU
-    gate = torch.bmm(buf, params["gate"].to(compute))
-    up = torch.bmm(buf, params["up"].to(compute))
+    # expert SwiGLU on [E, G·C, d]
+    buf = buf.transpose(0, 1).reshape(e, g * cap, d)
+    gate = torch.bmm(buf, gather_fsdp(params["gate"]).to(compute))
+    up = torch.bmm(buf, gather_fsdp(params["up"]).to(compute))
     h = torch.nn.functional.silu(gate.to(torch.float32)).to(compute) * up
-    out_buf = torch.bmm(h, params["down"].to(compute))  # [E, G·C, d]
+    out_buf = torch.bmm(h, gather_fsdp(params["down"]).to(compute))  # [E, G·C, d]
     out_buf = out_buf.reshape(e, g, cap, d).transpose(0, 1)  # [G, E, C, d]
+    out_buf = constrain(out_buf, "dp", "tp", None, None)
+    out_buf = constrain(out_buf, "dp", None, None, None)  # each shard gathers its groups' slots
 
-    # combine: each (token, choice)'s slot back, weighted, summed over k
-    gathered = out_buf[rows, idx.reshape(g, tl * k), safe_pos]  # [G, Tl*k, d]
-    gathered = torch.where(keep[..., None], gathered, torch.zeros((), dtype=gathered.dtype, device=x.device))
-    mixed = (gathered.reshape(t, k, d) * weights.reshape(t, k, 1).to(compute)).sum(1)
+    mixed = run_local(_combine, out_buf, idx_g, safe_pos, keep, w_g, out_specs=(gspec + (None, None),))
+    mixed = mixed.reshape(t, d)
 
     if m.n_shared_experts:
         mixed = mixed + L.mlp(params["shared"], xt, compute_dtype=compute)
 
-    return mixed.reshape(b, s, d).to(x.dtype), aux
+    return constrain(mixed.reshape(b, s, d).to(x.dtype), "dp", None, None), aux

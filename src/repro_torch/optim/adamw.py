@@ -14,6 +14,11 @@ is written in place.  The step counter is an int32 scalar kept on the
 host, wherever the parameters are: the schedule and the bias corrections
 are reckoned there and reach the device's kernels as scalars, so the
 update never waits for the device.
+
+A sharded state (DTensor leaves placed by ``sharding.opt_state_specs``)
+updates shard by shard: each gradient is reduced onto its parameter's
+shards first, the global norm is reduced once, and a replicated
+DTensor step counter is read back to the host once per update.
 """
 
 from __future__ import annotations
@@ -22,9 +27,11 @@ import ctypes
 import ctypes.util
 import functools
 import math
+import operator
 from dataclasses import dataclass
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, distribute_tensor
 
 from repro_torch.tree import flatten, unflatten
 from repro_torch.kernels.ref import torch_dtype
@@ -81,22 +88,52 @@ def adamw_init(cfg: AdamWConfig, params):
 
 
 def _global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32))) for g in flatten(tree)))
+    """sqrt of the sum of every leaf's sum of squares, in leaf order.  Over
+    DTensors each leaf's sum is kept partial on every mesh dim (pending
+    sums, and one rank's copy of a replicated sum), so the total is
+    reduced once."""
+    total = functools.reduce(
+        operator.add, (_partial(torch.sum(torch.square(g.to(torch.float32)))) for g in flatten(tree))
+    )
+    if isinstance(total, DTensor):
+        total = total.redistribute(total.device_mesh, [Replicate()] * total.device_mesh.ndim)
+    return torch.sqrt(total)
+
+
+def _partial(x):
+    """A DTensor scalar as pending sums on every mesh dim (where it is
+    replicated, the rank at coordinate 0 keeps the value and the others
+    hold 0); anything else as it is."""
+    if not isinstance(x, DTensor):
+        return x
+    mesh, local = x.device_mesh, x.to_local()
+    for i, p in enumerate(x.placements):
+        if p.is_replicate() and mesh.get_local_rank(i) != 0:
+            local = torch.zeros_like(local)
+    return DTensor.from_local(local, mesh, [Partial()] * mesh.ndim, run_check=False)
+
+
+def _host_step(step: torch.Tensor) -> torch.Tensor:
+    """The step counter on the host (a replicated DTensor counter is read
+    back once)."""
+    return (step.full_tensor() if isinstance(step, DTensor) else step).cpu()
 
 
 @torch.no_grad()
 def adamw_update(cfg: AdamWConfig, params, grads, state):
     """Returns (new_params, new_state, metrics)."""
-    step = state["step"].cpu() + 1  # the host's counter (a no-op move)
-    gnorm = _global_norm(grads)
-    scale = torch.clamp_max(cfg.grad_clip / torch.clamp_min(gnorm, 1e-9), 1.0)
+    step = _host_step(state["step"]) + 1  # the host's counter (a no-op move)
     lr = cosine_lr(cfg, step)
     b1c = 1 - cfg.b1 ** step.to(torch.float32)
     b2c = 1 - cfg.b2 ** step.to(torch.float32)
+    gnorm = _global_norm(grads)
+    scale = torch.clamp_max(cfg.grad_clip / torch.clamp_min(gnorm, 1e-9), 1.0)
     mdt = torch_dtype(cfg.moment_dtype)
     f32 = torch.float32
 
     def upd(p, g, m, v):
+        if isinstance(g, DTensor):  # a pending gradient reduced onto the parameter's shards
+            g = g.redistribute(p.device_mesh, p.placements)
         g = g.to(f32) * scale
         m32 = cfg.b1 * m.to(f32) + (1 - cfg.b1) * g
         v32 = cfg.b2 * v.to(f32) + (1 - cfg.b2) * g * g
@@ -113,4 +150,7 @@ def adamw_update(cfg: AdamWConfig, params, grads, state):
     ]
     new_params, new_m, new_v = (unflatten(params, (o[i] for o in out)) for i in range(3))
     metrics = {"grad_norm": gnorm, "lr": lr}
+    old_step = state["step"]
+    if isinstance(old_step, DTensor):  # the counter stays where the state keeps it
+        step = distribute_tensor(step.to(old_step.device), old_step.device_mesh, old_step.placements)
     return new_params, {"m": new_m, "v": new_v, "step": step}, metrics
