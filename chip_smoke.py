@@ -213,13 +213,31 @@ fails; nothing is caught and passed over:
      on a fake 256- or 512-rank process group with meta tensors, in a
      subprocess that sees no card: each prints OK with its bytes, FLOPs,
      collective bytes, dominant term and wall time.
+ 20. the examples and the docs (after 19): each of ``examples/torch/``'s
+     five scripts in-process on ``cuda`` through its ``run()``, against
+     the same function on the CPU.  quickstart (3 modes) and EdgeMM
+     (3 modes, kernel route) bit-equal to the CPU run and to the graph
+     interpreter, with exactly the launches their plans imply;
+     EdgeMM on the emulated route bit-equal with the CPU's ``mma``
+     intrinsic calls and 0 launches; serve_zoo's 256 ``mlp_tiny``
+     requests, planned and interpreted, bit-equal to the CPU run with
+     4 x 256 x the plan's launches and the µs per call of both;
+     serve_lm (musicgen smoke, no frontend) greedy tokens equal to the
+     CPU run's on the same weights, 0 launches; train_lm (xlstm smoke,
+     8 x 128, deterministic algorithms) killed before step 12 and
+     resumed from its step-10 checkpoint to losses bit-equal to a run
+     never killed, 0 launches.  After those timed runs, train_lm also
+     runs as a script in a fresh process (its own one-rank NCCL group),
+     with nothing else running on the card.  Then every Python
+     block of ``docs/torch/*.md`` runs on ``cuda`` (its launches are
+     printed, not added to the kernels line).
 
 The launch counts are set to 0 just before each of phases 4, 6-10, the
 paths of 11 (each serve call too), the LM's served runs and smoke
 archs of 13, the traced modules' runs of 14, the sharded modules'
 runs and serve call of 15, the tpu_v5e modules' runs and each
-full-width model's routed run of 16, and phases 17, 18 and 19 (which
-must launch none), and read just after; the
+full-width model's routed run of 16, phases 17, 18 and 19 (which
+must launch none), and each example of 20, and read just after; the
 ``launches`` of the kernels line are their sum.  It prints a ``{"kernels": [...]}`` line (the toycar@16
 sums of phase 3; the per-case times of phases 5 and 13 go to the report
 only, to keep the line short), a summary of the paths, and as its last
@@ -233,9 +251,12 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import importlib.util
 import inspect
+import io
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -3390,6 +3411,261 @@ def emulated_phase(dev: torch.device, compiled: dict, card_line: str, windows: d
     return {"modules": summary, "custom": custom, "seconds": seconds}
 
 
+# -- phase 20: the examples and the port's docs on the card ------------------------
+
+EXAMPLES_DIR = ROOT / "examples" / "torch"
+DOCS = (ROOT / "docs" / "torch" / "integration_guide.md", ROOT / "docs" / "torch" / "architecture.md")
+DOC_BLOCK = re.compile(r"^```python\n(.*?)^```", re.MULTILINE | re.DOTALL)
+#: phase 20: serve_zoo's model, target and requests; train_lm's run at the
+#: example's default widths, and the step its killed run stops before
+EXAMPLE_SERVE = ("mlp_tiny", "gemmini:optimized", 256)
+EXAMPLE_TRAIN = dict(arch="xlstm_125m", steps=14, batch=8, seq=128, log_every=1)
+EXAMPLE_KILL_AT = 12
+#: train_lm as a script in a fresh process (no process group yet)
+EXAMPLE_SCRIPT_TRAIN = ["--steps", "3", "--batch", "2", "--seq", "16"]
+
+
+def load_example(name: str):
+    """``examples/torch/<name>.py`` as a module (loaded once per process)."""
+    key = f"torch_example_{name}"
+    if key not in sys.modules:
+        spec = importlib.util.spec_from_file_location(key, EXAMPLES_DIR / f"{name}.py")
+        module = importlib.util.module_from_spec(spec)
+        sys.modules[key] = module
+        spec.loader.exec_module(module)
+    return sys.modules[key]
+
+
+def run_launches(modules, runs: int = 1) -> dict[str, int]:
+    """The launches ``runs`` runs of each module imply, summed."""
+    out = {name: 0 for name in gemm.LAUNCHES}
+    for module in modules:
+        for v, c in plan_launches(module).items():
+            out[v] += runs * c
+    return out
+
+
+def example_window(windows: dict, label: str, fn):
+    """``fn()`` with the counts set to 0 just before it and read just after."""
+    gemm.reset_launches()
+    t0 = time.perf_counter()
+    result = fn()
+    torch.cuda.synchronize()
+    windows[label] = dict(gemm.LAUNCHES)
+    return result, time.perf_counter() - t0
+
+
+def quickstart_example(dev: torch.device, card_line: str, windows: dict) -> dict:
+    qs = load_example("quickstart")
+    cpu = qs.run("cpu")
+    got, secs = example_window(windows, "example quickstart", lambda: qs.run(str(dev)))
+    expected = run_launches(got["modules"].values())
+    check(windows["example quickstart"] == expected,
+          f"quickstart: launches {windows['example quickstart']}, the plans imply {expected}")
+    for spec in qs.SPECS:
+        check(same_outputs([got["outputs"][spec]], [cpu["outputs"][spec]]), f"quickstart {spec}: cuda != cpu")
+        check(np.array_equal(got["outputs"][spec], got["reference"]), f"quickstart {spec}: != the graph interpreter")
+        check(got["cycles"][spec] == cpu["cycles"][spec] and got["ops"][spec] == cpu["ops"][spec],
+              f"quickstart {spec}: modeled cycles or post-pass ops differ from the cpu run")
+    print(f"example quickstart on {dev.type}: 3 modes bit-equal to the cpu run and the graph interpreter, "
+          f"launches {windows['example quickstart']} as the plans imply, {secs:.2f} s [{card_line}]")
+    return {"launches": windows["example quickstart"], "seconds": secs,
+            "cycles": {spec: c["total"] for spec, c in got["cycles"].items()}}
+
+
+def edgemm_example(dev: torch.device, card_line: str, windows: dict) -> dict:
+    ex = load_example("integrate_accelerator")
+    cpu = ex.run("cpu")
+    got, secs = example_window(windows, "example EdgeMM kernel route", lambda: ex.run(str(dev)))
+    expected = run_launches(got["modules"].values())
+    check(windows["example EdgeMM kernel route"] == expected,
+          f"EdgeMM: launches {windows['example EdgeMM kernel route']}, the plans imply {expected}")
+    desc_cpu, calls_cpu = counted_description("edgemm")  # registered by the example
+    cpu_e = ex.run("cpu", use_pallas=False, accelerator=desc_cpu)
+    desc, calls = counted_description("edgemm")
+    emu, emu_secs = example_window(windows, "example EdgeMM emulated route",
+                                   lambda: ex.run(str(dev), use_pallas=False, accelerator=desc))
+    check(not any(windows["example EdgeMM emulated route"].values()),
+          f"EdgeMM emulated: launched the kernel {windows['example EdgeMM emulated route']}")
+    check(calls[0] == calls_cpu[0] > 0, f"EdgeMM emulated: {calls[0]} mma calls on cuda, {calls_cpu[0]} on the cpu")
+    for mode in ex.MODES:
+        for r, want in ((got, cpu), (emu, cpu_e), (emu, cpu)):
+            check(np.array_equal(r["outputs"][mode], want["outputs"][mode]), f"EdgeMM {mode}: cuda != cpu")
+            check(r["cycles"][mode] == want["cycles"][mode], f"EdgeMM {mode}: modeled cycles differ")
+        check(np.array_equal(got["outputs"][mode], got["reference"]), f"EdgeMM {mode}: != the graph interpreter")
+    check(got["warm"] == emu["warm"] == (0, 1), f"EdgeMM warm recompile: {got['warm']} / {emu['warm']}")
+    out = {"kernel": {"launches": windows["example EdgeMM kernel route"], "seconds": secs},
+           "emulated": {"mma_calls": calls[0], "seconds": emu_secs},
+           "cycles": dict(got["cycles"])}
+    print(f"example EdgeMM on {dev.type}: 3 modes x 2 routes bit-equal to the cpu run, kernel route launches "
+          f"{windows['example EdgeMM kernel route']} as the plans imply ({secs:.2f} s), emulated route 0 launches "
+          f"and {calls[0]} mma calls as on the cpu ({emu_secs:.2f} s); warm recompile 0 sweeps [{card_line}]")
+    return out
+
+
+def serve_zoo_example(dev: torch.device, card_line: str, windows: dict) -> dict:
+    sz = load_example("serve_zoo")
+    name, target, n = EXAMPLE_SERVE
+    cpu = sz.run(name, target, device="cpu", requests=n)
+    r, secs = example_window(windows, "example serve_zoo", lambda: sz.run(name, target, device=str(dev), requests=n))
+    # run_many planned and interpreted, each twice (checked, then timed)
+    expected = run_launches([r["module"]], runs=4 * n)
+    check(windows["example serve_zoo"] == expected,
+          f"serve_zoo: launches {windows['example serve_zoo']}, the plans imply {expected}")
+    check(all(same_outputs(g, w) for g, w in zip(r["planned"], cpu["planned"], strict=True)), "serve_zoo: cuda != cpu")
+    check(r["module"].modeled_cycles() == cpu["module"].modeled_cycles(), "serve_zoo: modeled cycles differ")
+    us = {k: r[f"t_{k}"] / n * 1e6 for k in ("planned", "interpreted")}
+    print(f"example serve_zoo {name}@{target} on {dev.type}: {n} requests bit-equal to the cpu run, launches "
+          f"{windows['example serve_zoo']} as the plans imply; planned {us['planned']:.1f} us/call, interpreter "
+          f"{us['interpreted']:.1f} us/call [{card_line}]")
+    return {"launches": windows["example serve_zoo"], "us_per_call": us, "seconds": secs}
+
+
+def serve_lm_example(dev: torch.device, card_line: str, windows: dict) -> dict:
+    sl = load_example("serve_lm")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", ReproDeprecationWarning)
+        got, secs = example_window(windows, "example serve_lm (no policy)", lambda: sl.run(str(dev)))
+        # the same weights on the cpu (init_lm draws from a generator on its device)
+        params = lm.init_lm(0, got["cfg"], device=dev)
+        cpu = sl.run("cpu", params=tree_map(lambda t: t.cpu(), params))
+        del params
+    check(not any(windows["example serve_lm (no policy)"].values()),
+          f"serve_lm: launched the kernel {windows['example serve_lm (no policy)']}")
+    tokens = [q.output for q in got["done"]]
+    check(tokens == [q.output for q in cpu["done"]], "serve_lm: greedy tokens on cuda differ from the cpu run's")
+    n_tok = sum(len(t) for t in tokens)
+    print(f"example serve_lm {got['cfg'].name} on {dev.type}: {len(tokens)} requests / {n_tok} tokens equal to the "
+          f"cpu run's, deterministic, 0 launches; generate {got['seconds']:.2f} s ({n_tok / got['seconds']:.1f} tok/s) "
+          f"[{card_line}]")
+    return {"tokens": n_tok, "generate_s": got["seconds"], "seconds": secs}
+
+
+class Killed(Exception):
+    """Ends a training run part-way, as a kill would."""
+
+
+def killing(build_trainer, kill_at: int, built: list):
+    """``build_trainer`` whose trainer stops before its step ``kill_at``:
+    the trainer fetches each step's batch outside its retry block, so the
+    exception ends the run.  Each trainer built is appended to ``built``."""
+
+    def build(*args, **kwargs):
+        trainer, state, cfg = build_trainer(*args, **kwargs)
+        batch_at = trainer.pipeline.batch_at
+
+        def batch_or_kill(step):
+            if step == kill_at:
+                raise Killed(f"killed before step {step}")
+            return batch_at(step)
+
+        trainer.pipeline.batch_at = batch_or_kill
+        built.append(trainer)
+        return trainer, state, cfg
+
+    return build
+
+
+def train_lm_example(dev: torch.device, card_line: str, work: Path, windows: dict) -> dict:
+    """Killed before step EXAMPLE_KILL_AT and resumed from its step-10
+    checkpoint: the losses after the resume bit-equal to a run never
+    killed (deterministic algorithms: the embedding's backward otherwise
+    sums with atomics)."""
+    tl = load_example("train_lm")
+
+    def runs():
+        whole, killed = work / "train_lm_whole", work / "train_lm_killed"
+        for ckpt in (whole, killed):
+            shutil.rmtree(ckpt, ignore_errors=True)
+        out = {"whole": tl.run(str(dev), ckpt=str(whole), **EXAMPLE_TRAIN), "killed": []}
+        build_trainer = tl.build_trainer
+        tl.build_trainer = killing(build_trainer, EXAMPLE_KILL_AT, out["killed"])
+        try:
+            tl.run(str(dev), ckpt=str(killed), **EXAMPLE_TRAIN)
+        except Killed:
+            pass
+        else:
+            check(False, f"train_lm: the run was not killed before step {EXAMPLE_KILL_AT}")
+        finally:
+            tl.build_trainer = build_trainer
+        out["resumed"] = tl.run(str(dev), ckpt=str(killed), **EXAMPLE_TRAIN)
+        return out
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        r, secs = example_window(windows, "example train_lm (no policy)", runs)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    check(not any(windows["example train_lm (no policy)"].values()),
+          f"train_lm: launched the kernel {windows['example train_lm (no policy)']}")
+    whole = {h["step"]: h["loss"] for h in r["whole"]["trainer"].history}
+    resumed = {h["step"]: h["loss"] for h in r["resumed"]["trainer"].history}
+    killed = {h["step"]: h["loss"] for h in r["killed"][0].history}
+    steps = EXAMPLE_TRAIN["steps"]
+    check(list(whole) == list(range(steps)), f"train_lm: runs {list(whole)}")
+    check(list(killed) == list(range(EXAMPLE_KILL_AT)) and all(killed[s] == whole[s] for s in killed),
+          f"train_lm: the killed run's losses {killed} != {whole}")
+    check(list(resumed) == list(range(10, steps)), f"train_lm: resumed at {list(resumed)}, not at the step-10 checkpoint")
+    check(all(np.isfinite(v) for v in whole.values()), f"train_lm: losses {whole}")
+    check(all(resumed[s] == whole[s] for s in resumed), f"train_lm: resumed losses {resumed} != {whole}")
+    print(f"example train_lm {r['whole']['cfg'].name} on {dev.type}: killed before step {EXAMPLE_KILL_AT}, resumed at "
+          f"10, losses {', '.join(f'{resumed[s]:.4f}' for s in resumed)} bit-equal to the run never killed; "
+          f"0 launches; 3 runs {secs:.1f} s [{card_line}]")
+    return {"losses": list(whole.values()), "resumed": list(resumed.values()), "seconds": secs}
+
+
+def docs_on_card(dev: torch.device, card_line: str) -> dict:
+    """Every Python block of the port's docs, in order, in one namespace,
+    after their device line (``device = "cuda"``, given here as ``dev``)."""
+    out = {}
+    for doc in DOCS:
+        blocks = DOC_BLOCK.findall(doc.read_text())
+        check(blocks and blocks[0] == 'device = "cuda"\n', f"{doc.name}: its first block is not the device line")
+        namespace = {"__name__": f"docs_{doc.stem}", "device": dev.type}
+        printed = io.StringIO()  # what the blocks print goes to the report, not the log
+        gemm.reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            for i, block in enumerate(blocks[1:]):
+                exec(compile(block, f"{doc.name} block {i + 2}", "exec"), namespace)
+        torch.cuda.synchronize()
+        out[doc.name] = {"blocks": len(blocks), "launches": dict(gemm.LAUNCHES),
+                         "seconds": time.perf_counter() - t0, "printed": printed.getvalue()}
+        print(f"docs {doc.relative_to(ROOT)}: {len(blocks)} Python blocks ran on {dev.type}, launches "
+              f"{out[doc.name]['launches']} (not in the kernels line: no plan implies them), "
+              f"{out[doc.name]['seconds']:.1f} s [{card_line}]")
+    return out
+
+
+def examples_phase(dev: torch.device, card_line: str, work: Path, windows: dict) -> dict:
+    """Phase 20: the five examples in-process on the card against their cpu
+    runs, with the launches their plans imply; then, with nothing timed
+    running beside it, train_lm as a script in a fresh process; then the
+    port's docs' Python blocks on the card."""
+    t_phase = time.perf_counter()
+    out = {"quickstart": quickstart_example(dev, card_line, windows),
+           "integrate_accelerator": edgemm_example(dev, card_line, windows),
+           "serve_zoo": serve_zoo_example(dev, card_line, windows),
+           "serve_lm": serve_lm_example(dev, card_line, windows),
+           "train_lm": train_lm_example(dev, card_line, work, windows)}
+    t0 = time.perf_counter()
+    script = subprocess.run(  # kills the child if it outlasts the timeout
+        [sys.executable, str(EXAMPLES_DIR / "train_lm.py"), "--device", dev.type, *EXAMPLE_SCRIPT_TRAIN,
+         "--ckpt", str(work / "train_lm_script")],
+        capture_output=True, text=True, timeout=300, env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+    )
+    script_s = time.perf_counter() - t0
+    check(script.returncode == 0 and "training xlstm-125m" in script.stdout,
+          f"train_lm.py as a script on {dev.type}: rc {script.returncode}\n{script.stderr[-2000:]}")
+    print(f"example train_lm.py as a script on {dev.type} in a fresh process (its own one-rank process group, "
+          f"shut down after): {script.stdout.strip().splitlines()[-1]}, {script_s:.1f} s [{card_line}]")
+    out["train_lm_script_seconds"] = script_s
+    out["docs"] = docs_on_card(dev, card_line)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"examples and docs: phase time {out['seconds']:.1f} s [{card_line}]")
+    return out
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description="drive the port on one NVIDIA card")
     ap.add_argument("--report", help="also write everything measured to this JSON file")
@@ -3479,6 +3755,7 @@ def main(argv: list[str] | None = None) -> int:
     windows["sharded LM and dry run (no policy)"] = dict(gemm.LAUNCHES)  # read just after it
     check(not any(windows["sharded LM and dry run (no policy)"].values()),
           f"phase 19 launched the scheduled kernel: {windows['sharded LM and dry run (no policy)']}")
+    examples = examples_phase(dev, card_line, work, windows)  # phase 20: sets the counts to 0 per example
     lm_cases = lm_run["cases"] + full_width["cases"]
     for window, counts in windows.items():
         print(f"launch window {window}: {counts}")
@@ -3492,7 +3769,9 @@ def main(argv: list[str] | None = None) -> int:
                         ("qgemm_requant",),
                     "LM served routed": ("gemm_float",), "LM smoke archs": ("gemm_float",),
                     "tpu_v5e modules": both, "LM jamba routed": ("gemm_float",),
-                    "LM deepseek routed": ("gemm_float",), "LM xlstm routed": ("gemm_float",)}
+                    "LM deepseek routed": ("gemm_float",), "LM xlstm routed": ("gemm_float",),
+                    "example quickstart": both, "example EdgeMM kernel route": both,
+                    "example serve_zoo": ("qgemm_requant",)}
     for window, names in path_kernels.items():
         for name in names:
             check(windows[window][name] > 0, f"kernel {name} never launched in the {window} window")
@@ -3535,13 +3814,14 @@ def main(argv: list[str] | None = None) -> int:
               "decode_paths": decode_paths, "decode_serve": decode_served, "decode_checks": decode_checks,
               "verify_gate": gate, "host_ops": host_ops, "lm": lm_run, "launch_windows": windows,
               "frontend": frontend, "sharded": sharded, "tpu_v5e": tpu, "full_width": full_width,
-              "training": training, "emulated": emulated, "sharded_lm": sharded_lm, "path_cases": path_cases}
+              "training": training, "emulated": emulated, "sharded_lm": sharded_lm, "examples": examples,
+              "path_cases": path_cases}
     if args.report:
         Path(args.report).parent.mkdir(parents=True, exist_ok=True)
         Path(args.report).write_text(json.dumps({**report, **line}, indent=1))
     # the per-path summaries are long and printed above, path by path
     long = ("paths", "measured_dse", "pipelined", "decode_paths", "path_cases", "lm", "frontend", "sharded",
-            "tpu_v5e", "full_width", "training", "emulated", "sharded_lm")
+            "tpu_v5e", "full_width", "training", "emulated", "sharded_lm", "examples")
     print(json.dumps({k: v for k, v in report.items() if k not in long}))
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {
