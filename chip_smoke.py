@@ -9,17 +9,22 @@ Phases, each of which fails the script (exit code other than 0) when it
 fails; nothing is caught and passed over:
 
   1. the card: ``nvidia-smi`` name and power limit, torch and CUDA versions;
-  2. build: ``nvcc`` compiles ``kernels/csrc/gemm.cu`` for sm_90a from the
-     checkout (``repro_torch.kernels.build``), timed; the ``-Xptxas=-v``
-     report must show no spills;
+  2. build: ``nvcc`` compiles ``kernels/csrc/gemm.cu`` and
+     ``gemm_wgmma.cu`` for sm_90a from the checkout, one process each,
+     together, and links them (``repro_torch.kernels.build``), timed; the
+     ``-Xptxas=-v`` report must show no spills;
   3. kernels: each instantiation of the scheduled GEMM kernel at the main
      path's shapes (``toycar_mlp`` at batch 16, its 8 layers with the block
      configs the compiled schedules give, each layer's cluster geometry
      printed), plus OS, ragged, every-epilogue, M = 1, K = 8 / 100 / 4096,
      multi-round (tall or wide blocks), unaligned-row and unaligned-base
      cases, the int32 wrap through a split K and through one CTA's mma
-     accumulator, and two float launches with a split K compared bit for
-     bit, each against its plain PyTorch version on the card (integers
+     accumulator, two float launches with a split K compared bit for
+     bit, and the float form's wgmma design (bf16, m >= 64) at ragged m,
+     n and k, every epilogue, f32 output, both dataflows, every tile
+     height and width and a split K, each launched twice bit-identical;
+     each case prints its design and geometry and is held against its
+     plain PyTorch version on the card (integers
      bit-exact; float32 within rtol=1e-4, atol=1e-3, since the two sum in
      different orders; bf16 within one bf16 ulp).
      Times are device times per launch from CUDA events around a
@@ -113,9 +118,14 @@ fails; nothing is caught and passed over:
      frontend archs with embeddings drawn with numpy) on ``cuda`` under
      the policy against the CPU (logits within F32_TOL, greedy tokens of
      a prefill and 4 decode steps equal, launches per call as the block
-     kinds imply: ``dense_rows``); every (m, k,
-     n, dtype, config) those runs launched against its plain version,
-     timed beside ``bound`` and ``torch.matmul``; the prefill and decode
+     kinds imply: ``dense_rows``); every prefill, decode step and served
+     run launching each product on the design the rule names
+     (``gemm.DESIGN_LAUNCHES`` against ``design_split`` of the recorded
+     calls: bf16 of m >= 64 on wgmma, the rest on mma.sync); every (m, k,
+     n, dtype, config) those runs launched against its plain version
+     (wgmma cases launched twice bit-identical and also timed on the
+     mma.sync design), timed beside ``bound`` and ``torch.matmul``; the
+     prefill and decode
      step times at batch 8 with their kernels' share, and the peak of
      ``torch.cuda.max_memory_allocated``;
  14. the traced frontend (run after phase 12, before 13): each zoo model
@@ -151,8 +161,9 @@ fails; nothing is caught and passed over:
      input within BLOCK_TOL of its largest |out|; a prefill of 8 x 128
      tokens and a decode step with exactly 49 / 18 / 83 scheduled-kernel
      launches each (the f32 routers among them), the end-to-end logits
-     and the router choices compared (printed, not gated); each served
-     through ``ServingEngine`` (8 prompts, 16 new tokens), routed and not;
+     and the router choices compared (printed, not gated), the designs
+     held as in phase 13; each served through ``ServingEngine`` (8
+     prompts, 16 new tokens), routed and not;
      every (m, k, n, dtype, config) they launched against its plain
      version, timed; prefill and decode-step times split into kernels and
      the rest, and the peak device memory.
@@ -238,7 +249,9 @@ archs of 13, the traced modules' runs of 14, the sharded modules'
 runs and serve call of 15, the tpu_v5e modules' runs and each
 full-width model's routed run of 16, phases 17, 18 and 19 (which
 must launch none), and each example of 20, and read just after; the
-``launches`` of the kernels line are their sum.  It prints a ``{"kernels": [...]}`` line (the toycar@16
+``launches`` of the kernels line are their sum; the float form's entry
+also carries ``designs``: each design's launches over the LM windows and
+the wgmma design's times at 1024 x 4096 x 4096.  It prints a ``{"kernels": [...]}`` line (the toycar@16
 sums of phase 3; the per-case times of phases 5 and 13 go to the report
 only, to keep the line short), a summary of the paths, and as its last
 line ``{"ok": true, "device": {...}}``.  ``--report PATH`` also
@@ -319,6 +332,10 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"int8": 1979e12, "bfloat16": 989e12, "float32": 67e12}
 MODES = ("optimized", "baseline", "naive")
 SOURCE = "src/repro_torch/kernels/csrc/gemm.cu"
+#: the float form's second design (bf16, m >= 64), and the (m, k, n) whose
+#: times the kernels line carries for it
+WGMMA_SOURCE = "src/repro_torch/kernels/csrc/gemm_wgmma.cu"
+WGMMA_SHAPE = (1024, 4096, 4096)
 REPLACES = {
     "qgemm_requant": "src/repro/kernels/qgemm.py:19",
     "gemm_int32": "src/repro/kernels/gemm.py:97",
@@ -471,11 +488,21 @@ def toycar_configs() -> dict[str, list[tuple[tuple[int, int, int], GemmKernelCon
     return out
 
 
+def wgmma_line(geo) -> str:
+    """The wgmma design's geometry, as the wrapper launches it."""
+    return (f"design wgmma: blocks {geo.grid[0]}x{geo.grid[1]} of {geo.sub[0]}x{geo.sub[1]} tiles "
+            f"{geo.tile[0]}x{geo.tile[1]} (m64n{geo.inst_n}k16, {geo.consumers} consumer warpgroups x "
+            f"{geo.m_tiles}), k_split {geo.k_split}, {geo.stages} stages, {geo.smem_bytes} B shared")
+
+
 def geometry_line(m: int, k: int, n: int, cfg: GemmKernelConfig, x, w) -> str:
-    """The launch's cluster geometry and staging path, as the wrapper picks them."""
+    """The launch's design and geometry (the mma.sync design's cluster split
+    and staging path, or the wgmma design's tiles), as the wrapper picks them."""
+    if gemm.design(x, w, cfg) == "wgmma":
+        return wgmma_line(gemm.wgmma_geometry(m, k, n, cfg))
     geo = gemm.launch_geometry(m, k, n, cfg)
     vec_x, vec_w = gemm.copy_paths(x, w, cfg)
-    return (f"clusters {geo.grid[0]}x{geo.grid[1]} of {geo.cluster} CTAs "
+    return (f"design mma_sync: clusters {geo.grid[0]}x{geo.grid[1]} of {geo.cluster} CTAs "
             f"(col_split {geo.col_split} x k_split {geo.k_split}, col_tile {geo.col_tile}, "
             f"k slices {geo.k_slices()}) copies x {'16B' if vec_x else 'element'} "
             f"w {'16B' if vec_w else 'element'}")
@@ -659,11 +686,29 @@ def edge_cases(dev: torch.device, ints, floats) -> None:
         ("gemm_float bf16 unaligned bases", misaligned(xf.bfloat16()), misaligned(wf.bfloat16()),
          GemmKernelConfig(16, 128, 128, "WS", out_dtype="bfloat16", **fl), bf),
     ]
+    wgmma = wgmma_edge_cases(floats)
+    cases += wgmma
+    # bf16 products of m >= 64 that the rule refuses run on mma.sync: a block
+    # whose tiles would start off a 16-byte column, an unaligned base
+    xt, wt, bt = floats((200, 520), torch.bfloat16), floats((520, 296), torch.bfloat16), floats((296,))
+    cases += [
+        ("gemm_float bf16 200 rows, block_n 100 (mma_sync)", xt, wt,
+         GemmKernelConfig(64, 64, 100, "WS", out_dtype="bfloat16", has_bias=True), bt),
+        ("gemm_float bf16 200 rows, unaligned base (mma_sync)", misaligned(xt), wt,
+         GemmKernelConfig(64, 64, 104, "WS", out_dtype="bfloat16", has_bias=True), bt),
+    ]
     for label, xx, ww, cfg, bb in cases:
         got, want = scheduled_gemm(xx, ww, cfg, bb), gemm_plain(xx, ww, cfg, bb)
         e = compare(label, got, want)
         mm, kk_, nn = xx.shape[0], xx.shape[1], ww.shape[1]
-        print(f"case {label} {mm}x{kk_}x{nn}: max_abs_err {e}; {geometry_line(mm, kk_, nn, cfg, xx, ww)}")
+        same = ""
+        if label.endswith("(mma_sync)"):
+            check(gemm.design(xx, ww, cfg) == "mma_sync", f"{label}: the rule did not refuse the wgmma design")
+        if label.startswith("wgmma"):
+            check(gemm.design(xx, ww, cfg) == "wgmma", f"{label}: the rule did not pick the wgmma design")
+            check(torch.equal(got, scheduled_gemm(xx, ww, cfg, bb)), f"{label}: two launches differ")
+            same = "; two launches bit-identical"
+        print(f"case {label} {mm}x{kk_}x{nn}: max_abs_err {e}{same}; {geometry_line(mm, kk_, nn, cfg, xx, ww)}")
         if label.startswith("int32 wrap"):
             wrapped = (2**31 + 2**20) - 2**32
             check(bool((want == wrapped).all()), f"{label}: the plain version did not wrap")
@@ -678,7 +723,42 @@ def edge_cases(dev: torch.device, ints, floats) -> None:
                   f"gemm_float {dt} {m}x{k}x{n}: two launches differ (k_split {k_split})")
             print(f"case gemm_float {dt} {m}x{k}x{n} k_split {k_split}: two launches bit-identical")
     torch.cuda.synchronize()
-    print(f"edge cases: {len(cases)} equal their plain versions; 4 float launch pairs bit-identical")
+    print(f"edge cases: {len(cases)} equal their plain versions ({len(wgmma)} on the wgmma design, each "
+          f"launched twice bit-identical); 4 float launch pairs bit-identical")
+
+
+#: the wgmma design's edge cases: ragged m, n and k against the blocks and
+#: the 64-deep stage, every epilogue, f32 output from bf16 input, both
+#: dataflows, every tile height and instruction width, split K, a block
+#: whose last tile lies past m (the CTA leaves at once)
+WGMMA_EDGES = (
+    # (m, k, n), (block_m, block_k, block_n), out_dtype, activation, bias
+    ((64, 8, 8), (64, 64, 64), "bfloat16", None, False),
+    ((65, 520, 96), (64, 64, 64), "bfloat16", "relu", True),
+    ((1000, 520, 288), (128, 64, 96), "float32", "gelu", True),
+    ((1030, 8, 288), (256, 64, 128), "bfloat16", "gelu", True),
+    ((1030, 520, 8), (64, 256, 128), "float32", None, False),
+    ((1000, 8, 96), (192, 64, 40), "float32", "relu", True),
+    ((1030, 520, 288), (256, 32, 512), "bfloat16", None, True),
+    ((65, 4096, 96), (128, 128, 96), "float32", None, True),
+    ((512, 520, 256), (256, 64, 128), "bfloat16", "relu", True),
+    ((1050, 520, 1024), (192, 64, 128), "bfloat16", "gelu", True),
+    ((2048, 520, 2048), (128, 64, 128), "bfloat16", None, True),
+    ((1030, 1032, 2048), (64, 64, 256), "float32", "relu", False),
+)
+
+
+def wgmma_edge_cases(floats) -> list[tuple]:
+    """WGMMA_EDGES in both dataflows, bf16 operands."""
+    out = []
+    for (m, k, n), blocks, out_dtype, act, has_bias in WGMMA_EDGES:
+        xb, wb = floats((m, k), torch.bfloat16), (floats((k, n)) * k**-0.5).bfloat16()
+        b = floats((n,)) if has_bias else None
+        for df in ("OS", "WS"):
+            cfg = GemmKernelConfig(*blocks, df, out_dtype=out_dtype, activation=act, has_bias=has_bias)
+            out.append((f"wgmma {df} {blocks} out {out_dtype} act {act}{' bias' if has_bias else ''}",
+                        xb, wb, cfg, b))
+    return out
 
 
 def sample_latencies(module, feeds_list) -> list[float]:
@@ -2003,11 +2083,26 @@ def lm_wave(prompts, dev) -> torch.Tensor:
     return torch.from_numpy(np.stack(prompts)).to(dev)
 
 
+@contextlib.contextmanager
+def mma_sync_design():
+    """Send every product to the mma.sync design while active: a yardstick
+    for timing it beside the wgmma design at the same shape (outside every
+    launch window; the port itself never overrides ``gemm.design``)."""
+    real = gemm.design
+    gemm.design = lambda x, w, cfg: "mma_sync"
+    try:
+        yield
+    finally:
+        gemm.design = real
+
+
 def lm_kernel_cases(dev: torch.device, calls: set[tuple], card_line: str) -> dict[tuple, dict]:
     """Each distinct (m, k, n, dtype, config) the LM launched, against its
     plain version (bf16: one bf16 ulp of the plain result at every K, the
     rounding of an f32 sum that differs in order; f32: F32_TOL), timed by
-    CUDA-graph replay beside ``bound`` and ``torch.matmul``."""
+    CUDA-graph replay beside ``bound`` and ``torch.matmul``; each case
+    names its design, a wgmma case is launched twice (the bits must be
+    equal) and also timed on the mma.sync design."""
     rng = np.random.default_rng(2)
     results = {}
     for key in sorted(calls, key=lambda c: (str(c[3]), c[0], c[1], c[2], c[4].has_bias)):
@@ -2017,26 +2112,48 @@ def lm_kernel_cases(dev: torch.device, calls: set[tuple], card_line: str) -> dic
         b = torch.randn((n,), device=dev) if cfg.has_bias else None
         run = lambda: scheduled_gemm(x, w, cfg, b)  # noqa: E731
         plain = lambda: gemm_plain(x, w, cfg, b)  # noqa: E731
+        kind = gemm.design(x, w, cfg)
         label = (f"lm case {str(dt).removeprefix('torch.')} {m}x{k}x{n} {cfg.block_m}/{cfg.block_k}/"
-                 f"{cfg.block_n} {cfg.dataflow}{' bias' if b is not None else ''}")
-        err = compare(label, run(), plain())
+                 f"{cfg.block_n} {cfg.dataflow}{' bias' if b is not None else ''} [{kind}]")
+        got = run()
+        err = compare(label, got, plain())
+        v3_ms = None
+        if kind == "wgmma":
+            check(torch.equal(got, run()), f"{label}: two launches differ")
+            with mma_sync_design():
+                v3_ms = device_ms(run, LM_GRAPH_LAUNCHES)
         ms = device_ms(run, LM_GRAPH_LAUNCHES)
         p_ms = device_ms(plain, LM_GRAPH_LAUNCHES)
         lib = device_ms(lambda: torch.matmul(x, w), LM_GRAPH_LAUNCHES)
         in_dtype = str(dt).removeprefix("torch.")
         b_ms, by = bound(m, k, n, in_dtype, x.element_size(), 0 if b is None else 4 * n)
-        geo = gemm.launch_geometry(m, k, n, cfg)
         results[key] = {"m": m, "k": k, "n": n, "dtype": in_dtype, "bias": b is not None,
                         "blocks": f"{cfg.block_m}/{cfg.block_k}/{cfg.block_n}", "dataflow": cfg.dataflow,
-                        "ms": ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": by, "library_ms": lib,
-                        "max_abs_err": err}
+                        "design": kind, "ms": ms, "mma_sync_ms": v3_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                        "bound_by": by, "library_ms": lib, "max_abs_err": err}
+        v3 = "" if v3_ms is None else f" mma_sync_us {v3_ms * 1e3:.3f};"
         print(f"{label}: us {ms * 1e3:.3f} bound_us {b_ms * 1e3:.3f} ({by}) torch.matmul_us {lib * 1e3:.3f} "
-              f"plain_us {p_ms * 1e3:.3f} max_abs_err {err}; clusters {geo.grid[0]}x{geo.grid[1]} of "
-              f"{geo.cluster} CTAs (col_split {geo.col_split} x k_split {geo.k_split}) [{card_line}]")
+              f"plain_us {p_ms * 1e3:.3f}{v3} max_abs_err {err}"
+              f"{'; two launches bit-identical' if kind == 'wgmma' else ''}; "
+              f"{geometry_line(m, k, n, cfg, x, w)} [{card_line}]")
         del x, w, b
     torch.cuda.synchronize()
-    print(f"lm cases: {len(results)} (m, k, n, dtype, config) cases equal their plain versions")
+    wg = sum(c["design"] == "wgmma" for c in results.values())
+    print(f"lm cases: {len(results)} (m, k, n, dtype, config) cases equal their plain versions ({wg} on the "
+          f"wgmma design, each launched twice bit-identical)")
     return results
+
+
+def design_split(calls) -> dict[str, int]:
+    """The per-design launches that recorded calls imply: the rule's
+    answer for each (m, k, n, dtype, config)."""
+    wg = sum(gemm.wgmma_admits(m, k, n, dt, cfg) for m, k, n, dt, cfg in calls)
+    return {"gemm_float/mma_sync": len(calls) - wg, "gemm_float/wgmma": wg}
+
+
+def with_designs(counts: dict[str, int]) -> dict[str, int]:
+    """A launch window's counts with the float form's per-design split."""
+    return {**counts, **gemm.DESIGN_LAUNCHES}
 
 
 def tree_leaves(tree, path=()):
@@ -2107,7 +2224,9 @@ def lm_smoke_phase(dev: torch.device, backend, windows: dict, card_line: str) ->
               f"greedy tokens of prefill + {LM_SMOKE_STEPS} steps equal ({tokens['cuda'].numel()}); "
               f"launches per forward / prefill / decode step {per_call['forward']} / {per_call['prefill']} / "
               f"{per_call['decode']} [{card_line}]")
-    windows["LM smoke archs"] = dict(gemm.LAUNCHES)  # read just after them
+    windows["LM smoke archs"] = with_designs(dict(gemm.LAUNCHES))  # read just after them
+    check(windows["LM smoke archs"]["gemm_float/wgmma"] == 0,
+          f"lm smoke archs (f32) launched the wgmma design: {windows['LM smoke archs']}")
     return calls
 
 
@@ -2150,16 +2269,23 @@ def lm_phase(dev: torch.device, card_line: str, windows: dict, cfg=None) -> dict
                     gemm.reset_launches()
                     logits[routed], c = lm.prefill(params, cfg, toks, c)
                     torch.cuda.synchronize()
-                    pf = dict(gemm.LAUNCHES)
+                    pf, pf_d = dict(gemm.LAUNCHES), dict(gemm.DESIGN_LAUNCHES)
                     n_pf = len(rec.calls)
                     gemm.reset_launches()
                     lm.decode_step(params, cfg, c, torch.argmax(logits[routed][:, -1:], -1))
                     torch.cuda.synchronize()
-                    dc = dict(gemm.LAUNCHES)
+                    dc, dc_d = dict(gemm.LAUNCHES), dict(gemm.DESIGN_LAUNCHES)
                 want = {v: (per_call if routed and v == "gemm_float" else 0) for v in gemm.LAUNCHES}
                 check(pf == want and dc == want,
                       f"lm {'routed' if routed else 'unrouted'} prefill / decode step launches {pf} / {dc}, "
                       f"want {want} each")
+                # every product the rule admits went through wgmma, every other through mma.sync
+                want_pf, want_dc = design_split(rec.calls[:n_pf]), design_split(rec.calls[n_pf:])
+                check(pf_d == want_pf and dc_d == want_dc,
+                      f"lm {'routed' if routed else 'unrouted'} prefill / decode step designs {pf_d} / {dc_d}, "
+                      f"want {want_pf} / {want_dc}")
+                if routed:
+                    splits = (pf_d, dc_d)
                 if routed and not calls["prefill"]:
                     calls["prefill"], calls["decode"] = rec.calls[:n_pf], rec.calls[n_pf:]
             p, u = logits[True][:, -1], logits[False][:, -1]
@@ -2175,6 +2301,8 @@ def lm_phase(dev: torch.device, card_line: str, windows: dict, cfg=None) -> dict
             margin_rows += int(clear.sum())
             agree_rows += int(same.sum())
             firsts.append(torch.argmax(p, -1).tolist())
+    print(f"lm designs per routed prefill {splits[0]}, per decode step {splits[1]} (the rule's split of the "
+          f"recorded products)")
     print(f"lm prefill launches: {per_call} per prefill and per decode step routed, 0 unrouted; routed vs "
           f"unrouted last-position logits within {worst_rel:.4f} of max |logit| (tolerance {LM_LOGIT_TOL}); "
           f"first tokens agree on {agree_rows}/{LM_REQUESTS} rows, on all {margin_rows} rows whose top-2 "
@@ -2206,7 +2334,7 @@ def lm_phase(dev: torch.device, card_line: str, windows: dict, cfg=None) -> dict
         gemm.reset_launches()  # the served window starts here
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        with scheduled_kernels(backend) if routed else contextlib.nullcontext():
+        with scheduled_kernels(backend) if routed else contextlib.nullcontext(), GemmRecorder() as rec:
             done = engine.generate(prompts)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -2215,7 +2343,9 @@ def lm_phase(dev: torch.device, card_line: str, windows: dict, cfg=None) -> dict
         want = {v: (per_call * calls_per_wave * len(waves) if routed and v == "gemm_float" else 0)
                 for v in gemm.LAUNCHES}
         check(window == want, f"lm served {'routed' if routed else 'unrouted'}: launches {window}, want {want}")
-        windows[f"LM served {'routed' if routed else 'unrouted'}"] = window
+        check(gemm.DESIGN_LAUNCHES == design_split(rec.calls),
+              f"lm served: designs {gemm.DESIGN_LAUNCHES}, want {design_split(rec.calls)}")
+        windows[f"LM served {'routed' if routed else 'unrouted'}"] = with_designs(window)
         tokens = [r.output for r in done]
         check(len(tokens) == LM_REQUESTS and all(len(t) == LM_NEW for t in tokens)
               and all(0 <= tok < cfg.vocab for t in tokens for tok in t), "lm served tokens")
@@ -2447,17 +2577,21 @@ def full_width_lm(dev: torch.device, card_line: str, windows: dict, arch: str, n
                 gemm.reset_launches()
                 logits[routed], c = lm.prefill(params, cfg, toks, c)
                 torch.cuda.synchronize()
-                pf, n_pf = dict(gemm.LAUNCHES), len(rec.calls)
+                pf, pf_d, n_pf = dict(gemm.LAUNCHES), dict(gemm.DESIGN_LAUNCHES), len(rec.calls)
                 routers[routed] = list(rr.ids)
                 gemm.reset_launches()
                 lm.decode_step(params, cfg, c, torch.argmax(logits[routed][:, -1:], -1))
                 torch.cuda.synchronize()
-                dc = dict(gemm.LAUNCHES)
+                dc, dc_d = dict(gemm.LAUNCHES), dict(gemm.DESIGN_LAUNCHES)
             want = {v: (per["prefill"] if routed and v == "gemm_float" else 0) for v in gemm.LAUNCHES}
             check(pf == want and dc == want, f"{cfg.name} {'routed' if routed else 'unrouted'} prefill / decode "
                   f"step launches {pf} / {dc}, want {want} each")
+            want_pf, want_dc = design_split(rec.calls[:n_pf]), design_split(rec.calls[n_pf:])
+            check(pf_d == want_pf and dc_d == want_dc, f"{cfg.name} {'routed' if routed else 'unrouted'} prefill / "
+                  f"decode step designs {pf_d} / {dc_d}, want {want_pf} / {want_dc}")
             if routed:
                 calls["prefill"], calls["decode"] = rec.calls[:n_pf], rec.calls[n_pf:]
+                print(f"lm {cfg.name} designs per routed prefill {pf_d}, per decode step {dc_d} [{card_line}]")
     for name, cl in calls.items():
         split = (sum(c[3] != torch.float32 for c in cl), sum(c[3] == torch.float32 for c in cl))
         check(split == expected, f"{cfg.name} {name}: (bf16, f32) launches {split}, want {expected}")
@@ -2478,7 +2612,7 @@ def full_width_lm(dev: torch.device, card_line: str, windows: dict, arch: str, n
         gemm.reset_launches()  # this arch's window starts here
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        with scheduled_kernels(backend) if routed else contextlib.nullcontext():
+        with scheduled_kernels(backend) if routed else contextlib.nullcontext(), GemmRecorder() as rec:
             tokens = [r.output for r in engine.generate(prompts)]
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -2486,9 +2620,11 @@ def full_width_lm(dev: torch.device, card_line: str, windows: dict, arch: str, n
         want = {v: (per["prefill"] + FW_NEW * per["decode"] if routed and v == "gemm_float" else 0)
                 for v in gemm.LAUNCHES}
         check(window == want, f"{cfg.name} {'routed' if routed else 'unrouted'} run: launches {window}, want {want}")
+        check(gemm.DESIGN_LAUNCHES == design_split(rec.calls),
+              f"{cfg.name} served: designs {gemm.DESIGN_LAUNCHES}, want {design_split(rec.calls)}")
         check(all(0 <= t < cfg.vocab for row in tokens for t in row), f"{cfg.name}: tokens out of the vocabulary")
         if routed:
-            windows[f"LM {short} routed"] = window
+            windows[f"LM {short} routed"] = with_designs(window)
         served_runs["routed" if routed else "unrouted"] = {"wall_s": wall, "tok_per_s": FW_BATCH * FW_NEW / wall}
     print(f"lm {cfg.name} served at batch {FW_BATCH}, prompts of {FW_PROMPT}: routed "
           f"{served_runs['routed']['tok_per_s']:.1f} tok/s "
@@ -3776,6 +3912,23 @@ def main(argv: list[str] | None = None) -> int:
         for name in names:
             check(windows[window][name] > 0, f"kernel {name} never launched in the {window} window")
     launches = {name: sum(w[name] for w in windows.values()) for name in gemm.LAUNCHES}
+    for window, counts in windows.items():
+        split = counts.get("gemm_float/mma_sync", 0) + counts.get("gemm_float/wgmma", 0)
+        check(counts["gemm_float"] == split, f"the {window} window's float launches {counts} are not split by design")
+    for window in ("LM served routed", "LM jamba routed", "LM deepseek routed", "LM xlstm routed"):
+        for key in gemm.DESIGN_LAUNCHES:
+            check(windows[window][key] > 0, f"design {key} never launched in the {window} window")
+    design_launches = {key: sum(w.get(key, 0) for w in windows.values()) for key in gemm.DESIGN_LAUNCHES}
+    # the wgmma design at codeqwen's 4096 x 4096 projection, m = 1024 (no bias)
+    wg_case = next(c for c in lm_cases if c["design"] == "wgmma" and (c["m"], c["k"], c["n"]) == WGMMA_SHAPE
+                   and not c["bias"])
+    designs = {
+        "mma_sync": {"source": SOURCE, "launches": design_launches["gemm_float/mma_sync"]},
+        "wgmma": {"source": WGMMA_SOURCE, "launches": design_launches["gemm_float/wgmma"],
+                  "shape": "x".join(map(str, WGMMA_SHAPE)),
+                  **{k: wg_case[k] for k in ("ms", "mma_sync_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                             "max_abs_err")}},
+    }
 
     line = {"kernels": [
         {
@@ -3799,6 +3952,7 @@ def main(argv: list[str] | None = None) -> int:
             "shapes": "toycar_mlp batch 16, 8 layers, summed; every path case and LM case in the report",
             "path_cases": sum(c["variant"] == name for c in cases.values()),
             "lm_cases": len(lm_cases) if name == "gemm_float" else 0,
+            **({"designs": designs} if name == "gemm_float" else {}),
         }
         for name, r in kernels.items()
     ]}

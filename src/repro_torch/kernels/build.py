@@ -1,11 +1,13 @@
 """Build the port's CUDA kernels with ``nvcc`` and load them with ctypes.
 
-Each source under ``kernels/csrc/`` compiles on first use into a shared
-library with a plain C interface (no PyTorch headers, so a build takes
-seconds), under ``build/repro_torch_kernels/`` at the root of the
-checkout.  The file name carries a hash of the source and the flags, so an
-edited source rebuilds and an unchanged one loads what is there.  Nothing
-builds when a module is imported: ``load`` runs inside the first launch.
+Each library's sources under ``kernels/csrc/`` (``SOURCES``) compile on
+first use, one ``nvcc`` per source, all started together, and link into a
+shared library with a plain C interface (no PyTorch headers, so a build
+takes seconds), under ``build/repro_torch_kernels/`` at the root of the
+checkout.  The file name carries a hash of every file under ``csrc/`` and
+the flags, so an edited source or header rebuilds and an unchanged tree
+loads what is there.  Nothing builds when a module is imported: ``load``
+runs inside the first launch.
 
 The port's own module, with no counterpart in the reference (Pallas
 compiles its kernels inside ``pl.pallas_call``).
@@ -27,8 +29,11 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 #: Hopper with its architecture-specific features; no --use_fast_math
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
+#: the sources of each library: the scheduled GEMM's mma.sync design
+#: (every form) and its wgmma + TMA design (bf16, m >= 64)
+SOURCES = {"gemm": ("gemm.cu", "gemm_wgmma.cu")}
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -65,44 +70,51 @@ def build_dir() -> Path:
 
 
 def library_path(name: str) -> Path:
-    """Where the library of ``csrc/<name>.cu`` lives for this source."""
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    """Where the library ``name`` lives for this tree of sources."""
+    digest = hashlib.sha256()
+    for path in sorted(CSRC.iterdir()):
+        if path.suffix in (".cu", ".cuh"):
+            digest.update(path.name.encode() + b"\0" + path.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return build_dir() / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> tuple[Path, str]:
-    """Compile ``csrc/<name>.cu`` unless its library is already built.
+    """Compile and link the library ``name`` unless it is already built.
     Returns the library path and the compiler's report (``-Xptxas=-v``:
     registers, shared memory and spills per kernel; empty when the library
-    was already there).  The library is written under a temporary name
-    and renamed into place, so concurrent builders never see half a file."""
+    was already there).  Each source compiles in its own ``nvcc``, all at
+    once; the library is linked under a temporary name and renamed into
+    place, so concurrent builds never see half a file."""
     out = library_path(name)
     if out.exists():
         return out, ""
     out.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    try:
-        proc = subprocess.run(
-            [nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")],
-            capture_output=True,
-            text=True,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed on {name}.cu (exit {proc.returncode}):\n"
-                f"{proc.stdout}{proc.stderr}"
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        objects = [Path(tmp) / f"{Path(src).stem}.o" for src in SOURCES[name]]
+        procs = [
+            subprocess.Popen(
+                [nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
             )
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return out, proc.stdout + proc.stderr
+            for src, obj in zip(SOURCES[name], objects)
+        ]
+        reports = [proc.communicate()[0] for proc in procs]
+        for src, proc, report in zip(SOURCES[name], procs, reports):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src} (exit {proc.returncode}):\n{report}")
+        lib = Path(tmp) / out.name
+        link = subprocess.run([nvcc(), "-shared", "-o", str(lib), *map(str, objects)],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc failed linking lib{name} (exit {link.returncode}):\n"
+                               f"{link.stdout}{link.stderr}")
+        os.replace(lib, out)
+    return out, "".join(reports)
 
 
 def load(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load ``csrc/<name>.cu`` once per process."""
+    """Build (if needed) and load the library ``name`` once per process."""
     with _lock:
         lib = _loaded.get(name)
         if lib is None:

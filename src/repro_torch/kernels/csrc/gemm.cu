@@ -76,12 +76,17 @@
 //     float32) and clip, or relu / gelu (tanh form, as jax.nn.gelu), then the
 //     cast to the output type.
 //
-// wgmma and TMA are not used: their 64-row tiles would waste three quarters
-// of the work at M = 16.
+// wgmma and TMA are not used here: their 64-row tiles would waste three
+// quarters of the work at M = 16.  This design takes every product of fewer
+// than 64 rows, every int8 and f32 product, and the bf16 ones that the
+// second design refuses; bf16 products of 64 rows or more go to the wgmma +
+// TMA design in gemm_wgmma.cu when kernels/gemm.py's rule admits them
+// (design()).  The epilogue (epilogue.cuh) is shared by both.
 //
-// Build (no --use_fast_math):
-//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-//        -Xcompiler -fPIC -o libgemm.so gemm.cu
+// Build (no --use_fast_math; kernels/build.py compiles both sources of the
+// library in parallel and links them):
+//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC \
+//        -c gemm.cu gemm_wgmma.cu && nvcc -shared -o libgemm.so gemm.o gemm_wgmma.o
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -90,6 +95,8 @@
 #include <climits>
 #include <cstdint>
 #include <type_traits>
+
+#include "epilogue.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -105,10 +112,6 @@ constexpr int kMaxCluster = 8;                          // the portable cluster 
 constexpr int kTilesPerWarp = kTileN / 8 / kWarps;      // 4 n-tiles of 8 columns
 constexpr int kRedStride = kTileN + 8;                  // words per partial-sum row
 constexpr int kSlot = kTileM * kRedStride;              // words per partial tile
-
-enum Epilogue { kNone = 0, kRelu = 1, kGelu = 2, kRequant = 3 };
-enum InType { kInInt8 = 0, kInF32 = 1, kInBF16 = 2 };
-enum OutType { kOutInt8 = 0, kOutInt32 = 1, kOutF32 = 2, kOutBF16 = 3 };
 
 template <typename T>
 struct Acc;
@@ -166,65 +169,7 @@ struct Smem {
   static constexpr int kBytes = kRingBytes + kMaxCluster * kSlot * 4;
 };
 
-template <typename TOut>
-__device__ __forceinline__ TOut from_int(int32_t v) {
-  if constexpr (std::is_same<TOut, float>::value) {
-    return __int2float_rn(v);
-  } else {
-    return static_cast<TOut>(v);  // int8: two's-complement wrap, as astype
-  }
-}
-
-template <typename TOut>
-__device__ __forceinline__ TOut from_float(float v) {
-  if constexpr (std::is_same<TOut, __nv_bfloat16>::value) {
-    return __float2bfloat16_rn(v);
-  } else if constexpr (std::is_same<TOut, float>::value) {
-    return v;
-  } else {
-    // requantized values are integral and clipped: the conversion is exact
-    return static_cast<TOut>(static_cast<int32_t>(v));
-  }
-}
-
-__device__ __forceinline__ float gelu_tanh(float x) {
-  const float inner = 0.7978845608028654f * (x + 0.044715f * (x * x * x));
-  return x * (0.5f * (1.0f + tanhf(inner)));
-}
-
-template <typename TOut, int kEpi>
-__device__ __forceinline__ TOut finish(uint32_t acc, const int32_t* bias, int col,
-                                       float scale, float clip_lo, float clip_hi) {
-  if (bias != nullptr) acc += static_cast<uint32_t>(bias[col]);
-  const int32_t v = static_cast<int32_t>(acc);
-  if constexpr (kEpi == kRequant) {
-    float q = rintf(static_cast<float>(v) * scale);
-    q = fminf(fmaxf(q, clip_lo), clip_hi);
-    return from_float<TOut>(q);
-  } else if constexpr (kEpi == kRelu) {
-    return from_int<TOut>(v < 0 ? 0 : v);
-  } else {
-    return from_int<TOut>(v);
-  }
-}
-
-template <typename TOut, int kEpi>
-__device__ __forceinline__ TOut finish(float acc, const float* bias, int col,
-                                       float, float, float) {
-  if (bias != nullptr) acc += bias[col];
-  if constexpr (kEpi == kRelu) {
-    acc = acc < 0.0f ? 0.0f : acc;  // NaN passes through, as jnp.maximum
-  } else if constexpr (kEpi == kGelu) {
-    acc = gelu_tanh(acc);
-  }
-  return from_float<TOut>(acc);
-}
-
 // -- PTX wrappers --------------------------------------------------------------
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
 
 // 16-byte copy; src_bytes 0 writes zeros and reads nothing.
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
@@ -235,18 +180,6 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 template <int kPending>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
-}
-
-// Cluster barrier halves: arrive (release, or relaxed where nothing is
-// published) and wait (acquire).
-__device__ __forceinline__ void cluster_arrive_relaxed() {
-  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
 __device__ __forceinline__ uint32_t ld32(const uint8_t* p) {

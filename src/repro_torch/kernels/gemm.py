@@ -22,6 +22,15 @@ launch (integer sums are exact in any order, float sums within rounding).
 
 Kernel-naming convention: m, k, n are the GEMM dims (paper's N, C, K).
 
+The float form has a second design for bf16 products of at least 64 rows
+(``csrc/gemm_wgmma.cu``): one CTA per tile of the config's block (cut
+where ``wgmma`` cannot take it whole), a producer warp streaming x and w
+through a ring of TMA loads, consumer warpgroups running ``wgmma``, and a
+split K over a cluster only where the tiles leave most SMs idle.
+``design`` picks one of the two before any launch, from the dtypes, the
+shape, the bases' alignment and the config (``wgmma_geometry``); nothing
+falls back from one to the other.
+
 ``scheduled_gemm`` launches the CUDA kernel for a CUDA tensor and raises if
 it cannot; for a CPU tensor it runs the plain PyTorch version
 (``repro_torch.kernels.ref``); any other device raises.  The kernel masks
@@ -133,6 +142,175 @@ def launch_geometry(m: int, k: int, n: int, cfg: GemmKernelConfig) -> LaunchGeom
     return LaunchGeometry(grid, col_split, k_split, col_tile, k)
 
 
+#: the wgmma design (csrc/gemm_wgmma.cu): the depth of a stage (one 128-byte
+#: swizzle row of bf16), the instruction widths it is built for (the
+#: 128-byte swizzle atom of an N-major w is 64 columns), the tile heights (64
+#: rows per m64 tile: one warpgroup of one, two of one, two of two), the
+#: deepest ring, the shared memory a block may use and an SM holds (each
+#: block resident costs 1 KB more), the card's SMs, and the kernel's fixed
+#: shared-memory header and alignment slack
+WG_STAGE_K = 64
+WG_WIDTHS = (64, 128, 256)
+WG_HEIGHTS = (256, 128, 64)
+WG_MAX_STAGES = 4
+WG_SMEM_LIMIT = 232_448
+WG_SM_SMEM = 233_472
+WG_SMS = 132
+WG_SMEM_FIXED = 2048
+
+
+@dataclass(frozen=True)
+class WgmmaGeometry:
+    """How one launch of ``csrc/gemm_wgmma.cu`` covers an (m, k, n) product.
+
+    ``grid`` counts the config's blocks in raster order (outer, inner), as
+    ``GemmKernelConfig.grid_for`` orders them; each block is ``sub`` (rows,
+    columns) CTA tiles of ``tile`` (rows, columns), adjacent in the launch,
+    rows outer; each tile is a cluster of ``k_split`` CTAs, rank r taking
+    the K slice ``k_slices()[r]``.  A tile's rows and columns stop at its
+    block's edge and the matrix's; ``inst_n`` is the instruction's width
+    (columns past the tile are computed and not stored)."""
+
+    m: int
+    k: int
+    n: int
+    block: tuple[int, int]
+    grid: tuple[int, int]
+    sub: tuple[int, int]
+    tile: tuple[int, int]
+    inst_n: int
+    k_split: int
+    stages: int
+    weight_stationary: bool
+
+    @property
+    def consumers(self) -> int:
+        """Consumer warpgroups per CTA."""
+        return 1 if self.tile[0] == 64 else 2
+
+    @property
+    def m_tiles(self) -> int:
+        """m64 tiles per consumer warpgroup."""
+        return self.tile[0] // 64 // self.consumers
+
+    @property
+    def threads(self) -> int:
+        return 128 * self.consumers + 32
+
+    @property
+    def stage_bytes(self) -> int:
+        return self.tile[0] * WG_STAGE_K * 2 + WG_STAGE_K * self.inst_n * 2
+
+    @property
+    def smem_bytes(self) -> int:
+        """Dynamic shared memory of a CTA: the ring (or the f32 partial sums
+        or the finished tile staged over it, if larger), the mbarriers'
+        header and the 1024-byte alignment slack (the kernel's own rule)."""
+        ring = self.stages * self.stage_bytes
+        staged = self.tile[0] * (self.inst_n + 8) * 4
+        return WG_SMEM_FIXED + max(ring, staged)
+
+    def k_slices(self) -> list[tuple[int, int]]:
+        """Each rank's K slice as [begin, end) in elements: whole stages,
+        balanced, the last cut at k.  The launch passes each slice's first
+        stage to the kernel, which takes its slice from there."""
+        s = -(-self.k // WG_STAGE_K)
+        return [
+            (r * s // self.k_split * WG_STAGE_K, min((r + 1) * s // self.k_split * WG_STAGE_K, self.k))
+            for r in range(self.k_split)
+        ]
+
+    def tiles(self) -> list[tuple[tuple[int, int], tuple[int, int], tuple[int, int]]]:
+        """Each cluster's (block (bm, bn), [row0, row_end), [col0, col_end))
+        in launch order, the empty ones (past m or n) included as the
+        kernel sees them."""
+        out = []
+        block_m, block_n = self.block
+        sub_m, sub_n = self.sub
+        for outer in range(self.grid[0]):
+            for inner in range(self.grid[1]):
+                bm, bn = (inner, outer) if self.weight_stationary else (outer, inner)
+                for sub in range(sub_m * sub_n):
+                    r0 = bm * block_m + sub // sub_n * self.tile[0]
+                    c0 = bn * block_n + sub % sub_n * self.tile[1]
+                    r1 = min(r0 + self.tile[0], (bm + 1) * block_m, self.m)
+                    c1 = min(c0 + self.tile[1], (bn + 1) * block_n, self.n)
+                    out.append(((bm, bn), (r0, r1), (c0, c1)))
+        return out
+
+
+@functools.lru_cache(maxsize=4096)
+def wgmma_geometry(m: int, k: int, n: int, cfg: GemmKernelConfig) -> WgmmaGeometry | None:
+    """The wgmma design's tiles for the config's blocks, or None where the
+    rule refuses the block (it then stays on the mma.sync design).
+
+    The rule.  A block is first cut to the matrix (a block wider or taller
+    than the product covers what is there).  A block of fewer than 64 rows
+    is refused (a wgmma tile has 64), and so is one whose width is not a
+    multiple of 8: TMA loads a box only from a 16-byte aligned column, so
+    every tile must start on one.  Columns: a block of at most 256 columns
+    is one tile, a wider one ``ceil(block_n / 256)`` tiles of equal width
+    rounded up to 8, the last cut at the block's edge; the instruction's
+    width is the tile's rounded up to 64, 128 or 256.
+    Rows: the tile is the tallest of 256, 128 and 64 rows that the block
+    holds and the registers allow (256 rows, two m64 tiles per warpgroup,
+    take a width of at most 128), so a block is ``ceil(block_m / tile)``
+    tiles, the last cut at its edge.  The ring holds up to 4 stages within
+    227 KB, at least 3; a one-warpgroup tile takes at most the stages that
+    let three of its CTAs share an SM (still at least 3), since more
+    warpgroups issuing ``wgmma`` on an SM beat a deeper ring there (3
+    stages of a 64 x 128 tile).  K splits over a cluster only where the tiles number fewer than
+    half the card's 132 SMs: by the largest power of two, at most 8 (the
+    portable cluster) and at most the stages, that keeps the CTAs within
+    the SMs."""
+    block_m, block_n = min(cfg.block_m, m), min(cfg.block_n, n)
+    if block_m < 64 or cfg.block_n % 8 or k < 1:
+        return None
+    sub_n = -(-block_n // 256)
+    tile_n = -(-block_n // sub_n // 8) * 8
+    inst_n = next(w for w in WG_WIDTHS if w >= tile_n)
+    tile_m = next(h for h in WG_HEIGHTS if h <= block_m and (h < 256 or inst_n <= 128))
+    sub_m = -(-block_m // tile_m)
+    grid_m, grid_n = -(-m // cfg.block_m), -(-n // cfg.block_n)
+    grid = (grid_n, grid_m) if cfg.dataflow == "WS" else (grid_m, grid_n)
+    shape = (m, k, n, (cfg.block_m, cfg.block_n), grid, (sub_m, sub_n), (tile_m, tile_n), inst_n)
+    one = WgmmaGeometry(*shape, 1, WG_MAX_STAGES, cfg.dataflow == "WS")
+    room = WG_SMEM_LIMIT if one.consumers == 2 else WG_SM_SMEM // 3 - 1024
+    stages = max(3, min(WG_MAX_STAGES, (room - WG_SMEM_FIXED) // one.stage_bytes))
+    tiles = sum(r0 < r1 and c0 < c1 for _, (r0, r1), (c0, c1) in one.tiles())
+    k_split = 1
+    if 2 * tiles < WG_SMS:
+        k_split = _pow2_floor(min(MAX_CLUSTER, WG_SMS // tiles, -(-k // WG_STAGE_K)))
+    geo = WgmmaGeometry(*shape, k_split, stages, cfg.dataflow == "WS")
+    return geo if geo.smem_bytes <= WG_SMEM_LIMIT else None
+
+
+def design(x: torch.Tensor, w: torch.Tensor, cfg: GemmKernelConfig) -> str:
+    """Which design of the kernel runs ``x @ w`` under ``cfg``: ``wgmma``
+    for a bf16 product of at least 64 rows whose k and n are multiples of
+    8 and whose bases are 16-byte aligned (TMA's rules), with no requantize
+    and a block the tile rule admits (``wgmma_geometry``); ``mma_sync`` for
+    everything else.  Decided before any launch."""
+    m, k = x.shape
+    n = w.shape[1]
+    if wgmma_admits(m, k, n, x.dtype, cfg) and x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0:
+        return "wgmma"
+    return "mma_sync"
+
+
+def wgmma_admits(m: int, k: int, n: int, dtype: torch.dtype, cfg: GemmKernelConfig) -> bool:
+    """``design``'s rule without the bases' alignment: what a shape, a
+    dtype and a config decide."""
+    return (
+        dtype == torch.bfloat16
+        and cfg.requant_scale is None
+        and m >= 64
+        and k % 8 == 0
+        and n % 8 == 0
+        and wgmma_geometry(m, k, n, cfg) is not None
+    )
+
+
 def vector_copies(t: torch.Tensor, *row_lengths: int) -> bool:
     """Whether the kernel may stage ``t`` with 16-byte ``cp.async``: its
     base and every row offset it is cut at (``row_lengths``, in elements)
@@ -155,19 +333,26 @@ def copy_paths(x: torch.Tensor, w: torch.Tensor, cfg: GemmKernelConfig) -> tuple
 #: serving dispatcher thread launches beside the caller's, so the count
 #: moves under a lock
 LAUNCHES: dict[str, int] = {"qgemm_requant": 0, "gemm_int32": 0, "gemm_float": 0}
+#: the float form's launches by design (their sum is LAUNCHES["gemm_float"])
+DESIGN_LAUNCHES: dict[str, int] = {"gemm_float/mma_sync": 0, "gemm_float/wgmma": 0}
 _launches_lock = threading.Lock()
 
 
-def record_launch(cfg: GemmKernelConfig) -> None:
-    """Count one launch of the instantiation ``cfg`` selects."""
+def record_launch(cfg: GemmKernelConfig, kernel_design: str = "mma_sync") -> None:
+    """Count one launch of the instantiation ``cfg`` selects, made by the
+    design ``kernel_design``."""
     with _launches_lock:
-        LAUNCHES[variant(cfg)] += 1
+        name = variant(cfg)
+        LAUNCHES[name] += 1
+        if name == "gemm_float":
+            DESIGN_LAUNCHES[f"gemm_float/{kernel_design}"] += 1
 
 
 def reset_launches() -> None:
     with _launches_lock:
-        for key in LAUNCHES:
-            LAUNCHES[key] = 0
+        for counts in (LAUNCHES, DESIGN_LAUNCHES):
+            for key in counts:
+                counts[key] = 0
 
 
 _IN_TYPES = {torch.int8: 0, torch.float32: 1, torch.bfloat16: 2}
@@ -273,6 +458,16 @@ def _library() -> ctypes.CDLL:
             p,  # stream
         ]
         lib.repro_scheduled_gemm.restype = ctypes.c_int
+        lib.repro_wgmma_gemm.argtypes = [
+            p, p, p, p,  # x, w, bias, out
+            i, i, i,  # m, k, n
+            i, i, i,  # block_m, block_n, weight_stationary
+            i, i, i,  # tile_m, tile_n, inst_n
+            i, i, i, p, i,  # sub_m, sub_n, k_split, k_begin, stages
+            i, i,  # out_type, epilogue
+            p,  # stream
+        ]
+        lib.repro_wgmma_gemm.restype = ctypes.c_int
         lib.repro_noop.argtypes = [i, p]
         lib.repro_noop.restype = ctypes.c_int
         lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
@@ -298,6 +493,8 @@ def _launch(
     out = torch.empty((m, n), dtype=out_t, device=x.device)
     if m == 0 or n == 0:
         return out
+    if design(x, w, cfg) == "wgmma":
+        return _launch_wgmma(x, w, cfg, bias, out)
     geo = launch_geometry(m, k, n, cfg)
     vec_x, vec_w = copy_paths(x, w, cfg)
     lib = _library()
@@ -330,6 +527,51 @@ def _launch(
         msg = lib.repro_cuda_error_string(rc).decode()
         raise RuntimeError(f"scheduled GEMM kernel launch failed: CUDA error {rc} ({msg})")
     record_launch(cfg)
+    return out
+
+
+#: the wgmma design's own error codes, beyond CUDA's (csrc/gemm_wgmma.cu)
+_ENCODE_ERROR, _NO_ENCODER = 100_000, 200_000
+
+
+def _launch_wgmma(x, w, cfg: GemmKernelConfig, bias, out: torch.Tensor) -> torch.Tensor:
+    m, k = x.shape
+    n = w.shape[1]
+    geo = wgmma_geometry(m, k, n, cfg)
+    k_begin = (ctypes.c_int * geo.k_split)(*(b // WG_STAGE_K for b, _ in geo.k_slices()))
+    lib = _library()
+    with torch.cuda.device(x.device):
+        rc = lib.repro_wgmma_gemm(
+            x.data_ptr(),
+            w.data_ptr(),
+            None if bias is None else bias.data_ptr(),
+            out.data_ptr(),
+            m,
+            k,
+            n,
+            cfg.block_m,
+            cfg.block_n,
+            int(geo.weight_stationary),
+            geo.tile[0],
+            geo.tile[1],
+            geo.inst_n,
+            geo.sub[0],
+            geo.sub[1],
+            geo.k_split,
+            k_begin,
+            geo.stages,
+            _OUT_TYPES[out.dtype],
+            _EPILOGUES[_epilogue(cfg)],
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    if rc >= _NO_ENCODER:
+        raise RuntimeError("wgmma GEMM: the CUDA driver has no cuTensorMapEncodeTiled")
+    if rc >= _ENCODE_ERROR:
+        raise RuntimeError(f"wgmma GEMM: cuTensorMapEncodeTiled failed: CUresult {rc - _ENCODE_ERROR}")
+    if rc != 0:
+        msg = lib.repro_cuda_error_string(rc).decode()
+        raise RuntimeError(f"scheduled GEMM kernel (wgmma) launch failed: CUDA error {rc} ({msg})")
+    record_launch(cfg, "wgmma")
     return out
 
 
