@@ -1,0 +1,7 @@
+"""Mean host-clock time of one ``lm.prefill`` call, with a synchronise at
+both ends, over the timed waves of a traced run."""
+
+
+def read(obs):
+    s = obs["model_call_s"]["prefill"]
+    return 1e3 * sum(s) / len(s) if s else None
