@@ -16,7 +16,9 @@ once, when it traces.
 Port of ``repro.kernels.policy``.  ``ScheduledKernelPolicy`` has no
 ``interpret`` field: the port's ``GemmKernelConfig`` has none, since where
 the kernel runs follows the tensors' device (the CUDA kernel on a card,
-its plain version on the CPU).
+its plain version on the CPU).  Under ``repro_torch.tracing.recording``
+the policy counts its CoSA solves (``policy.solves``), each inside a
+``policy.solve`` span.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from __future__ import annotations
 import threading
 from dataclasses import dataclass, field
 
+from repro_torch import tracing
 from repro_torch.core.arch_spec import GemmWorkload
 from repro_torch.kernels.gemm import GemmKernelConfig
 from repro_torch.kernels.ref import dtype_name, torch_dtype
@@ -57,8 +60,10 @@ class ScheduledKernelPolicy:
         wl = GemmWorkload(
             N=m, C=k, K=n, in_bytes=elem, w_bytes=elem, out_bytes=4, name="lm_gemm"
         )
+        tracing.count("policy.solves")
         try:
-            result = self.backend.scheduler.schedule(wl)
+            with tracing.span("policy.solve", m=m, k=k, n=n):
+                result = self.backend.scheduler.schedule(wl)
         except RuntimeError:
             return None
         return self.backend.mapping_gen.to_kernel_config(

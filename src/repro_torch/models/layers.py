@@ -21,6 +21,7 @@ import itertools
 import torch
 from torch._subclasses.fake_tensor import FakeTensor
 
+from repro_torch import tracing
 from repro_torch.kernels import ops, policy
 from repro_torch.kernels.ref import gelu_tanh
 from repro_torch.parallel.policy import gather_fsdp, gather_rows, reduce_partial
@@ -54,6 +55,14 @@ def init_dense(gen, d_in: int, d_out: int, *, bias: bool = False, dtype=torch.fl
     return p
 
 
+def _count_flops(counter: str, x: torch.Tensor, w: torch.Tensor) -> None:
+    """Add the 2·m·k·n operations of a weight product ``x @ w`` to
+    ``counter`` ("gemm.routed_flops" or "gemm.unrouted_flops") while a
+    ``tracing`` recording is on."""
+    if tracing.active() is not None:
+        tracing.count(counter, 2 * x.numel() * w.shape[-1])
+
+
 def dense(params, x: torch.Tensor, *, compute_dtype=None) -> torch.Tensor:
     """``x @ w (+ b)``.  Under ``policy.scheduled_kernels`` a product of at
     least ``min_m`` rows (m = the product of x's leading dims) runs on the
@@ -64,7 +73,8 @@ def dense(params, x: torch.Tensor, *, compute_dtype=None) -> torch.Tensor:
     The scheduled kernel has no backward (nor has the reference's Pallas
     kernel), so under a policy a product that autograd would differentiate
     raises ``RuntimeError`` before any launch, on every device: training
-    runs unrouted."""
+    runs unrouted.  Under ``repro_torch.tracing.recording`` each product
+    counts its 2·m·k·n operations as routed or unrouted."""
     w = gather_fsdp(params["w"])
     b = gather_fsdp(params.get("b"))
     pol = policy.get_policy()
@@ -86,7 +96,9 @@ def dense(params, x: torch.Tensor, *, compute_dtype=None) -> torch.Tensor:
             m *= s
         cfg = pol.config_for(m, x.shape[-1], w.shape[-1], x.dtype, has_bias=b is not None)
         if cfg is not None:
+            _count_flops("gemm.routed_flops", x, w)
             return ops.matmul(x, w, cfg, b)
+    _count_flops("gemm.unrouted_flops", x, w)
 
     # a row-parallel product's pending sums are reduced here (all-reduce),
     # so its gradient comes back whole over the model axis
@@ -183,4 +195,6 @@ def unembed(params, x: torch.Tensor, *, compute_dtype=None) -> torch.Tensor:
     if compute_dtype is not None:
         x = x.to(compute_dtype)
         t = t.to(compute_dtype)
-    return x @ t.T
+    t = t.T
+    _count_flops("gemm.unrouted_flops", x, t)
+    return x @ t

@@ -27,6 +27,14 @@ MLA caches by ``repro_torch.models.cache``, the Mamba and xLSTM states
 (stacked over the groups like the KV cache) by copying each block's new
 state into them; ``prefill`` and ``decode_step`` return the cache they
 were given, updated.
+
+Under ``repro_torch.tracing.recording`` the serving entry points record
+spans: ``lm.prefill`` / ``lm.decode_step`` around each call, ``lm.embed``
+and ``lm.head`` inside it, ``layer.<kind>`` around each block (its norm
+and residual included) and ``layer.ffn`` / ``layer.moe`` around each
+FFN sub-layer, and in an attention block ``attn.qkv``, ``attn.core``
+(the blockwise prefill attention, or the cache read and the decode
+attention), ``attn.out`` and ``attn.cache_write``.
 """
 
 from __future__ import annotations
@@ -39,6 +47,7 @@ import torch
 from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import tracing
 from repro_torch.api import torch_device
 from repro_torch.kernels.ref import torch_dtype
 from repro_torch.models import attention as A
@@ -55,6 +64,9 @@ from repro_torch.tree import tree_map
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
+
+#: the span of each block kind (built once, so a span off costs no string)
+_LAYER_SPANS = {kind: f"layer.{kind}" for kind in ("attn", "mamba", "mlstm", "slstm")}
 
 
 def _position_is_moe(cfg: ModelConfig, pos: int) -> bool:
@@ -206,11 +218,12 @@ def _ffn(lp, cfg: ModelConfig, is_moe: bool, x: torch.Tensor):
     """The residual FFN sub-layer (dense MLP or MoE) -> (x, aux loss or None)."""
     if "ffn" not in lp:
         return x, None
-    h2 = L.rmsnorm(lp["ln2"], x, cfg.norm_eps)
-    if is_moe:
-        f, aux = M.moe_ffn(lp["ffn"], cfg, h2)
-        return x + f, aux
-    return x + L.mlp(lp["ffn"], h2, compute_dtype=torch_dtype(cfg.compute_dtype)), None
+    with tracing.span("layer.moe" if is_moe else "layer.ffn"):
+        h2 = L.rmsnorm(lp["ln2"], x, cfg.norm_eps)
+        if is_moe:
+            f, aux = M.moe_ffn(lp["ffn"], cfg, h2)
+            return x + f, aux
+        return x + L.mlp(lp["ffn"], h2, compute_dtype=torch_dtype(cfg.compute_dtype)), None
 
 
 def _apply_layer_train(lp, cfg: ModelConfig, kind: str, is_moe: bool, x, positions, *, block_skip=False):
@@ -336,33 +349,43 @@ def _store_state(lcache: dict, state) -> None:
 def _apply_layer_prefill(lp, cfg: ModelConfig, kind, is_moe, x, positions, lcache, start: int):
     """Like the train apply, but fills the layer cache (a KV cache at
     ``start``, or a recurrent state)."""
-    h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
-    if kind == "attn":
-        q, k, v, mla = A.qkv_project(lp["block"], cfg, h, positions)
-        window = cfg.window if cfg.attn_kind == "swa" else 0
-        out = A.on_local_heads(
-            functools.partial(
-                A.blockwise_attention, causal=True, window=window, chunk_q=cfg.attn_chunk, chunk_kv=cfg.attn_chunk
-            ),
-            q,
-            k,
-            v,
-        )
-        compute = torch_dtype(cfg.compute_dtype)
-        y = L.dense(lp["block"]["o"], A._merge_heads(out), compute_dtype=compute)
-        C.write_attn_cache(cfg, lcache, k, v, mla, start)
-    elif kind == "mamba":
-        y, st = S.mamba_block(lp["block"], cfg, h, S.MambaState(**lcache))
-        _store_state(lcache, st)
-    elif kind == "mlstm":
-        y, st = X.mlstm_prefill(lp["block"], cfg, h, X.MLSTMState(**lcache), chunk=cfg.attn_chunk)
-        _store_state(lcache, st)
-    elif kind == "slstm":
-        y, st = X.slstm_block(lp["block"], cfg, h, X.SLSTMState(**lcache))
-        _store_state(lcache, st)
-    else:
-        raise ValueError(kind)
-    return _ffn(lp, cfg, is_moe, x + y)[0]
+    with tracing.span(_LAYER_SPANS.get(kind, "layer")):
+        h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
+        if kind == "attn":
+            with tracing.span("attn.qkv"):
+                q, k, v, mla = A.qkv_project(lp["block"], cfg, h, positions)
+            window = cfg.window if cfg.attn_kind == "swa" else 0
+            with tracing.span("attn.core"):
+                out = A.on_local_heads(
+                    functools.partial(
+                        A.blockwise_attention,
+                        causal=True,
+                        window=window,
+                        chunk_q=cfg.attn_chunk,
+                        chunk_kv=cfg.attn_chunk,
+                    ),
+                    q,
+                    k,
+                    v,
+                )
+            compute = torch_dtype(cfg.compute_dtype)
+            with tracing.span("attn.out"):
+                y = L.dense(lp["block"]["o"], A._merge_heads(out), compute_dtype=compute)
+            with tracing.span("attn.cache_write"):
+                C.write_attn_cache(cfg, lcache, k, v, mla, start)
+        elif kind == "mamba":
+            y, st = S.mamba_block(lp["block"], cfg, h, S.MambaState(**lcache))
+            _store_state(lcache, st)
+        elif kind == "mlstm":
+            y, st = X.mlstm_prefill(lp["block"], cfg, h, X.MLSTMState(**lcache), chunk=cfg.attn_chunk)
+            _store_state(lcache, st)
+        elif kind == "slstm":
+            y, st = X.slstm_block(lp["block"], cfg, h, X.SLSTMState(**lcache))
+            _store_state(lcache, st)
+        else:
+            raise ValueError(kind)
+        x = x + y
+    return _ffn(lp, cfg, is_moe, x)[0]
 
 
 @on_mesh
@@ -377,71 +400,83 @@ def prefill(
     ``cache`` (built by ``init_cache``) in place.  Returns (last-position
     logits [B, 1, V] f32, cache).  As in the reference, the prompt's
     positions count from 0 whatever ``cache["len"]``."""
-    x, positions = _embed_inputs(params, cfg, tokens, frontend_embeds)
-    start = cache["len"]
-    npre, period = n_prefix_layers(cfg), len(cfg.pattern)
-    layers = zip(iter_layers(params, cfg), _stacked(cache, cfg), strict=True)
-    for i, ((lp, kind, is_moe), lcache) in enumerate(layers):
-        in_group = i >= npre
-        if in_group and (i - npre) % period == 0:
-            x = constrain(x, "dp", "boundary", None)
-        x = _apply_layer_prefill(lp, cfg, kind, is_moe, x, positions, lcache, start)
-        if in_group:
-            x = constrain(x, "dp", "boundary", None)
-    x = L.rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
-    logits = _head(params, cfg, x)
-    cache["len"] = start + positions.shape[0]
-    return logits.to(torch.float32), cache
+    with tracing.span("lm.prefill"):
+        with tracing.span("lm.embed"):
+            x, positions = _embed_inputs(params, cfg, tokens, frontend_embeds)
+        start = cache["len"]
+        npre, period = n_prefix_layers(cfg), len(cfg.pattern)
+        layers = zip(iter_layers(params, cfg), _stacked(cache, cfg), strict=True)
+        for i, ((lp, kind, is_moe), lcache) in enumerate(layers):
+            in_group = i >= npre
+            if in_group and (i - npre) % period == 0:
+                x = constrain(x, "dp", "boundary", None)
+            x = _apply_layer_prefill(lp, cfg, kind, is_moe, x, positions, lcache, start)
+            if in_group:
+                x = constrain(x, "dp", "boundary", None)
+        with tracing.span("lm.head"):
+            x = L.rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
+            logits = _head(params, cfg, x).to(torch.float32)
+        cache["len"] = start + positions.shape[0]
+        return logits, cache
 
 
 def _apply_layer_decode(lp, cfg: ModelConfig, kind, is_moe, x, lcache, cur_len: int, positions):
     """One-token step.  x [B,1,d]; cur_len = tokens already in the cache,
     ``positions`` = [cur_len], this token's position."""
-    h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
-    compute = torch_dtype(cfg.compute_dtype)
-    if kind == "attn":
-        q, k, v, mla = A.qkv_project(lp["block"], cfg, h, positions)
-        C.write_attn_cache(cfg, lcache, k, v, mla, cur_len)
-        if cfg.kv_lora_rank:
-            dh = cfg.head_dim_
-            out = A.mla_decode_attention(
-                lp["block"], cfg, q[..., :dh], q[..., dh:], lcache["latent"], lcache["k_rope"], cur_len + 1
-            )
+    with tracing.span(_LAYER_SPANS.get(kind, "layer")):
+        h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
+        compute = torch_dtype(cfg.compute_dtype)
+        if kind == "attn":
+            with tracing.span("attn.qkv"):
+                q, k, v, mla = A.qkv_project(lp["block"], cfg, h, positions)
+            with tracing.span("attn.cache_write"):
+                C.write_attn_cache(cfg, lcache, k, v, mla, cur_len)
+            with tracing.span("attn.core"):
+                if cfg.kv_lora_rank:
+                    dh = cfg.head_dim_
+                    out = A.mla_decode_attention(
+                        lp["block"], cfg, q[..., :dh], q[..., dh:], lcache["latent"], lcache["k_rope"], cur_len + 1
+                    )
+                else:
+                    window = cfg.window if cfg.attn_kind == "swa" else 0
+                    kc, vc = C.read_attn_cache(cfg, lcache, compute)
+                    out = A.decode_attention(q, kc, vc, cur_len + 1, window=window)
+            with tracing.span("attn.out"):
+                y = L.dense(lp["block"]["o"], A._merge_heads(out), compute_dtype=compute)
+        elif kind == "mamba":
+            y, st = S.mamba_decode_step(lp["block"], cfg, h, S.MambaState(**lcache))
+            _store_state(lcache, st)
+        elif kind == "mlstm":
+            y, st = X.mlstm_decode_step(lp["block"], cfg, h, X.MLSTMState(**lcache))
+            _store_state(lcache, st)
+        elif kind == "slstm":
+            y, st = X.slstm_decode_step(lp["block"], cfg, h, X.SLSTMState(**lcache))
+            _store_state(lcache, st)
         else:
-            window = cfg.window if cfg.attn_kind == "swa" else 0
-            kc, vc = C.read_attn_cache(cfg, lcache, compute)
-            out = A.decode_attention(q, kc, vc, cur_len + 1, window=window)
-        y = L.dense(lp["block"]["o"], A._merge_heads(out), compute_dtype=compute)
-    elif kind == "mamba":
-        y, st = S.mamba_decode_step(lp["block"], cfg, h, S.MambaState(**lcache))
-        _store_state(lcache, st)
-    elif kind == "mlstm":
-        y, st = X.mlstm_decode_step(lp["block"], cfg, h, X.MLSTMState(**lcache))
-        _store_state(lcache, st)
-    elif kind == "slstm":
-        y, st = X.slstm_decode_step(lp["block"], cfg, h, X.SLSTMState(**lcache))
-        _store_state(lcache, st)
-    else:
-        raise ValueError(kind)
-    return _ffn(lp, cfg, is_moe, x + y)[0]
+            raise ValueError(kind)
+        x = x + y
+    return _ffn(lp, cfg, is_moe, x)[0]
 
 
 @on_mesh
 def decode_step(params, cfg: ModelConfig, cache, token: torch.Tensor):
     """token [B, 1] -> (logits [B, 1, V] f32, cache), the cache updated in
     place."""
-    cur_len = cache["len"]
-    x = L.embed(params["embed"], token).to(torch_dtype(cfg.compute_dtype))
-    # made on the device (no host-to-device copy, which would wait for the
-    # queued work)
-    positions = torch.arange(cur_len, cur_len + 1, device=x.device)
-    npre, period = n_prefix_layers(cfg), len(cfg.pattern)
-    layers = zip(iter_layers(params, cfg), _stacked(cache, cfg), strict=True)
-    for i, ((lp, kind, is_moe), lcache) in enumerate(layers):
-        if i >= npre and (i - npre) % period == 0:
-            x = constrain(x, "dp", "boundary", None)
-        x = _apply_layer_decode(lp, cfg, kind, is_moe, x, lcache, cur_len, positions)
-    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    logits = _head(params, cfg, x)
-    cache["len"] = cur_len + 1
-    return logits.to(torch.float32), cache
+    with tracing.span("lm.decode_step"):
+        cur_len = cache["len"]
+        with tracing.span("lm.embed"):
+            x = L.embed(params["embed"], token).to(torch_dtype(cfg.compute_dtype))
+            # made on the device (no host-to-device copy, which would wait
+            # for the queued work)
+            positions = torch.arange(cur_len, cur_len + 1, device=x.device)
+        npre, period = n_prefix_layers(cfg), len(cfg.pattern)
+        layers = zip(iter_layers(params, cfg), _stacked(cache, cfg), strict=True)
+        for i, ((lp, kind, is_moe), lcache) in enumerate(layers):
+            if i >= npre and (i - npre) % period == 0:
+                x = constrain(x, "dp", "boundary", None)
+            x = _apply_layer_decode(lp, cfg, kind, is_moe, x, lcache, cur_len, positions)
+        with tracing.span("lm.head"):
+            x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+            logits = _head(params, cfg, x).to(torch.float32)
+        cache["len"] = cur_len + 1
+        return logits, cache

@@ -25,6 +25,11 @@ weights and so is routed to the kernel's f32 form under
 ``scheduled_kernels``; the shared experts go through ``layers.mlp`` and
 are routed too; the expert products are batched matmuls outside any
 kernel, as in the reference, where they are einsums outside Pallas.
+Under ``repro_torch.tracing.recording`` an FFN records the spans
+``moe.route``, ``moe.dispatch`` (the slot fill), ``moe.experts`` (the
+three expert products) and ``moe.combine``, and counts the expert
+products' operations as unrouted (``gemm.unrouted_flops``: 2 x E x slots
+x d x ff each), beside what ``layers.dense`` counts.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ import functools
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.kernels.ref import torch_dtype
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig, MoEConfig
@@ -143,34 +149,40 @@ def moe_ffn(params, cfg: ModelConfig, x: torch.Tensor):
     x = constrain(x, "dp", None, None)
     xt = x.reshape(t, d)
 
-    weights, idx, aux = route(params, cfg, xt)
+    with tracing.span("moe.route"):
+        weights, idx, aux = route(params, cfg, xt)
     g = _num_groups(t)
     tl = t // g
     cap = capacity(m, tl)
-    xg = constrain(xt.reshape(g, tl, d), "dp", None, None)
-    idx_g = constrain(idx.reshape(g, tl, k), "dp", None, None)
-    w_g = constrain(weights.reshape(g, tl, k), "dp", None, None)
-    gspec = spec_for((g,), "dp") or (None,)
-    buf, safe_pos, keep = run_local(
-        functools.partial(_fill, n_experts=e, cap=cap, compute=compute),
-        xg,
-        idx_g,
-        out_specs=(gspec + (None, None, None), gspec + (None,), gspec + (None,)),
-    )
-    buf = constrain(buf, "dp", "tp", None, None)  # the GShard (g, e) layout
+    with tracing.span("moe.dispatch"):
+        xg = constrain(xt.reshape(g, tl, d), "dp", None, None)
+        idx_g = constrain(idx.reshape(g, tl, k), "dp", None, None)
+        w_g = constrain(weights.reshape(g, tl, k), "dp", None, None)
+        gspec = spec_for((g,), "dp") or (None,)
+        buf, safe_pos, keep = run_local(
+            functools.partial(_fill, n_experts=e, cap=cap, compute=compute),
+            xg,
+            idx_g,
+            out_specs=(gspec + (None, None, None), gspec + (None,), gspec + (None,)),
+        )
+        buf = constrain(buf, "dp", "tp", None, None)  # the GShard (g, e) layout
 
     # expert SwiGLU on [E, G·C, d]
-    buf = buf.transpose(0, 1).reshape(e, g * cap, d)
-    gate = torch.bmm(buf, gather_fsdp(params["gate"]).to(compute))
-    up = torch.bmm(buf, gather_fsdp(params["up"]).to(compute))
-    h = torch.nn.functional.silu(gate.to(torch.float32)).to(compute) * up
-    out_buf = torch.bmm(h, gather_fsdp(params["down"]).to(compute))  # [E, G·C, d]
-    out_buf = out_buf.reshape(e, g, cap, d).transpose(0, 1)  # [G, E, C, d]
-    out_buf = constrain(out_buf, "dp", "tp", None, None)
-    out_buf = constrain(out_buf, "dp", None, None, None)  # each shard gathers its groups' slots
+    with tracing.span("moe.experts"):
+        buf = buf.transpose(0, 1).reshape(e, g * cap, d)
+        gate = torch.bmm(buf, gather_fsdp(params["gate"]).to(compute))
+        up = torch.bmm(buf, gather_fsdp(params["up"]).to(compute))
+        h = torch.nn.functional.silu(gate.to(torch.float32)).to(compute) * up
+        out_buf = torch.bmm(h, gather_fsdp(params["down"]).to(compute))  # [E, G·C, d]
+        if tracing.active() is not None:
+            tracing.count("gemm.unrouted_flops", 3 * 2 * e * g * cap * d * m.d_ff_expert)
 
-    mixed = run_local(_combine, out_buf, idx_g, safe_pos, keep, w_g, out_specs=(gspec + (None, None),))
-    mixed = mixed.reshape(t, d)
+    with tracing.span("moe.combine"):
+        out_buf = out_buf.reshape(e, g, cap, d).transpose(0, 1)  # [G, E, C, d]
+        out_buf = constrain(out_buf, "dp", "tp", None, None)
+        out_buf = constrain(out_buf, "dp", None, None, None)  # each shard gathers its groups' slots
+        mixed = run_local(_combine, out_buf, idx_g, safe_pos, keep, w_g, out_specs=(gspec + (None, None),))
+        mixed = mixed.reshape(t, d)
 
     if m.n_shared_experts:
         mixed = mixed + L.mlp(params["shared"], xt, compute_dtype=compute)

@@ -16,7 +16,9 @@ combine ``(a1·a2, a2·b1 + b2)``: ⌈log₂ chunk⌉ rounds of whole-tensor
 products (7 at chunk 128) instead of one host step per position.  The
 two scans associate the products differently, so they agree to float
 rounding, not bit for bit.  ``jax.checkpoint`` (training only) is left
-out.
+out.  Under ``repro_torch.tracing.recording`` a block records the spans
+``mamba.in_proj`` (with the causal conv), ``mamba.scan`` (the chunk loop)
+and ``mamba.out_proj`` (with the gate).
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.kernels.ref import torch_dtype
 from repro_torch.models import layers as L
 from repro_torch.models.config import MambaConfig, ModelConfig
@@ -119,29 +122,32 @@ def mamba_block(params, cfg: ModelConfig, x: torch.Tensor, state: MambaState | N
     mc = cfg.mamba or MambaConfig()
     b, s, _ = x.shape
     compute = torch_dtype(cfg.compute_dtype)
-    xz = L.dense(params["in_proj"], x, compute_dtype=compute)
-    u, z = torch.chunk(xz, 2, dim=-1)  # [B,S,d_in] each
-    conv_state = state.conv if state is not None else None
-    u, conv_state = _causal_conv(u, params["conv_w"].to(compute), params["conv_b"].to(compute), conv_state)
-    u = torch.nn.functional.silu(u)
+    with tracing.span("mamba.in_proj"):
+        xz = L.dense(params["in_proj"], x, compute_dtype=compute)
+        u, z = torch.chunk(xz, 2, dim=-1)  # [B,S,d_in] each
+        conv_state = state.conv if state is not None else None
+        u, conv_state = _causal_conv(u, params["conv_w"].to(compute), params["conv_b"].to(compute), conv_state)
+        u = torch.nn.functional.silu(u)
 
-    if state is not None:
-        h = state.h
-    else:
-        h = torch.zeros((b, u.shape[-1], mc.d_state), dtype=torch.float32, device=x.device)
+    with tracing.span("mamba.scan"):
+        if state is not None:
+            h = state.h
+        else:
+            h = torch.zeros((b, u.shape[-1], mc.d_state), dtype=torch.float32, device=x.device)
 
-    chunk = L.chunk_len(s, mc.chunk)
-    ys = []
-    for c0 in range(0, s, chunk):
-        u_c = u[:, c0 : c0 + chunk]
-        d_a, d_bu, c_c = _ssm_params(params, cfg, u_c)
-        h_seq, h = _scan_chunk(h, d_a, d_bu)
-        y_c = torch.einsum("bcdn,bcn->bcd", h_seq, c_c)  # [B,c,d_in]
-        ys.append(y_c + params["D"][None, None] * u_c.to(torch.float32))
-    y = torch.cat(ys, dim=1)
+        chunk = L.chunk_len(s, mc.chunk)
+        ys = []
+        for c0 in range(0, s, chunk):
+            u_c = u[:, c0 : c0 + chunk]
+            d_a, d_bu, c_c = _ssm_params(params, cfg, u_c)
+            h_seq, h = _scan_chunk(h, d_a, d_bu)
+            y_c = torch.einsum("bcdn,bcn->bcd", h_seq, c_c)  # [B,c,d_in]
+            ys.append(y_c + params["D"][None, None] * u_c.to(torch.float32))
+        y = torch.cat(ys, dim=1)
 
-    y = y.to(compute) * torch.nn.functional.silu(z.to(torch.float32)).to(compute)
-    out = L.dense(params["out_proj"], y, compute_dtype=compute)
+    with tracing.span("mamba.out_proj"):
+        y = y.to(compute) * torch.nn.functional.silu(z.to(torch.float32)).to(compute)
+        out = L.dense(params["out_proj"], y, compute_dtype=compute)
     return out.to(x.dtype), MambaState(h=h, conv=conv_state)
 
 

@@ -16,7 +16,11 @@ place of ``jax.random.key(step)``: the same seeding rule, another
 generator, so sampled tokens differ from the reference's (greedy tokens
 do not).  As in the reference, the engine installs no kernel policy:
 wrap ``generate`` in ``repro_torch.kernels.policy.scheduled_kernels`` to
-route its GEMMs through the scheduled kernel.
+route its GEMMs through the scheduled kernel.  Under
+``repro_torch.tracing.recording`` a wave records its spans (``engine.*``
+around the padding, the cache, each readback and each next token; the
+model's own inside) and counters (prompt tokens, padded positions,
+decode steps).
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core.deprecation import warn_deprecated
 from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig
@@ -89,21 +94,30 @@ class ServingEngine:
                 # pad wave to the static batch
                 bsz = s.batch
                 plen = max(len(r.prompt) for r in wave)
-                toks = np.zeros((bsz, plen), np.int32)
-                for i, r in enumerate(wave):
-                    toks[i, plen - len(r.prompt) :] = r.prompt  # left-pad
-                cache = lm.init_cache(self.cfg, bsz, s.max_len, device=self.device)
-                logits, cache = lm.prefill(
-                    self.params, self.cfg, torch.from_numpy(toks).to(self.device), cache
-                )
-                cur = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
-                for step in range(s.max_new_tokens):
-                    tokens = cur[:, 0].tolist()
-                    for i, r in enumerate(wave):
-                        if not r.done:
-                            r.output.append(tokens[i])
-                    logits, cache = lm.decode_step(self.params, self.cfg, cache, cur)
-                    cur = self._next_tokens(logits, step)
+                sent = sum(len(r.prompt) for r in wave) if tracing.active() is not None else 0
+                tracing.count("engine.prompt_tokens", sent)
+                tracing.count("engine.padded_positions", bsz * plen)
+                with tracing.span("engine.wave", batch=bsz, padded_len=plen, prompt_tokens=sent):
+                    with tracing.span("engine.pad"):
+                        toks = np.zeros((bsz, plen), np.int32)
+                        for i, r in enumerate(wave):
+                            toks[i, plen - len(r.prompt) :] = r.prompt  # left-pad
+                        toks = torch.from_numpy(toks).to(self.device)
+                    with tracing.span("engine.cache_init"):
+                        cache = lm.init_cache(self.cfg, bsz, s.max_len, device=self.device)
+                    logits, cache = lm.prefill(self.params, self.cfg, toks, cache)
+                    with tracing.span("engine.next_token"):
+                        cur = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+                    for step in range(s.max_new_tokens):
+                        with tracing.span("engine.readback"):
+                            tokens = cur[:, 0].tolist()
+                        for i, r in enumerate(wave):
+                            if not r.done:
+                                r.output.append(tokens[i])
+                        tracing.count("engine.decode_steps")
+                        logits, cache = lm.decode_step(self.params, self.cfg, cache, cur)
+                        with tracing.span("engine.next_token"):
+                            cur = self._next_tokens(logits, step)
                 for r in wave:
                     r.done = True
                     done.append(r)
