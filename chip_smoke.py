@@ -242,8 +242,21 @@ fails; nothing is caught and passed over:
      with nothing else running on the card.  Then every Python
      block of ``docs/torch/*.md`` runs on ``cuda`` (its launches are
      printed, not added to the kernels line).
+ 21. the LM prefill's fused attention (``kernels/csrc/attention_wgmma.cu``;
+     after 13's host ops, before its LM): codeqwen's layer at B 8, S
+     4096 and 2432, jamba's at 1024, each admitted, one launch a call,
+     two launches bit-equal, no further from the dense float32 oracle
+     than the plain version; ms, bound_ms (the causal pairs' operations
+     at the bf16 peak), plain_ms and library_ms
+     (``scaled_dot_product_attention``, a yardstick the port never
+     calls).  The kernels line carries it as ``prefill_attention``, its
+     launches the sum of the LM windows of 13 and 16, where each bf16
+     arch the rule takes launches one a prefill and attention layer and
+     counts no ``attn.plain_calls``, and every other launches none
+     (phase 21's own launches are in no window).
 
-The launch counts are set to 0 just before each of phases 4, 6-10, the
+The launch counts (the scheduled GEMM's and the prefill attention's,
+``reset_launches``) are set to 0 just before each of phases 4, 6-10, the
 paths of 11 (each serve call too), the LM's served runs and smoke
 archs of 13, the traced modules' runs of 14, the sharded modules'
 runs and serve call of 15, the tpu_v5e modules' runs and each
@@ -286,6 +299,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 import repro_torch  # noqa: E402
+from repro_torch import tracing  # noqa: E402
 from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config  # noqa: E402
 from repro_torch.core import ir, measure, pass_manager, pipeline, verify, zoo  # noqa: E402
 from repro_torch.core.artifact import graph_fingerprint  # noqa: E402
@@ -298,12 +312,13 @@ from repro_torch.core.lowering import kernel_config_for  # noqa: E402
 from repro_torch.core.scheduler import ExtendedCosaScheduler, ScheduleResult  # noqa: E402
 from repro_torch.core.strategy import gemm_instances, workload_from_node  # noqa: E402
 from repro_torch.frontend import trace_model  # noqa: E402
+from repro_torch.kernels import attention as KA  # noqa: E402
 from repro_torch.kernels import build, gemm, ops  # noqa: E402
 from repro_torch.kernels.gemm import GemmKernelConfig, gemm_plain, scheduled_gemm  # noqa: E402
 from repro_torch.kernels.policy import ScheduledKernelPolicy, scheduled_kernels  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
-from repro_torch.kernels.ref import torch_dtype  # noqa: E402
+from repro_torch.kernels.ref import flash_attention_ref, torch_dtype  # noqa: E402
 from repro_torch.models import attention as A  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import flash, lm, moe  # noqa: E402
@@ -336,6 +351,17 @@ SOURCE = "src/repro_torch/kernels/csrc/gemm.cu"
 #: times the kernels line carries for it
 WGMMA_SOURCE = "src/repro_torch/kernels/csrc/gemm_wgmma.cu"
 WGMMA_SHAPE = (1024, 4096, 4096)
+#: the LM prefill's fused attention, and its cases at the main path's
+#: shapes (label, batch, heads, KV heads, S, head dim): codeqwen's waves
+#: at 4096 and 2432, jamba's at 1024; the kernels line carries the first
+ATTN_SOURCE = "src/repro_torch/kernels/csrc/attention_wgmma.cu"
+ATTN_CASES = (
+    ("codeqwen S 4096", 8, 32, 4, 4096, 128),
+    ("codeqwen S 2432", 8, 32, 4, 2432, 128),
+    ("jamba S 1024", 8, 32, 8, 1024, 128),
+)
+ATTN_GRAPH_LAUNCHES = 20
+ATTN_PLAIN_RUNS = 3
 REPLACES = {
     "qgemm_requant": "src/repro/kernels/qgemm.py:19",
     "gemm_int32": "src/repro/kernels/gemm.py:97",
@@ -787,7 +813,7 @@ def main_path(dev: torch.device, card_line: str) -> dict:
                     repro_torch.Target("gemmini", mode=mode, device=str(dev) if where == "cuda" else "cpu"),
                 )
     summary = {}
-    gemm.reset_launches()  # the main path's run starts here
+    reset_launches()  # the main path's run starts here
     for mode in MODES:
         variant = "gemm_int32" if mode == "naive" else "qgemm_requant"
         m16, m1 = compiled[mode, 16, "cuda"], compiled[mode, 1, "cuda"]
@@ -1049,7 +1075,7 @@ def serve_phase(dev: torch.device, cases: dict, card_line: str, windows: dict) -
         args = argparse.Namespace(zoo=name, target=target, batch=batch, requests=requests,
                                   deadline_ms=SERVE_DEADLINE_MS, device=str(dev))
         with TraceSpy() as spy:
-            gemm.reset_launches()  # this serve call's window starts here
+            reset_launches()  # this serve call's window starts here
             result = serve.serve_zoo(args)
             window = dict(gemm.LAUNCHES)  # read just after it
         check(spy.calls > 0, f"serve {name}: booted without the tracer")
@@ -1183,7 +1209,7 @@ def measured_dse_phase(dev: torch.device, card_line: str, work: Path, windows: d
     options = repro_torch.CompileOptions(measure_top_k=MEASURE_K, fresh_backend=True)
     rng = np.random.default_rng(2)
     builds, measured_keys = {}, set()
-    gemm.reset_launches()  # the measured compiles' window starts here
+    reset_launches()  # the measured compiles' window starts here
     for name, batch in MEASURED_BUILDS:
         for acc in ("gemmini", "edge_npu"):
             label = f"{name}@{acc}:optimized b{batch}"
@@ -1270,7 +1296,7 @@ def measured_dse_phase(dev: torch.device, card_line: str, work: Path, windows: d
               f"{p50['measured']} ms [{card_line}]")
 
     # a fresh process-level backend over the same cache: zero work
-    gemm.reset_launches()
+    reset_launches()
     for label, (name, acc, batch, module, _, _) in builds.items():
         repro_torch.clear_backend_cache()
         warm = repro_torch.compile(
@@ -1318,7 +1344,7 @@ def artifact_phase(dev: torch.device, card_line: str, work: Path, windows: dict)
           f"artifact load did compile work: {work_done.counts}")
     subs = {f"b{b}": (loaded.bucket_module(b), compiled.bucket_module(b)) for b in loaded.bucket_sizes()}
     subs["sample"] = (loaded.sample_module, compiled.sample_module)
-    gemm.reset_launches()  # the restored module's runs start here
+    reset_launches()  # the restored module's runs start here
     per_run = {}
     for label, (got, want) in subs.items():
         check(got.backend.scheduler.n_solver_calls == 0 and got.backend.n_measurements == 0,
@@ -1346,7 +1372,7 @@ def artifact_phase(dev: torch.device, card_line: str, work: Path, windows: dict)
     args = argparse.Namespace(zoo=name, target=target_spec, batch=batch, requests=requests,
                               deadline_ms=SERVE_DEADLINE_MS, device=str(dev), artifact=str(path))
     repro_torch.clear_backend_cache()
-    gemm.reset_launches()  # the artifact-booted serve call's window starts here
+    reset_launches()  # the artifact-booted serve call's window starts here
     with WorkCounter() as serve_work:
         result = serve.serve_zoo(args)
     windows[f"serve {name}@{target_spec} --artifact"] = dict(gemm.LAUNCHES)  # read just after it
@@ -1373,7 +1399,7 @@ def pipelined_phase(compiled: dict, card_line: str, windows: dict) -> dict:
     """Phase 10: every phase-6 module in optimized and naive, pipelined
     against sequential on the card."""
     summary = {}
-    gemm.reset_launches()  # the pipelined runs' window starts here
+    reset_launches()  # the pipelined runs' window starts here
     for (name, acc, mode, batch), mods in compiled.items():
         if mode not in ("optimized", "naive"):
             continue
@@ -1535,7 +1561,7 @@ def decode_serve_phase(dev: torch.device, cases: dict, card_line: str, windows: 
                               "--requests", str(requests), "--device", str(dev)])
     check((args.prompt_len, args.new_tokens) == (32, 16), "serve defaults changed")
     with TraceSpy() as spy:
-        gemm.reset_launches()  # the decode serve call's window starts here
+        reset_launches()  # the decode serve call's window starts here
         result = serve.serve_decode(args)
         window = dict(gemm.LAUNCHES)  # read just after it
     check(spy.calls == 2, f"serve {DECODE.name}: the engine compiled {spy.calls} traced graphs, not 2")
@@ -1560,7 +1586,7 @@ def decode_serve_phase(dev: torch.device, cases: dict, card_line: str, windows: 
 
     acc, mode = target.split(":")
     cfg = engine.cfg
-    gemm.reset_launches()  # the sequential baseline's window starts here
+    reset_launches()  # the sequential baseline's window starts here
     seq_reqs = random_requests(DECODE, requests, cfg.prompt_len, seed=0)
     seq = sequential_generate(DECODE, repro_torch.Target(acc, mode=mode, device=str(dev)), seq_reqs, cfg)
     windows[f"sequential {DECODE.name}@{target}"] = dict(gemm.LAUNCHES)
@@ -1755,7 +1781,7 @@ def frontend_phase(dev: torch.device, card_line: str, windows: dict) -> dict:
     feeds = {name: [zoo.get_model(name).feeds(seed) for seed in range(PATH_FEEDS)] for name in zoo.ZOO}
     want = {key: [c[1].run(f) for f in feeds[key[0]]] for key, c in compiled.items()}
     summary = {}
-    gemm.reset_launches()  # the traced modules' runs start here
+    reset_launches()  # the traced modules' runs start here
     for (name, acc, mode), (traced, golden, compile_ms, golden_ms) in compiled.items():
         label = frontend_label(name, acc, mode)
         check(traced.modeled_cycles() == golden.modeled_cycles(), f"{label}: modeled cycles differ")
@@ -1847,7 +1873,7 @@ def sharded_phase(dev: torch.device, compiled: dict, cases: dict, card_line: str
         feeds[label] = [zoo.get_model(name).feeds(seed, batch=batch) for seed in range(PATH_FEEDS)]
     want = {label: [single.run(f) for f in feeds[label]] for label, (_, single, _, _) in compiled.items()}
     summary = {}
-    gemm.reset_launches()  # the sharded modules' runs start here
+    reset_launches()  # the sharded modules' runs start here
     for label, (sharded, single, name, batch) in compiled.items():
         per_call = plan_launches(sharded)
         before = dict(gemm.LAUNCHES)
@@ -1898,7 +1924,7 @@ def sharded_phase(dev: torch.device, compiled: dict, cases: dict, card_line: str
     args = argparse.Namespace(zoo=name, target=target, batch=batch, requests=requests,
                               deadline_ms=SERVE_DEADLINE_MS, device=str(dev), devices=devices)
     with TraceSpy() as spy:
-        gemm.reset_launches()  # the sharded serve call's window starts here
+        reset_launches()  # the sharded serve call's window starts here
         result = serve.serve_zoo(args)
         window = dict(gemm.LAUNCHES)  # read just after it
     check(spy.calls > 0, f"serve {name} --devices {devices}: booted without the tracer")
@@ -2003,6 +2029,62 @@ def host_ops_phase(dev: torch.device, card_line: str) -> dict:
     print(f"host ops: {len(ops)} ops x {len(HOST_OP_DTYPES)} dtypes on cuda equal the cpu run "
           f"(gelu, softmax ulp: {worst}) [{card_line}]")
     return {"cases": len(ops) * len(HOST_OP_DTYPES), "ulp": worst}
+
+
+def attention_phase(dev: torch.device, card_line: str) -> dict:
+    """Phase 21, the prefill attention (after 13's host ops, before its
+    LM): each of ``ATTN_CASES`` with q, k, v split off [B, S, H * D]
+    products as the LM's projections give them, admitted, one launch a
+    call, two launches bit-equal, and no further from the dense float32
+    oracle (``kernels.ref.flash_attention_ref``, on batch row 0: the whole
+    [B, H, S, S] would not fit) than the plain version; device ms per call
+    of the kernel (CUDA-graph replay) and of ``scaled_dot_product_attention``
+    (``library_ms``: a yardstick, never called by the port), the plain
+    version's per call (CUDA events, eager), and the bound: the causal
+    pairs' operations at the bf16 peak."""
+    results = {}
+    for label, b, h, hkv, s, d in ATTN_CASES:
+        gen = torch.Generator(device=dev).manual_seed(s + hkv)
+        q, k, v = (torch.randn(b, s, n * d, generator=gen, device=dev).to(torch.bfloat16)
+                   .reshape(b, s, n, d).permute(0, 2, 1, 3) for n in (h, hkv, hkv))
+        refusal = KA.attention_refusal(q, k, v)
+        check(refusal is None, f"attention {label}: refused ({refusal})")
+        before = KA.ATTN_LAUNCHES
+        got = KA.prefill_attention(q, k, v)
+        again = KA.prefill_attention(q, k, v)
+        torch.cuda.synchronize()
+        check(KA.ATTN_LAUNCHES == before + 2, f"attention {label}: {KA.ATTN_LAUNCHES - before} launches for 2 calls")
+        check(torch.equal(got, again), f"attention {label}: two launches differ")
+        plain = A.blockwise_attention(q, k, v, causal=True)
+        want = flash_attention_ref(q[:1].float(), k[:1].float(), v[:1].float(), causal=True)
+        err = max_err(got[:1].float(), want)
+        plain_err = max_err(plain[:1].float(), want)
+        check(err <= plain_err, f"attention {label}: kernel {err} from the oracle, plain {plain_err}")
+        del plain, want, again
+        ms = device_ms(lambda: KA.prefill_attention(q, k, v), ATTN_GRAPH_LAUNCHES)
+        library_ms = device_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True),
+            ATTN_GRAPH_LAUNCHES,
+        )
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        A.blockwise_attention(q, k, v, causal=True)
+        start.record()
+        for _ in range(ATTN_PLAIN_RUNS):
+            A.blockwise_attention(q, k, v, causal=True)
+        end.record()
+        end.synchronize()
+        plain_ms = start.elapsed_time(end) / ATTN_PLAIN_RUNS
+        flops = 4.0 * b * h * d * s * (s + 1) / 2  # two products over the causal pairs
+        bound_ms = flops / PEAK_OPS_PER_S["bfloat16"] * 1e3
+        results[label] = {"b": b, "h": h, "hkv": hkv, "s": s, "d": d, "ms": ms, "bound_ms": bound_ms,
+                          "bound_by": "operations", "roofline": bound_ms / ms, "plain_ms": plain_ms,
+                          "library_ms": library_ms, "max_abs_err": err, "plain_max_abs_err": plain_err}
+        print(f"attention {label}: {ms:.4f} ms ({100 * bound_ms / ms:.1f} % of the {bound_ms:.4f} ms bound), "
+              f"plain {plain_ms:.2f} ms, sdpa {library_ms:.4f} ms; max |err| from the f32 oracle "
+              f"{err:.3e} (plain {plain_err:.3e}) [{card_line}]")
+        del q, k, v, got
+        torch.cuda.empty_cache()
+    return results
 
 
 LM_ARCH = "codeqwen1_5_7b"
@@ -2151,9 +2233,36 @@ def design_split(calls) -> dict[str, int]:
     return {"gemm_float/mma_sync": len(calls) - wg, "gemm_float/wgmma": wg}
 
 
+def reset_launches() -> None:
+    """Open a launch window: the scheduled GEMM's counts and the prefill
+    attention's to 0."""
+    gemm.reset_launches()
+    KA.reset_launches()
+
+
 def with_designs(counts: dict[str, int]) -> dict[str, int]:
-    """A launch window's counts with the float form's per-design split."""
-    return {**counts, **gemm.DESIGN_LAUNCHES}
+    """An LM launch window's counts with the float form's per-design split
+    and the prefill attention's launches."""
+    return {**counts, **gemm.DESIGN_LAUNCHES, "prefill_attention": KA.ATTN_LAUNCHES}
+
+
+def attention_calls(cfg, prefills: int) -> dict[str, int]:
+    """The prefill attention's counters over ``prefills`` prefills of
+    ``cfg`` on the card: one call a prefill and attention layer, on the
+    kernel where the rule takes the configuration, else on the plain
+    version."""
+    n = prefills * sum(cfg.layer_kind(i) == "attn" for i in range(cfg.n_layers))
+    kernel = A.prefill_kernel_refusal(cfg) is None
+    return {"attn.kernel_calls": n if kernel else 0, "attn.plain_calls": 0 if kernel else n}
+
+
+def check_attention(label: str, cfg, rec, prefills: int) -> None:
+    """The recording's prefill-attention counters and the kernel's launches
+    since the window opened, against ``attention_calls``."""
+    want = attention_calls(cfg, prefills)
+    got = {name: rec.counters.get(name, 0) for name in want}
+    check(got == want and KA.ATTN_LAUNCHES == want["attn.kernel_calls"],
+          f"{label}: prefill attention {got}, {KA.ATTN_LAUNCHES} launches, want {want}")
 
 
 def tree_leaves(tree, path=()):
@@ -2184,7 +2293,7 @@ def lm_smoke_phase(dev: torch.device, backend, windows: dict, card_line: str) ->
     kinds imply; the frontend archs take embeddings drawn with numpy."""
     calls = set()
     rng = np.random.default_rng(3)
-    gemm.reset_launches()  # the smoke archs' window starts here
+    reset_launches()  # the smoke archs' window starts here
     for arch in LM_SMOKE_ARCHS:
         cfg = get_smoke_config(arch)
         cpu_params = lm.init_lm(0, cfg, device="cpu")
@@ -2227,6 +2336,8 @@ def lm_smoke_phase(dev: torch.device, backend, windows: dict, card_line: str) ->
     windows["LM smoke archs"] = with_designs(dict(gemm.LAUNCHES))  # read just after them
     check(windows["LM smoke archs"]["gemm_float/wgmma"] == 0,
           f"lm smoke archs (f32) launched the wgmma design: {windows['LM smoke archs']}")
+    check(windows["LM smoke archs"]["prefill_attention"] == 0,
+          f"lm smoke archs (f32) launched the prefill attention: {windows['LM smoke archs']}")
     return calls
 
 
@@ -2266,15 +2377,18 @@ def lm_phase(dev: torch.device, card_line: str, windows: dict, cfg=None) -> dict
                 c = lm.init_cache(cfg, LM_BATCH, LM_MAX_LEN, device=dev)
                 policy = scheduled_kernels(backend) if routed else contextlib.nullcontext()
                 with policy, GemmRecorder() as rec:
-                    gemm.reset_launches()
-                    logits[routed], c = lm.prefill(params, cfg, toks, c)
+                    reset_launches()
+                    with tracing.recording() as trec:
+                        logits[routed], c = lm.prefill(params, cfg, toks, c)
                     torch.cuda.synchronize()
+                    check_attention(f"lm {'routed' if routed else 'unrouted'} prefill", cfg, trec, 1)
                     pf, pf_d = dict(gemm.LAUNCHES), dict(gemm.DESIGN_LAUNCHES)
                     n_pf = len(rec.calls)
-                    gemm.reset_launches()
+                    reset_launches()
                     lm.decode_step(params, cfg, c, torch.argmax(logits[routed][:, -1:], -1))
                     torch.cuda.synchronize()
                     dc, dc_d = dict(gemm.LAUNCHES), dict(gemm.DESIGN_LAUNCHES)
+                    check(KA.ATTN_LAUNCHES == 0, f"lm decode step launched the prefill attention {KA.ATTN_LAUNCHES}")
                 want = {v: (per_call if routed and v == "gemm_float" else 0) for v in gemm.LAUNCHES}
                 check(pf == want and dc == want,
                       f"lm {'routed' if routed else 'unrouted'} prefill / decode step launches {pf} / {dc}, "
@@ -2315,7 +2429,7 @@ def lm_phase(dev: torch.device, card_line: str, windows: dict, cfg=None) -> dict
         nxt = torch.argmax(logits4[:, -1:], -1)
         copy = tree_map(lambda t: t.clone() if isinstance(t, torch.Tensor) else t, c4)
         want4, _ = lm.decode_step(params, cfg, c4, nxt)
-        gemm.reset_launches()
+        reset_launches()
         with scheduled_kernels(backend):
             got4, _ = lm.decode_step(params, cfg, copy, nxt)
         torch.cuda.synchronize()
@@ -2331,14 +2445,16 @@ def lm_phase(dev: torch.device, card_line: str, windows: dict, cfg=None) -> dict
         engine = ServingEngine(cfg, params, scfg)
     served = {}
     for routed in (True, False):
-        gemm.reset_launches()  # the served window starts here
+        reset_launches()  # the served window starts here
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        with scheduled_kernels(backend) if routed else contextlib.nullcontext(), GemmRecorder() as rec:
+        with (scheduled_kernels(backend) if routed else contextlib.nullcontext(), GemmRecorder() as rec,
+              tracing.recording() as trec):
             done = engine.generate(prompts)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         window = dict(gemm.LAUNCHES)  # read just after it
+        check_attention(f"lm served {'routed' if routed else 'unrouted'}", cfg, trec, len(waves))
         calls_per_wave = 1 + LM_NEW
         want = {v: (per_call * calls_per_wave * len(waves) if routed and v == "gemm_float" else 0)
                 for v in gemm.LAUNCHES}
@@ -2449,7 +2565,7 @@ def compile_tpu_paths(dev: torch.device) -> dict[tuple, dict]:
 def tpu_v5e_phase(compiled: dict, cases: dict, card_line: str, windows: dict) -> dict:
     """Phase 16, step 1: the 12 tpu_v5e modules on the card, bit-equal to
     the CPU run with the launches the plan implies (phase 6's checks)."""
-    gemm.reset_launches()  # the tpu_v5e modules' runs start here
+    reset_launches()  # the tpu_v5e modules' runs start here
     summary = new_paths_phase(compiled, cases, card_line)
     windows["tpu_v5e modules"] = dict(gemm.LAUNCHES)  # read just after them
     return summary
@@ -2574,15 +2690,18 @@ def full_width_lm(dev: torch.device, card_line: str, windows: dict, arch: str, n
             c = lm.init_cache(cfg, FW_BATCH, max_len, device=dev)
             policy = scheduled_kernels(backend) if routed else contextlib.nullcontext()
             with policy, GemmRecorder() as rec, RouterRecorder() as rr:
-                gemm.reset_launches()
-                logits[routed], c = lm.prefill(params, cfg, toks, c)
+                reset_launches()
+                with tracing.recording() as trec:
+                    logits[routed], c = lm.prefill(params, cfg, toks, c)
                 torch.cuda.synchronize()
+                check_attention(f"{cfg.name} {'routed' if routed else 'unrouted'} prefill", cfg, trec, 1)
                 pf, pf_d, n_pf = dict(gemm.LAUNCHES), dict(gemm.DESIGN_LAUNCHES), len(rec.calls)
                 routers[routed] = list(rr.ids)
-                gemm.reset_launches()
+                reset_launches()
                 lm.decode_step(params, cfg, c, torch.argmax(logits[routed][:, -1:], -1))
                 torch.cuda.synchronize()
                 dc, dc_d = dict(gemm.LAUNCHES), dict(gemm.DESIGN_LAUNCHES)
+                check(KA.ATTN_LAUNCHES == 0, f"{cfg.name} decode step launched the prefill attention")
             want = {v: (per["prefill"] if routed and v == "gemm_float" else 0) for v in gemm.LAUNCHES}
             check(pf == want and dc == want, f"{cfg.name} {'routed' if routed else 'unrouted'} prefill / decode "
                   f"step launches {pf} / {dc}, want {want} each")
@@ -2609,14 +2728,16 @@ def full_width_lm(dev: torch.device, card_line: str, windows: dict, arch: str, n
         warnings.simplefilter("ignore", ReproDeprecationWarning)
         engine = ServingEngine(cfg, params, ServeConfig(batch=FW_BATCH, max_len=max_len, max_new_tokens=FW_NEW))
     for routed in (True, False):
-        gemm.reset_launches()  # this arch's window starts here
+        reset_launches()  # this arch's window starts here
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        with scheduled_kernels(backend) if routed else contextlib.nullcontext(), GemmRecorder() as rec:
+        with (scheduled_kernels(backend) if routed else contextlib.nullcontext(), GemmRecorder() as rec,
+              tracing.recording() as trec):
             tokens = [r.output for r in engine.generate(prompts)]
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         window = dict(gemm.LAUNCHES)  # read just after it
+        check_attention(f"{cfg.name} {'routed' if routed else 'unrouted'} run", cfg, trec, 1)
         want = {v: (per["prefill"] + FW_NEW * per["decode"] if routed and v == "gemm_float" else 0)
                 for v in gemm.LAUNCHES}
         check(window == want, f"{cfg.name} {'routed' if routed else 'unrouted'} run: launches {window}, want {want}")
@@ -3058,7 +3179,7 @@ def train_phase(dev: torch.device, card_line: str, work: Path, windows: dict) ->
     """Phase 17: training on the card, in one launch window that must
     count no launch of any instantiation."""
     train_refusal(dev, card_line)
-    gemm.reset_launches()  # the training window starts here
+    reset_launches()  # the training window starts here
     summary = {"flash_backward": flash_backward_phase(dev, card_line),
                "smoke": smoke_train_phase(dev, card_line),
                "xlstm": xlstm_train_phase(dev, card_line, work),
@@ -3499,7 +3620,7 @@ def emulated_phase(dev: torch.device, compiled: dict, card_line: str, windows: d
     for (name, acc, mode), mods in modules.items():
         feeds = [zoo.get_model(name).feeds(seed) for seed in range(EMULATED_FEEDS)]
         wants[name, acc, mode] = [mods["cpu"].run(f) for f in feeds]
-    gemm.reset_launches()  # the emulated window starts here
+    reset_launches()  # the emulated window starts here
     for (name, acc, mode), mods in modules.items():
         label = path_label(name, acc, mode, None)
         emu, calls = mods["cuda"], mods["calls"]
@@ -3583,7 +3704,7 @@ def run_launches(modules, runs: int = 1) -> dict[str, int]:
 
 def example_window(windows: dict, label: str, fn):
     """``fn()`` with the counts set to 0 just before it and read just after."""
-    gemm.reset_launches()
+    reset_launches()
     t0 = time.perf_counter()
     result = fn()
     torch.cuda.synchronize()
@@ -3759,7 +3880,7 @@ def docs_on_card(dev: torch.device, card_line: str) -> dict:
         check(blocks and blocks[0] == 'device = "cuda"\n', f"{doc.name}: its first block is not the device line")
         namespace = {"__name__": f"docs_{doc.stem}", "device": dev.type}
         printed = io.StringIO()  # what the blocks print goes to the report, not the log
-        gemm.reset_launches()
+        reset_launches()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(printed):
             for i, block in enumerate(blocks[1:]):
@@ -3864,7 +3985,7 @@ def main(argv: list[str] | None = None) -> int:
         # against the wall time of one batch-16 run
         s["kernel_ms_per_run_batch16"] = kernels[s["variant"]]["ms"]
         s["kernel_share_of_run_batch16"] = kernels[s["variant"]]["ms"] / s["run_ms_batch16_p50"]
-    gemm.reset_launches()  # the new paths' run starts here
+    reset_launches()  # the new paths' run starts here
     paths = new_paths_phase(compiled, cases, card_line)
     windows["new paths"] = dict(gemm.LAUNCHES)  # read just after it
     emulated = emulated_phase(dev, compiled, card_line, windows)  # phase 18: sets the counts to 0 first
@@ -3873,7 +3994,7 @@ def main(argv: list[str] | None = None) -> int:
     artifact = artifact_phase(dev, card_line, work, windows)
     pipelined = pipelined_phase(compiled, card_line, windows)
     host_gemm_refused(dev)
-    gemm.reset_launches()  # the decode modules' runs start here
+    reset_launches()  # the decode modules' runs start here
     decode_paths = decode_modules_phase(decode_compiled, cases, card_line)
     windows["decode modules"] = dict(gemm.LAUNCHES)  # read just after them
     decode_served = decode_serve_phase(dev, cases, card_line, windows)
@@ -3883,10 +4004,11 @@ def main(argv: list[str] | None = None) -> int:
     sharded = sharded_phase(dev, sharded_compiled, cases, card_line, work, windows)  # likewise
     tpu = tpu_v5e_phase(tpu_compiled, cases, card_line, windows)  # phase 16, step 1
     host_ops = host_ops_phase(dev, card_line)
+    attention = attention_phase(dev, card_line)  # phase 21
     lm_run = lm_phase(dev, card_line, windows)  # sets the counts to 0 before each LM window
     full_width = full_width_phase(dev, card_line, windows)  # phase 16: likewise, after codeqwen is freed
     training = train_phase(dev, card_line, work, windows)  # phase 17, after phase 16's models are freed
-    gemm.reset_launches()  # phase 19's window starts here
+    reset_launches()  # phase 19's window starts here
     sharded_lm = sharded_lm_phase(dev, card_line, work)
     windows["sharded LM and dry run (no policy)"] = dict(gemm.LAUNCHES)  # read just after it
     check(not any(windows["sharded LM and dry run (no policy)"].values()),
@@ -3956,6 +4078,17 @@ def main(argv: list[str] | None = None) -> int:
         }
         for name, r in kernels.items()
     ]}
+    attn = attention[ATTN_CASES[0][0]]
+    line["kernels"].append({
+        "name": "prefill_attention",
+        "route": "cuda",
+        "source": ATTN_SOURCE,
+        "replaces": "none: src/repro/models/attention.py:blockwise_attention is plain jnp",
+        "launches": sum(w.get("prefill_attention", 0) for w in windows.values()),
+        "max_abs_err": max(c["max_abs_err"] for c in attention.values()),
+        **{k: attn[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "shapes": f"{ATTN_CASES[0][0]}: B 8, H 32 / 4, D 128; every case in the report",
+    })
     path_cases = [
         {"variant": c["variant"], "shape": f"{c['m']}x{c['k']}x{c['n']}",
          "blocks": f"{c['blocks']} {c['dataflow']}",
@@ -3969,13 +4102,13 @@ def main(argv: list[str] | None = None) -> int:
               "verify_gate": gate, "host_ops": host_ops, "lm": lm_run, "launch_windows": windows,
               "frontend": frontend, "sharded": sharded, "tpu_v5e": tpu, "full_width": full_width,
               "training": training, "emulated": emulated, "sharded_lm": sharded_lm, "examples": examples,
-              "path_cases": path_cases}
+              "path_cases": path_cases, "attention": attention}
     if args.report:
         Path(args.report).parent.mkdir(parents=True, exist_ok=True)
         Path(args.report).write_text(json.dumps({**report, **line}, indent=1))
     # the per-path summaries are long and printed above, path by path
     long = ("paths", "measured_dse", "pipelined", "decode_paths", "path_cases", "lm", "frontend", "sharded",
-            "tpu_v5e", "full_width", "training", "emulated", "sharded_lm", "examples")
+            "tpu_v5e", "full_width", "training", "emulated", "sharded_lm", "examples", "attention")
     print(json.dumps({k: v for k, v in report.items() if k not in long}))
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

@@ -32,8 +32,9 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 #: the sources of each library: the scheduled GEMM's mma.sync design
-#: (every form) and its wgmma + TMA design (bf16, m >= 64)
-SOURCES = {"gemm": ("gemm.cu", "gemm_wgmma.cu")}
+#: (every form) and its wgmma + TMA design (bf16, m >= 64), and the LM
+#: prefill's fused attention (``kernels/attention.py``)
+SOURCES = {"gemm": ("gemm.cu", "gemm_wgmma.cu", "attention_wgmma.cu")}
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -2,10 +2,12 @@
 memory-bounded blockwise (flash-style) implementation for prefill, and a
 decode step.
 
-The blockwise implementation chunks both query and key/value axes with an
-online-softmax accumulator, so peak memory is O(chunk_q x chunk_kv) per
-head instead of O(S^2).  Fully-masked KV chunks are still *computed* in
-the baseline; ``causal_block_skip_attention`` skips them.
+The blockwise implementation (``repro_torch.kernels.attention``, the
+plain version of the prefill's fused kernel, imported here) chunks both
+query and key/value axes with an online-softmax accumulator, so peak
+memory is O(chunk_q x chunk_kv) per head instead of O(S^2).
+Fully-masked KV chunks are still *computed* in the baseline;
+``causal_block_skip_attention`` skips them.
 
 Port of ``repro.models.attention``, MLA included.  Head order follows
 the reference: ``jnp.repeat`` of the KV heads is ``repeat_interleave``
@@ -27,13 +29,13 @@ import functools
 import torch
 from torch.distributed.tensor import DTensor, Shard
 
+from repro_torch.kernels import attention as KA
+from repro_torch.kernels.attention import NEG_INF, _pick_chunk, _repeat_kv, blockwise_attention
 from repro_torch.kernels.ref import torch_dtype
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.flash import gqa_flash_attention
 from repro_torch.parallel.policy import constrain, gather_fsdp, heads_axis, run_local
-
-NEG_INF = -1e30
 
 
 def init_attention(gen, cfg: ModelConfig, dtype=torch.float32, *, lead=()):
@@ -113,84 +115,17 @@ def qkv_project(params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tens
     return q, k, v, (None, None)
 
 
-def _pick_chunk(s: int, target: int) -> int:
-    """Largest divisor of s that is <= target."""
-    c = min(target, s)
-    while s % c:
-        c -= 1
-    return c
-
-
-def _repeat_kv(k: torch.Tensor, v: torch.Tensor, h: int):
-    hkv = k.shape[1]
-    if hkv == h:
-        return k, v
-    rep = h // hkv
-    return k.repeat_interleave(rep, dim=1), v.repeat_interleave(rep, dim=1)
-
-
-def blockwise_attention(
-    q: torch.Tensor,
-    k: torch.Tensor,
-    v: torch.Tensor,
-    *,
-    causal: bool = True,
-    window: int = 0,
-    chunk_q: int = 512,
-    chunk_kv: int = 512,
-    base_q_pos: int = 0,
-) -> torch.Tensor:
-    """Online-softmax attention over [B,H,S,D] q and [B,Hkv,Skv,D] k/v.
-
-    The baseline computes every (q-chunk, kv-chunk) pair (masked);
-    ``causal_block_skip_attention`` truncates the KV range per q-chunk
-    instead.
-    """
-    b, h, sq, d = q.shape
-    dv = v.shape[-1]
-    skv = k.shape[2]
-    k, v = _repeat_kv(k, v, h)
-    chunk_q = _pick_chunk(sq, chunk_q)
-    chunk_kv = _pick_chunk(skv, chunk_kv)
-    nq, nk = sq // chunk_q, skv // chunk_kv
-    scale = 1.0 / (d**0.5)
-    dev = q.device
-
-    q = q.reshape(b, h, nq, chunk_q, d)
-    k = k.reshape(b, h, nk, chunk_kv, d)
-    v = v.reshape(b, h, nk, chunk_kv, dv)
-    q_pos_base = torch.arange(chunk_q, device=dev)
-    k_pos_base = torch.arange(chunk_kv, device=dev)
-
-    outs = []
-    for qi in range(nq):
-        q_blk = q[:, :, qi]
-        q_pos = base_q_pos + qi * chunk_q + q_pos_base  # [cq]
-        m_c = torch.full((b, h, chunk_q), NEG_INF, dtype=torch.float32, device=dev)
-        l_c = torch.zeros((b, h, chunk_q), dtype=torch.float32, device=dev)
-        acc = torch.zeros((b, h, chunk_q, dv), dtype=torch.float32, device=dev)
-        for ki in range(nk):
-            k_blk, v_blk = k[:, :, ki], v[:, :, ki]
-            k_pos = ki * chunk_kv + k_pos_base  # [ck]
-            logits = torch.einsum("bhqd,bhkd->bhqk", q_blk, k_blk).to(torch.float32) * scale
-            mask = torch.ones((chunk_q, chunk_kv), dtype=torch.bool, device=dev)
-            if causal:
-                mask &= k_pos[None, :] <= q_pos[:, None]
-            if window:
-                mask &= k_pos[None, :] > q_pos[:, None] - window
-            logits = torch.where(mask[None, None], logits, NEG_INF)
-
-            m_new = torch.maximum(m_c, logits.amax(-1))
-            p = torch.exp(logits - m_new[..., None])
-            alpha = torch.exp(m_c - m_new)
-            l_c = l_c * alpha + p.sum(-1)
-            acc = acc * alpha[..., None] + torch.einsum(
-                "bhqk,bhkd->bhqd", p.to(v_blk.dtype), v_blk
-            ).to(torch.float32)
-            m_c = m_new
-        outs.append((acc / torch.clamp_min(l_c, 1e-30)[..., None]).to(q.dtype))
-    out = torch.stack(outs, dim=2)  # [B,H,nq,cq,Dv]
-    return out.reshape(b, h, sq, dv)
+def prefill_kernel_refusal(cfg: ModelConfig) -> str | None:
+    """Why the prefill attention kernel does not take ``cfg``'s attention
+    layers, or None if it does: ``kernels.attention.shape_refusal`` of the
+    q, k and v that ``qkv_project`` gives in the compute dtype (MLA: every
+    head's k carries the rope part beside its own, v does not).  The
+    length and batch are any: the rule asks only that q, k and v share
+    them."""
+    h, dh = cfg.n_heads, cfg.head_dim_
+    dq = dh + (cfg.qk_rope_dim if cfg.kv_lora_rank else 0)
+    hkv = h if cfg.kv_lora_rank else cfg.n_kv_heads
+    return KA.shape_refusal((1, h, 1, dq), (1, hkv, 1, dq), (1, hkv, 1, dh), torch_dtype(cfg.compute_dtype))
 
 
 def causal_block_skip_attention(q, k, v, *, window: int = 0, chunk_q=512, chunk_kv=512):

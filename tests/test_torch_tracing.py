@@ -295,10 +295,15 @@ def test_product_counters_equal_the_shapes_arithmetic(arch, served):
     assert c["gemm.routed_flops"] == sum(2 * m * k * n for m, k, n in run.routed) > 0
     # one CoSA solve per product shape the policy first met
     assert c["policy.solves"] == len(run.policy._configs) == Counter(s.name for s in run.rec.spans)["policy.solve"]
+    # one prefill attention a prefill and attention layer, on the plain
+    # version: CPU tensors
+    attn_layers = sum(cfg.layer_kind(i) == "attn" for i in range(cfg.n_layers))
+    assert c.get("attn.plain_calls", 0) == len(run.prefill_shapes) * attn_layers
     # and no counter beyond those the benchmark and these tests read
     unrouted = {"gemm.unrouted_flops"} if len(run.routed) < len(run.dense) or heads or run.experts else set()
+    attn = {"attn.plain_calls"} if attn_layers else set()
     assert set(c) == {"engine.prompt_tokens", "engine.padded_positions", "engine.decode_steps", "gemm.routed_flops",
-                      "policy.solves"} | unrouted
+                      "policy.solves"} | unrouted | attn
 
 
 @pytest.mark.parametrize("arch", ARCHS)
