@@ -1,7 +1,15 @@
 """DeepSeek-V2-236B [arXiv:2405.04434]: 60L, d_model 5120, 128H, MLA with
 kv_lora 512 (+64 decoupled RoPE dims), MoE 160 routed experts top-6 +
 2 shared, expert d_ff 1536, vocab 102400.  Layer 0 uses a dense MLP
-(12288) per the released model; assignment fields are otherwise exact."""
+(12288) per the released model.
+
+The registry's form is the reference's (``repro.configs``), field for
+field, and leaves out parts of the published config.json: the q-LoRA
+bottleneck (rank 1536) and its RMSNorm, the latent's RMSNorm, YaRN's
+RoPE scaling (factor 40 over 4096 positions) and its softmax scale,
+group-limited routing (8 groups, 3 kept) and the routed scale (16, the
+top-6 not renormalised).  ``bench/configs/deepseek-v2-236b.12l.ep8.json`` carries them, built as
+``models.config.MLAConfig`` with a ``GroupedMoEConfig``."""
 
 from repro_torch.models.config import ModelConfig, MoEConfig
 

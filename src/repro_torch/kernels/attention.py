@@ -1,20 +1,22 @@
 """The LM prefill's causal GQA attention: a fused Hopper kernel
 (``csrc/attention_wgmma.cu``) beside its plain PyTorch version.
 
-``prefill_attention(q, k, v, window=)`` is what the serving prefill
-calls (``models/lm.py:_apply_layer_prefill``, inside the ``attn.core``
-span) for a configuration the kernel takes: causal, optionally
-sliding-window attention of q [B, H, S, D] over k, v [B, Hkv, S, D],
-each KV head serving its H / Hkv consecutive query heads.  As every
-kernel wrapper of the port, a CUDA tensor launches the kernel or raises
-with ``attention_refusal``'s reason, and a CPU tensor (or the dry run's
-meta tensor) runs the plain version, ``blockwise_attention``; nothing
-falls back.  The kernel takes bf16 from position 0 (q, k and v of one
-length), equal head dims of 64 or 128 and H a multiple of Hkv, any
-window, and no tensor that requires grad.  ``shape_refusal`` is the
-part of the rule that a configuration's shapes decide: where it refuses
-(f32, MLA's unequal head dims, head dim 256) the prefill calls the
-plain version itself.  ``tracing.count`` records ``attn.kernel_calls``
+``prefill_attention(q, k, v, window=, scale=)`` is what the serving
+prefill calls (``models/lm.py:_apply_layer_prefill``, inside the
+``attn.core`` span) for a configuration the kernel takes: causal,
+optionally sliding-window attention of q [B, H, S, D] over k [B, Hkv,
+S, D], v [B, Hkv, S, Dv], each KV head serving its H / Hkv consecutive
+query heads, the logits times ``scale`` (the configuration's:
+``models/attention.py:softmax_scale``).  As every kernel wrapper of the
+port, a CUDA tensor launches the kernel or raises with
+``attention_refusal``'s reason, and a CPU tensor (or the dry run's meta
+tensor) runs the plain version, ``blockwise_attention``; nothing falls
+back.  The kernel takes bf16 from position 0 (q, k and v of one
+length), head dims (D, Dv) of (64, 64), (128, 128) or MLA's expanded
+(192, 128), H a multiple of Hkv, any window, and no tensor that
+requires grad.  ``shape_refusal`` is the part of the rule that a
+configuration's shapes decide: where it refuses (f32, other MLA sizes,
+head dim 256) the prefill calls the plain version itself.  ``tracing.count`` records ``attn.kernel_calls``
 or ``attn.plain_calls``, one per call, by the design that ran;
 ``ATTN_LAUNCHES`` counts the kernel's launches.
 
@@ -50,8 +52,9 @@ from repro_torch.kernels import build
 
 NEG_INF = -1e30
 
-#: the head dims the kernel is built for
-HEAD_DIMS = (64, 128)
+#: the (q and k, v) head dims the kernel is built for: GQA's equal dims,
+#: and MLA's expanded prefill at DeepSeek-V2's sizes (nope 128 + rope 64)
+HEAD_DIMS = ((64, 64), (128, 128), (192, 128))
 
 
 def _pick_chunk(s: int, target: int) -> int:
@@ -80,8 +83,11 @@ def blockwise_attention(
     chunk_q: int = 512,
     chunk_kv: int = 512,
     base_q_pos: int = 0,
+    scale: float | None = None,
 ) -> torch.Tensor:
-    """Online-softmax attention over [B,H,S,D] q and [B,Hkv,Skv,D] k/v.
+    """Online-softmax attention over [B,H,S,D] q and [B,Hkv,Skv,D] k/v
+    (v's head dim may differ), the logits times ``scale`` (None: 1 /
+    sqrt(D)).
 
     The baseline computes every (q-chunk, kv-chunk) pair (masked);
     ``causal_block_skip_attention`` truncates the KV range per q-chunk
@@ -94,7 +100,8 @@ def blockwise_attention(
     chunk_q = _pick_chunk(sq, chunk_q)
     chunk_kv = _pick_chunk(skv, chunk_kv)
     nq, nk = sq // chunk_q, skv // chunk_kv
-    scale = 1.0 / (d**0.5)
+    if scale is None:
+        scale = 1.0 / (d**0.5)
     dev = q.device
 
     q = q.reshape(b, h, nq, chunk_q, d)
@@ -136,8 +143,8 @@ def blockwise_attention(
 
 def shape_refusal(q_shape, k_shape, v_shape, dtype: torch.dtype) -> str | None:
     """Why the kernel does not take causal attention of these shapes and
-    dtype, or None if it does: bf16, q [B, H, S, D] and k, v [B, Hkv, S, D]
-    with one S (a prefill from position 0), D of q, k and v equal and in
+    dtype, or None if it does: bf16, q [B, H, S, D], k [B, Hkv, S, D] and
+    v [B, Hkv, S, Dv] with one S (a prefill from position 0), (D, Dv) in
     ``HEAD_DIMS``, H a multiple of Hkv."""
     if dtype != torch.bfloat16:
         return f"{dtype}: the kernel is built for bfloat16"
@@ -148,10 +155,11 @@ def shape_refusal(q_shape, k_shape, v_shape, dtype: torch.dtype) -> str | None:
         return f"batch or KV heads differ: q {tuple(q_shape)}, k {tuple(k_shape)}, v {tuple(v_shape)}"
     if not s == sk == sv:
         return f"q, k and v lengths differ ({s}, {sk}, {sv}): the kernel prefills from position 0"
-    if not d == dk == dv:
-        return f"head dims differ (q {d}, k {dk}, v {dv})"
-    if d not in HEAD_DIMS:
-        return f"head dim {d}: the kernel is built for {HEAD_DIMS}"
+    if d != dk:
+        return f"head dims differ (q {d}, k {dk})"
+    if (d, dv) not in HEAD_DIMS:
+        dims = f"head dim {d}" if d == dv else f"head dims differ (q and k {d}, v {dv})"
+        return f"{dims}: the kernel is built for (q and k, v) in {HEAD_DIMS}"
     if hkv == 0 or h % hkv:
         return f"{h} query heads over {hkv} KV heads"
     if b * s == 0:
@@ -222,7 +230,7 @@ def _library() -> ctypes.CDLL:
         strides = ctypes.POINTER(ctypes.c_longlong)
         lib.repro_prefill_attention.argtypes = [
             p, p, p, p,  # q, k, v, out
-            i, i, i, i, i,  # batch, heads, kv_heads, s_len, dim
+            i, i, i, i, i, i,  # batch, heads, kv_heads, s_len, dim, v_dim
             strides, strides, strides, strides,  # q, k, v, out (batch, head, position)
             i, ctypes.c_float,  # window, scale
             p,  # stream
@@ -233,18 +241,19 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int) -> torch.Tensor:
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int, scale: float) -> torch.Tensor:
     """The kernel on admitted tensors.  Operands that TMA cannot read in
-    place are copied contiguous first.  The result is [B, H, S, D] laid out
-    as [B, S, H, D], so merging the heads for the output projection is a
-    view."""
+    place are copied contiguous first.  The result is [B, H, S, Dv] laid
+    out as [B, S, H, Dv], so merging the heads for the output projection
+    is a view."""
     b, h, s, d = q.shape
+    dv = v.shape[-1]
     operands = []
     for t in (q, k, v):
         if tma_strides(t) is None:
             t = t.contiguous()
         operands.append(t)
-    out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device).permute(0, 2, 1, 3)
+    out = torch.empty((b, s, h, dv), dtype=q.dtype, device=q.device).permute(0, 2, 1, 3)
     arrays = [(ctypes.c_longlong * 3)(*tma_strides(t)) for t in (*operands, out)]
     lib = _library()
     with torch.cuda.device(q.device):
@@ -256,9 +265,10 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int) -> t
             k.shape[1],
             s,
             d,
+            dv,
             *arrays,
             window,
-            1.0 / (d**0.5),
+            scale,
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     if rc >= _NO_ENCODER:
@@ -280,18 +290,21 @@ def prefill_attention(
     window: int = 0,
     chunk_q: int = 512,
     chunk_kv: int = 512,
+    scale: float | None = None,
 ) -> torch.Tensor:
-    """Causal attention of q [B, H, S, D] over k, v [B, Hkv, S, D] from
-    position 0 (``window`` > 0: each position sees its last ``window``),
-    [B, H, S, D] in q's dtype: on CUDA the kernel, or ValueError where
+    """Causal attention of q [B, H, S, D] over k [B, Hkv, S, D], v [B,
+    Hkv, S, Dv] from position 0 (``window`` > 0: each position sees its
+    last ``window``), the logits times ``scale`` (None: 1 / sqrt(D)),
+    [B, H, S, Dv] in q's dtype: on CUDA the kernel, or ValueError where
     ``attention_refusal`` refuses the tensors; on any other device (the
     CPU, the dry run's meta tensors) ``blockwise_attention`` at the given
     chunks."""
     if q.device.type != "cuda":
         tracing.count("attn.plain_calls")
-        return blockwise_attention(q, k, v, causal=True, window=window, chunk_q=chunk_q, chunk_kv=chunk_kv)
+        opts = {} if scale is None else {"scale": scale}
+        return blockwise_attention(q, k, v, causal=True, window=window, chunk_q=chunk_q, chunk_kv=chunk_kv, **opts)
     refusal = attention_refusal(q, k, v)
     if refusal is not None:
         raise ValueError(f"prefill attention kernel: {refusal}")
     tracing.count("attn.kernel_calls")
-    return _launch(q, k, v, window)
+    return _launch(q, k, v, window, 1.0 / (q.shape[-1] ** 0.5) if scale is None else scale)

@@ -2,13 +2,17 @@
 // (sm_90a): one fused forward kernel, warp-specialised wgmma + TMA, with a
 // plain C interface for ctypes.
 //
-//   out[b, h, i, :] = sum_j softmax_j(q[b, h, i] . k[b, h / g, j] / sqrt(D)) v[b, h / g, j]
+//   out[b, h, i, :] = sum_j softmax_j(scale q[b, h, i] . k[b, h / g, j]) v[b, h / g, j]
 //
 // over j <= i (and j > i - window when a window is set), for q [B, H, S, D],
-// k and v [B, H / g, S, D], bf16, D 64 or 128; the logits, the softmax and
-// the sums in f32, the weights cast to bf16 for the value product, the
-// result bf16.  Each KV head serves its g consecutive query heads, as
+// k [B, H / g, S, D] and v [B, H / g, S, Dv], bf16, (D, Dv) (64, 64),
+// (128, 128) or (192, 128), the scale given (1 / sqrt(D) for GQA; MLA under
+// YaRN multiplies it by mscale^2); the logits, the softmax and the sums in
+// f32, the weights cast to bf16 for the value product, the result bf16.
+// Each KV head serves its g consecutive query heads, as
 // repro/models/attention.py's jnp.repeat does, read in place: no copy.
+// (192, 128) is MLA's expanded prefill at DeepSeek-V2's sizes: q and k carry
+// the 128 nope dims and the 64 rope dims, v the 128 value dims.
 //
 // It replaces no TPU kernel.  The reference's prefill attention,
 // repro/models/attention.py:blockwise_attention, is plain jnp and reaches no
@@ -38,7 +42,7 @@
 //   * math: two consumer warpgroups, 64 q rows each, run S = Q K^T as
 //     m64n128k16 wgmma from shared memory (f32), the online softmax in f32
 //     registers (row max and sum over the 4 lanes that share a row, exp2 of
-//     the logit scaled by log2(e) / sqrt(D)), and O += P V with P cast to
+//     the logit scaled by log2(e) x scale), and O += P V with P cast to
 //     bf16 in registers as wgmma's A operand (the accumulator's layout is
 //     the A fragment's, so P never goes through shared memory);
 //   * masking: KV tiles wholly above the diagonal or wholly outside the
@@ -48,6 +52,11 @@
 //     the spent q tile (16-byte chunks XOR-swizzled by row) and write whole
 //     rows with 16-byte stores through the output's strides, rows past S
 //     dropped: any S, no divisor chunking.
+//
+// Shared memory at (192, 128): the 128 x 192 q tile (48 KB), two stages of a
+// 128 x 192 K tile and a 128 x 128 V tile (160 KB) and 2 KB of alignment and
+// mbarriers, 210 KB of the 227 KB a CTA may take; the registers are those of
+// (128, 128), since S and O are 128 wide in both.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -69,12 +78,15 @@ constexpr int kConsumers = 2;
 constexpr int kThreads = kConsumers * 128 + 32;  // and one producer warp
 constexpr int kHeader = 1024;              // the mbarriers, before the 1024-aligned tiles
 
-template <int kD>
+template <int kD, int kDv>
 struct Smem {
   static constexpr int kQBytes = kBM * kD * 2;   // kD / 64 boxes of kBM rows x 128 bytes
-  static constexpr int kKVBytes = kBN * kD * 2;  // one K or V tile: kD / 64 boxes of kBN rows
-  static constexpr int kBytes = 1024 + kHeader + kQBytes + 2 * kStages * kKVBytes;
-  static_assert(kD == 64 || kD == 128, "head dims 64 and 128");
+  static constexpr int kKBytes = kBN * kD * 2;   // one K tile: kD / 64 boxes of kBN rows
+  static constexpr int kVBytes = kBN * kDv * 2;  // one V tile: kDv / 64 boxes of kBN rows
+  static constexpr int kBytes = 1024 + kHeader + kQBytes + kStages * (kKBytes + kVBytes);
+  static_assert((kD == 64 && kDv == 64) || (kD == 128 && kDv == 128) || (kD == 192 && kDv == 128),
+                "head dims (64, 64), (128, 128) and (192, 128)");
+  static_assert(kBytes <= 227 * 1024, "a CTA takes at most 227 KB of shared memory");
 };
 
 // -- PTX wrappers (the rest in hopper.cuh) ------------------------------------
@@ -182,7 +194,7 @@ struct MmaRS<128> {
 
 // One CTA: q tile qt of head h, batch row b.  Threads 0-255 are the two
 // consumer warpgroups, 256-287 the producer warp.
-template <int kD>
+template <int kD, int kDv>
 __global__ void __launch_bounds__(kThreads, 1)
     prefill_attention_kernel(const __grid_constant__ CUtensorMap map_q,
                              const __grid_constant__ CUtensorMap map_k,
@@ -190,8 +202,8 @@ __global__ void __launch_bounds__(kThreads, 1)
                              __nv_bfloat16* __restrict__ out, long long o_sb, long long o_sh,
                              long long o_ss, int s_len, int heads, int kv_heads, int window,
                              float scale_log2) {
-  using L = Smem<kD>;
-  constexpr int kBoxes = kD / 64;
+  using L = Smem<kD, kDv>;
+  constexpr int kBoxes = kD / 64, kVBoxes = kDv / 64;
   extern __shared__ uint8_t smem_raw[];
   // the tiles must start on 1024-byte boundaries (the swizzle's period)
   uint8_t* base = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
@@ -202,7 +214,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   uint64_t* v_empty = k_empty + kStages;
   uint8_t* q_tile = base + kHeader;
   uint8_t* k_ring = q_tile + L::kQBytes;
-  uint8_t* v_ring = k_ring + kStages * L::kKVBytes;
+  uint8_t* v_ring = k_ring + kStages * L::kKBytes;
 
   // the tile: CTAs of one (batch row, KV head) adjacent, longest q tiles first
   const int nq = (s_len + kBM - 1) / kBM;
@@ -245,16 +257,16 @@ __global__ void __launch_bounds__(kThreads, 1)
         const int slot = it % kStages, k0 = (hi - it) * kBN;
         const int parity = ((it / kStages) & 1) ^ 1;
         if (it >= kStages) mbar_wait(&k_empty[slot], parity);
-        mbar_expect_tx(&k_full[slot], L::kKVBytes);
+        mbar_expect_tx(&k_full[slot], L::kKBytes);
 #pragma unroll
         for (int x = 0; x < kBoxes; ++x) {
-          tma_load(k_ring + slot * L::kKVBytes + x * kBN * 128, &map_k, x * 64, k0, hkv, b, &k_full[slot]);
+          tma_load(k_ring + slot * L::kKBytes + x * kBN * 128, &map_k, x * 64, k0, hkv, b, &k_full[slot]);
         }
         if (it >= kStages) mbar_wait(&v_empty[slot], parity);
-        mbar_expect_tx(&v_full[slot], L::kKVBytes);
+        mbar_expect_tx(&v_full[slot], L::kVBytes);
 #pragma unroll
-        for (int x = 0; x < kBoxes; ++x) {
-          tma_load(v_ring + slot * L::kKVBytes + x * kBN * 128, &map_v, x * 64, k0, hkv, b, &v_full[slot]);
+        for (int x = 0; x < kVBoxes; ++x) {
+          tma_load(v_ring + slot * L::kVBytes + x * kBN * 128, &map_v, x * 64, k0, hkv, b, &v_full[slot]);
         }
       }
     }
@@ -270,11 +282,11 @@ __global__ void __launch_bounds__(kThreads, 1)
   int r[2];
   r[0] = q0 + 64 * g + 16 * (warp % 4) + lane / 4;
   r[1] = r[0] + 8;
-  float o[kD / 2], s[kBN / 2];
+  float o[kDv / 2], s[kBN / 2];
   uint32_t p[kBN / 4];
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
 #pragma unroll
-  for (int i = 0; i < kD / 2; ++i) o[i] = 0.0f;
+  for (int i = 0; i < kDv / 2; ++i) o[i] = 0.0f;
   const uint32_t q_addr = smem_addr(q_tile) + g * 64 * 128;
 
   mbar_wait(q_full, 0);
@@ -283,7 +295,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int k0 = (hi - it) * kBN;
     // S = Q K^T
     mbar_wait(&k_full[slot], parity);
-    const uint32_t k_addr = smem_addr(k_ring + slot * L::kKVBytes);
+    const uint32_t k_addr = smem_addr(k_ring + slot * L::kKBytes);
     fence_regs(s);
     wgmma_fence();
 #pragma unroll
@@ -336,19 +348,19 @@ __global__ void __launch_bounds__(kThreads, 1)
       l[hh] = l[hh] * alpha[hh] + sum;  // this thread's share of the row sum
     }
 #pragma unroll
-    for (int i = 0; i < kD / 2; ++i) o[i] *= alpha[(i % 4) / 2];
+    for (int i = 0; i < kDv / 2; ++i) o[i] *= alpha[(i % 4) / 2];
 #pragma unroll
     for (int i = 0; i < kBN / 4; ++i) p[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
 
     // O += P V, P as the A operand: 16 keys a step, 4 registers of P each
     mbar_wait(&v_full[slot], parity);
-    const uint32_t v_addr = smem_addr(v_ring + slot * L::kKVBytes);
+    const uint32_t v_addr = smem_addr(v_ring + slot * L::kVBytes);
     fence_regs(o);
     fence_regs(p);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kBN / 16; ++kk) {
-      MmaRS<kD>::run(o, &p[4 * kk], smem_desc(v_addr + kk * 16 * 128, kBN * 128, 1024));
+      MmaRS<kDv>::run(o, &p[4 * kk], smem_desc(v_addr + kk * 16 * 128, kBN * 128, 1024));
     }
     wgmma_commit();
     fence_regs(o);
@@ -375,19 +387,19 @@ __global__ void __launch_bounds__(kThreads, 1)
   for (int hh = 0; hh < 2; ++hh) {
     const int row = r[hh] - q0;
 #pragma unroll
-    for (int j = 0; j < kD / 8; ++j) {
+    for (int j = 0; j < kDv / 8; ++j) {
       const uint32_t v = pack_bf16(o[4 * j + 2 * hh] * inv[hh], o[4 * j + 2 * hh + 1] * inv[hh]);
-      *reinterpret_cast<uint32_t*>(stage + row * kD * 2 + ((j ^ (row % 8)) * 16) + (lane % 4) * 4) = v;
+      *reinterpret_cast<uint32_t*>(stage + row * kDv * 2 + ((j ^ (row % 8)) * 16) + (lane % 4) * 4) = v;
     }
   }
   asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers * 128) : "memory");
-  constexpr int kChunks = kD / 8;
+  constexpr int kChunks = kDv / 8;
   __nv_bfloat16* dst = out + b * o_sb + h * o_sh;
   for (int e = threadIdx.x; e < kBM * kChunks; e += kConsumers * 128) {
     const int row = e / kChunks, c = e % kChunks;
     if (q0 + row < s_len) {
       *reinterpret_cast<uint4*>(dst + (q0 + row) * o_ss + c * 8) =
-          *reinterpret_cast<const uint4*>(stage + row * kD * 2 + ((c ^ (row % 8)) * 16));
+          *reinterpret_cast<const uint4*>(stage + row * kDv * 2 + ((c ^ (row % 8)) * 16));
     }
   }
 }
@@ -414,7 +426,7 @@ int encode(CUtensorMap* map, const void* ptr, int batch, int heads, int seq, int
   return rc == CUDA_SUCCESS ? 0 : kEncodeError + static_cast<int>(rc);
 }
 
-template <int kD>
+template <int kD, int kDv>
 int launch(const void* q, const void* k, const void* v, void* out, int batch, int heads,
            int kv_heads, int s_len, const long long* q_st, const long long* k_st,
            const long long* v_st, const long long* o_st, int window, float scale_log2,
@@ -426,13 +438,13 @@ int launch(const void* q, const void* k, const void* v, void* out, int batch, in
   if (rc != 0) return rc;
   rc = encode(&map_k, k, batch, kv_heads, s_len, kD, k_st, kBN);
   if (rc != 0) return rc;
-  rc = encode(&map_v, v, batch, kv_heads, s_len, kD, v_st, kBN);
+  rc = encode(&map_v, v, batch, kv_heads, s_len, kDv, v_st, kBN);
   if (rc != 0) return rc;
-  auto kernel = prefill_attention_kernel<kD>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<kD>::kBytes);
+  auto kernel = prefill_attention_kernel<kD, kDv>;
+  constexpr int kBytes = Smem<kD, kDv>::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
   if (err != cudaSuccess) return err;
-  kernel<<<static_cast<unsigned>(ctas), kThreads, Smem<kD>::kBytes, stream>>>(
+  kernel<<<static_cast<unsigned>(ctas), kThreads, kBytes, stream>>>(
       map_q, map_k, map_v, static_cast<__nv_bfloat16*>(out), o_st[0], o_st[1], o_st[2], s_len, heads,
       kv_heads, window, scale_log2);
   return cudaGetLastError();
@@ -446,15 +458,17 @@ bool aligned(const void* p, const long long* st) {
 }  // namespace
 
 // out = causal (window > 0: sliding-window) GQA attention of bf16 q [batch,
-// heads, s_len, dim] over k, v [batch, kv_heads, s_len, dim], dim 64 or 128,
-// heads a multiple of kv_heads, scale 1 / sqrt(dim).  Each tensor is given by
+// heads, s_len, dim] over k [batch, kv_heads, s_len, dim] and v [batch,
+// kv_heads, s_len, v_dim], (dim, v_dim) (64, 64), (128, 128) or (192, 128),
+// heads a multiple of kv_heads, the logits times scale; out [batch, heads,
+// s_len, v_dim].  Each tensor is given by
 // its base and its element strides (batch, head, position), the dim stride
 // 1; bases 16-byte aligned and strides multiples of 8 elements (TMA's rules;
 // kernels/attention.py: tma_strides).  Launches on `stream`, returns a CUDA
 // error code (0 on success) or one of the encoder's codes above.
 extern "C" int repro_prefill_attention(const void* q, const void* k, const void* v, void* out,
                                        int batch, int heads, int kv_heads, int s_len, int dim,
-                                       const long long* q_st, const long long* k_st,
+                                       int v_dim, const long long* q_st, const long long* k_st,
                                        const long long* v_st, const long long* o_st, int window,
                                        float scale, void* stream) {
   if (batch <= 0 || heads <= 0 || kv_heads <= 0 || heads % kv_heads != 0 || s_len <= 0 ||
@@ -464,13 +478,17 @@ extern "C" int repro_prefill_attention(const void* q, const void* k, const void*
   }
   const float scale_log2 = scale * 1.4426950408889634f;  // exp(x) = 2^(x log2 e)
   const auto s = static_cast<cudaStream_t>(stream);
-  switch (dim) {
-    case 64:
-      return launch<64>(q, k, v, out, batch, heads, kv_heads, s_len, q_st, k_st, v_st, o_st, window,
-                        scale_log2, s);
-    case 128:
-      return launch<128>(q, k, v, out, batch, heads, kv_heads, s_len, q_st, k_st, v_st, o_st, window,
-                         scale_log2, s);
+  if (dim == 64 && v_dim == 64) {
+    return launch<64, 64>(q, k, v, out, batch, heads, kv_heads, s_len, q_st, k_st, v_st, o_st, window,
+                          scale_log2, s);
+  }
+  if (dim == 128 && v_dim == 128) {
+    return launch<128, 128>(q, k, v, out, batch, heads, kv_heads, s_len, q_st, k_st, v_st, o_st, window,
+                            scale_log2, s);
+  }
+  if (dim == 192 && v_dim == 128) {
+    return launch<192, 128>(q, k, v, out, batch, heads, kv_heads, s_len, q_st, k_st, v_st, o_st, window,
+                            scale_log2, s);
   }
   return cudaErrorInvalidValue;
 }

@@ -239,6 +239,14 @@ class WgmmaGeometry:
         return out
 
 
+def _filled(extent: int, block: int, sub: int, tile: int) -> int:
+    """The tiles along one dimension that hold any of its ``extent`` rows
+    (or columns): ``sub`` tiles of ``tile`` from the start of each block,
+    counted without listing them (a prefill's product has tens of
+    thousands)."""
+    return sum(min(sub, -(-(extent - start) // tile)) for start in range(0, extent, block))
+
+
 @functools.lru_cache(maxsize=4096)
 def wgmma_geometry(m: int, k: int, n: int, cfg: GemmKernelConfig) -> WgmmaGeometry | None:
     """The wgmma design's tiles for the config's blocks, or None where the
@@ -277,7 +285,7 @@ def wgmma_geometry(m: int, k: int, n: int, cfg: GemmKernelConfig) -> WgmmaGeomet
     one = WgmmaGeometry(*shape, 1, WG_MAX_STAGES, cfg.dataflow == "WS")
     room = WG_SMEM_LIMIT if one.consumers == 2 else WG_SM_SMEM // 3 - 1024
     stages = max(3, min(WG_MAX_STAGES, (room - WG_SMEM_FIXED) // one.stage_bytes))
-    tiles = sum(r0 < r1 and c0 < c1 for _, (r0, r1), (c0, c1) in one.tiles())
+    tiles = _filled(m, cfg.block_m, sub_m, tile_m) * _filled(n, cfg.block_n, sub_n, tile_n)  # one.tiles() not empty
     k_split = 1
     if 2 * tiles < WG_SMS:
         k_split = _pow2_floor(min(MAX_CLUSTER, WG_SMS // tiles, -(-k // WG_STAGE_K)))

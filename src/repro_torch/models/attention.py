@@ -29,11 +29,12 @@ import functools
 import torch
 from torch.distributed.tensor import DTensor, Shard
 
+from repro_torch import tracing
 from repro_torch.kernels import attention as KA
 from repro_torch.kernels.attention import NEG_INF, _pick_chunk, _repeat_kv, blockwise_attention
 from repro_torch.kernels.ref import torch_dtype
 from repro_torch.models import layers as L
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import MLAConfig, ModelConfig
 from repro_torch.models.flash import gqa_flash_attention
 from repro_torch.parallel.policy import constrain, gather_fsdp, heads_axis, run_local
 
@@ -42,15 +43,23 @@ def init_attention(gen, cfg: ModelConfig, dtype=torch.float32, *, lead=()):
     d, h, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     if cfg.kv_lora_rank:
         r, dr = cfg.kv_lora_rank, cfg.qk_rope_dim
-        return {
-            # q: per-head nope + rope parts
-            "q": L.init_dense(gen, d, h * (dh + dr), bias=cfg.qkv_bias, dtype=dtype, lead=lead),
-            # kv_down: latent (r) + shared k_rope (dr)
-            "kv_down": L.init_dense(gen, d, r + dr, dtype=dtype, lead=lead),
-            "k_up": L.init_dense(gen, r, h * dh, dtype=dtype, lead=lead),
-            "v_up": L.init_dense(gen, r, h * dh, dtype=dtype, lead=lead),
-            "o": L.init_dense(gen, h * dh, d, dtype=dtype, lead=lead),
-        }
+        published = isinstance(cfg, MLAConfig)
+        qr = cfg.q_lora_rank if published else 0
+        p = {}
+        if qr:  # q-LoRA: q_a, RMSNorm, q_b
+            p["q_a"] = L.init_dense(gen, d, qr, dtype=dtype, lead=lead)
+            p["q_norm"] = L.init_rmsnorm(qr, dtype, device=gen.device, lead=lead)
+            p["q_b"] = L.init_dense(gen, qr, h * (dh + dr), dtype=dtype, lead=lead)
+        else:  # q: per-head nope + rope parts
+            p["q"] = L.init_dense(gen, d, h * (dh + dr), bias=cfg.qkv_bias, dtype=dtype, lead=lead)
+        # kv_down: latent (r) + shared k_rope (dr)
+        p["kv_down"] = L.init_dense(gen, d, r + dr, dtype=dtype, lead=lead)
+        if published:
+            p["kv_norm"] = L.init_rmsnorm(r, dtype, device=gen.device, lead=lead)
+        p["k_up"] = L.init_dense(gen, r, h * dh, dtype=dtype, lead=lead)
+        p["v_up"] = L.init_dense(gen, r, h * dh, dtype=dtype, lead=lead)
+        p["o"] = L.init_dense(gen, h * dh, d, dtype=dtype, lead=lead)
+        return p
     return {
         "q": L.init_dense(gen, d, h * dh, bias=cfg.qkv_bias, dtype=dtype, lead=lead),
         "k": L.init_dense(gen, d, hkv * dh, bias=cfg.qkv_bias, dtype=dtype, lead=lead),
@@ -76,6 +85,49 @@ def _rope_broadcast(t: torch.Tensor) -> torch.Tensor:
     return t[:, None] if t.dim() == 3 else t[None, None]
 
 
+def softmax_scale(cfg: ModelConfig) -> float:
+    """The attention's softmax scale: 1 / sqrt(q's head dim) (MLA: the
+    nope and rope parts together), times YaRN's mscale(factor,
+    ``mscale_all_dim``) squared where ``cfg`` scales RoPE so."""
+    d = cfg.head_dim_ + (cfg.qk_rope_dim if cfg.kv_lora_rank else 0)
+    scale = 1.0 / (d**0.5)
+    yarn = cfg.rope_scaling if isinstance(cfg, MLAConfig) else None
+    if yarn is not None and yarn.mscale_all_dim:
+        m = L.yarn_mscale(yarn.factor, yarn.mscale_all_dim)
+        scale *= m * m
+    return scale
+
+
+def mla_project(params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor):
+    """MLA's projections below the up-projections: q [B, H, S, dh + dr]
+    (the nope part, then the rope part rotated; batch on data, heads on
+    model), the latent [B, S, r] (normed where the configuration is the
+    published one) and k_rope [B, S, dr] rotated.  The spans ``mla.q``
+    (q-LoRA or the direct q, and its RoPE) and ``mla.kv_down`` (the
+    latent and k_rope, the norm and RoPE)."""
+    dh, r, dr = cfg.head_dim_, cfg.kv_lora_rank, cfg.qk_rope_dim
+    compute = torch_dtype(cfg.compute_dtype)
+    yarn = cfg.rope_scaling if isinstance(cfg, MLAConfig) else None
+    cos, sin = L.rope_tables(positions, dr, cfg.rope_theta, yarn)
+    cos, sin = _rope_broadcast(cos), _rope_broadcast(sin)
+    with tracing.span("mla.q"):
+        if "q_a" in params:
+            c = L.rmsnorm(params["q_norm"], L.dense(params["q_a"], x, compute_dtype=compute), cfg.norm_eps)
+            q_all = L.dense(params["q_b"], c, compute_dtype=compute)
+        else:
+            q_all = L.dense(params["q"], x, compute_dtype=compute)
+        q_all = _split_heads(q_all, cfg.n_heads)
+        q = torch.cat([q_all[..., :dh], L.apply_rope(q_all[..., dh:], cos, sin)], dim=-1)
+        q = constrain(q, "dp", "tp", None, None)
+    with tracing.span("mla.kv_down"):
+        down = L.dense(params["kv_down"], x, compute_dtype=compute)  # [B,S,r+dr]
+        latent, k_rope = down[..., :r], down[..., r:]
+        if "kv_norm" in params:
+            latent = L.rmsnorm(params["kv_norm"], latent, cfg.norm_eps)
+        k_rope = L.apply_rope(k_rope[:, None], cos, sin)[:, 0]  # one head shared by all
+    return q, latent, k_rope
+
+
 def qkv_project(params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor):
     """Returns q [B,H,S,Dq], k [B,Hkv,S,Dq], v [B,Hkv,S,Dv] with RoPE
     applied, plus the MLA cache payload (latent, k_rope) or (None, None).
@@ -83,25 +135,20 @@ def qkv_project(params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tens
     MLA (decoupled RoPE): q/k = [nope part | rope(rope part)]; the rope
     part of k is one shared head derived from x beside the latent, so the
     latent stays position-free and decode can absorb the up-projections
-    (DeepSeek-V2 §2.1)."""
+    (DeepSeek-V2 §2.1).  Its up-projections run in the span ``mla.up``;
+    the decode step never calls this (``mla_project`` and
+    ``mla_decode_attention``)."""
     dh = cfg.head_dim_
     compute = torch_dtype(cfg.compute_dtype)
     if cfg.kv_lora_rank:
-        r, dr = cfg.kv_lora_rank, cfg.qk_rope_dim
-        q_all = _split_heads(L.dense(params["q"], x, compute_dtype=compute), cfg.n_heads)
-        q_nope, q_rope = q_all[..., :dh], q_all[..., dh:]
-        down = L.dense(params["kv_down"], x, compute_dtype=compute)  # [B,S,r+dr]
-        latent, k_rope = down[..., :r], down[..., r:]
-        cos, sin = L.rope_tables(positions, dr, cfg.rope_theta)
-        cos, sin = _rope_broadcast(cos), _rope_broadcast(sin)
-        q_rope = L.apply_rope(q_rope, cos, sin)
-        k_rope_r = L.apply_rope(k_rope[:, None], cos, sin)  # [B,1,S,dr]
-        k_nope = _split_heads(L.dense(params["k_up"], latent, compute_dtype=compute), cfg.n_heads)
-        v = _split_heads(L.dense(params["v_up"], latent, compute_dtype=compute), cfg.n_heads)
-        q = torch.cat([q_nope, q_rope], dim=-1)
-        k = torch.cat([k_nope, k_rope_r.expand(*k_nope.shape[:-1], dr)], dim=-1)
-        q, k, v = (constrain(t, "dp", "tp", None, None) for t in (q, k, v))
-        return q, k, v, (latent, k_rope_r[:, 0])
+        dr = cfg.qk_rope_dim
+        q, latent, k_rope = mla_project(params, cfg, x, positions)
+        with tracing.span("mla.up"):
+            k_nope = _split_heads(L.dense(params["k_up"], latent, compute_dtype=compute), cfg.n_heads)
+            v = _split_heads(L.dense(params["v_up"], latent, compute_dtype=compute), cfg.n_heads)
+            k = torch.cat([k_nope, k_rope[:, None].expand(*k_nope.shape[:-1], dr)], dim=-1)
+        k, v = (constrain(t, "dp", "tp", None, None) for t in (k, v))
+        return q, k, v, (latent, k_rope)
     q = _split_heads(L.dense(params["q"], x, compute_dtype=compute), cfg.n_heads)
     k = _split_heads(L.dense(params["k"], x, compute_dtype=compute), cfg.n_kv_heads)
     v = _split_heads(L.dense(params["v"], x, compute_dtype=compute), cfg.n_kv_heads)
@@ -119,9 +166,9 @@ def prefill_kernel_refusal(cfg: ModelConfig) -> str | None:
     """Why the prefill attention kernel does not take ``cfg``'s attention
     layers, or None if it does: ``kernels.attention.shape_refusal`` of the
     q, k and v that ``qkv_project`` gives in the compute dtype (MLA: every
-    head's k carries the rope part beside its own, v does not).  The
-    length and batch are any: the rule asks only that q, k and v share
-    them."""
+    head's k carries the rope part beside its own, v does not, so q and k
+    have 192 dims where v has 128 at DeepSeek-V2's sizes).  The length
+    and batch are any: the rule asks only that q, k and v share them."""
     h, dh = cfg.n_heads, cfg.head_dim_
     dq = dh + (cfg.qk_rope_dim if cfg.kv_lora_rank else 0)
     hkv = h if cfg.kv_lora_rank else cfg.n_kv_heads
@@ -292,16 +339,19 @@ def mla_decode_attention(
     out     = W_uv^T-projection of (sum_s p_s latent_s)
 
     Per-token cost is O(S.r) instead of O(S.H.dh) with re-expansion; all
-    of it in f32, the result in q's dtype."""
+    of it in f32, the result in q's dtype; the scale is ``softmax_scale``'s.
+    Every product takes contiguous operands, so that a DTensor run (its
+    redistributions lay local tensors out contiguously) and a plain run
+    hand their products one layout."""
     b, h, _, dh = q_nope.shape
-    r, dr = cfg.kv_lora_rank, cfg.qk_rope_dim
+    r = cfg.kv_lora_rank
     f32 = torch.float32
     w_ku = gather_fsdp(params["k_up"]["w"]).reshape(r, h, dh).to(f32)
     w_vu = gather_fsdp(params["v_up"]["w"]).reshape(r, h, dh).to(f32)
-    scale = 1.0 / ((dh + dr) ** 0.5)
+    scale = softmax_scale(cfg)
     latent = latent_cache.to(f32)
 
-    q_lat = torch.einsum("bhqd,rhd->bhqr", q_nope.to(f32), w_ku)
+    q_lat = torch.einsum("bhqd,rhd->bhqr", q_nope.to(f32).contiguous(), w_ku.contiguous())
     if isinstance(latent, DTensor):
         # every head beside each shard's slice of the sequence-parallel latent
         q_lat = constrain(q_lat, "dp", None, None, None)
@@ -316,7 +366,7 @@ def mla_decode_attention(
         ctx_lat = constrain(ctx_lat, "dp", "tp", None, None)
     else:
         ctx_lat = _mla_context(q_lat, q_rope, latent, k_rope_cache, scale=scale, cur_len=cur_len)
-    out = torch.einsum("bhqr,rhd->bhqd", ctx_lat, w_vu)
+    out = torch.einsum("bhqr,rhd->bhqd", ctx_lat.contiguous(), w_vu.contiguous())
     return out.to(q_nope.dtype)
 
 
@@ -327,21 +377,29 @@ def _mla_context(q_lat, q_rope, latent, k_rope_cache, *, scale: float, cur_len: 
     model axis."""
     f32 = torch.float32
     mesh, tp = split if split is not None else (None, None)
-    latent = latent.to(f32)
+    latent, q_lat = latent.to(f32).contiguous(), q_lat.contiguous()
     logits = torch.einsum("bhqr,bsr->bhqs", q_lat, latent)
-    logits = logits + torch.einsum("bhqd,bsd->bhqs", q_rope.to(f32), k_rope_cache.to(f32))
+    logits = logits + torch.einsum("bhqd,bsd->bhqs", q_rope.to(f32).contiguous(), k_rope_cache.to(f32).contiguous())
     logits = logits * scale
     pos = _local_positions(mesh, tp, latent.shape[1], q_lat.device)
     mask = pos[None, None, None, :] < cur_len
     logits = torch.where(mask, logits, NEG_INF)
-    group = (mesh, tp) if tp is not None else None
-    p, den = _softmax_attend(logits, latent, group)
-    ctx_lat = torch.einsum("bhqs,bsr->bhqr", p, latent)
-    if den is not None:
-        from torch.distributed import _functional_collectives as funcol
+    # one arithmetic with and without a split (flash-decoding's: the row
+    # max, the unnormalised weights, their sum, and the weighted latent
+    # divided last), so a one-rank split gives the unsplit bits
+    from torch.distributed import _functional_collectives as funcol
 
-        ctx_lat = funcol.all_reduce(ctx_lat, "sum", group) / den
-    return ctx_lat
+    group = (mesh, tp) if tp is not None else None
+    m = logits.amax(-1, keepdim=True)
+    if group is not None:
+        m = funcol.all_reduce(m, "max", group)
+    p = torch.exp(logits - m)
+    den = p.sum(-1, keepdim=True)
+    ctx_lat = torch.einsum("bhqs,bsr->bhqr", p, latent)
+    if group is not None:
+        den = funcol.all_reduce(den, "sum", group)
+        ctx_lat = funcol.all_reduce(ctx_lat, "sum", group)
+    return ctx_lat / den
 
 
 def attention_block(
@@ -356,6 +414,9 @@ def attention_block(
     the flash forward; ``block_skip`` prunes causally-dead KV chunks."""
     q, k, v, _ = qkv_project(params, cfg, x, positions)
     window = cfg.window if cfg.attn_kind == "swa" else 0
+    scale = softmax_scale(cfg)
+    if scale != 1.0 / (q.shape[-1] ** 0.5):  # YaRN: the flash form scales by 1 / sqrt(D) itself
+        q = q * (scale * q.shape[-1] ** 0.5)
     out = on_local_heads(
         functools.partial(
             gqa_flash_attention,

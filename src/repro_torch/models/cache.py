@@ -19,7 +19,9 @@ reference:
 
 The MLA cache keeps the reference's dtypes: ``k_rope`` is always
 bfloat16, whatever ``kv_cache_dtype`` says, and the latent is bfloat16
-when ``kv_cache_dtype`` is ``"int8"`` (it is never quantized).
+when ``kv_cache_dtype`` is ``"int8"`` (it is never quantized).  The
+published form (``config.MLAConfig``, the port's own) keeps ``k_rope``
+in the latent's dtype, so a float32 cache holds both in float32.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ import torch
 from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
 
 from repro_torch.kernels.ref import torch_dtype
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import MLAConfig, ModelConfig
 
 # ---------------------------------------------------------------------------
 # quantized KV storage
@@ -63,9 +65,10 @@ def make_attn_cache(
     max_len, dr]."""
     if cfg.kv_lora_rank:
         latent_dtype = torch.bfloat16 if cfg.kv_cache_dtype == "int8" else torch_dtype(cfg.kv_cache_dtype)
+        rope_dtype = latent_dtype if isinstance(cfg, MLAConfig) else torch.bfloat16
         return {
             "latent": torch.zeros((*lead, batch, max_len, cfg.kv_lora_rank), dtype=latent_dtype, device=device),
-            "k_rope": torch.zeros((*lead, batch, max_len, cfg.qk_rope_dim), dtype=torch.bfloat16, device=device),
+            "k_rope": torch.zeros((*lead, batch, max_len, cfg.qk_rope_dim), dtype=rope_dtype, device=device),
         }
     dh = cfg.head_dim_
     kvd = torch.int8 if cfg.kv_cache_dtype == "int8" else torch_dtype(cfg.kv_cache_dtype)
@@ -80,7 +83,10 @@ def make_attn_cache(
     return cache
 
 
-def _write(dst: torch.Tensor, src: torch.Tensor, pos: int) -> None:
+def _write(dst: torch.Tensor, src: torch.Tensor, pos) -> None:
+    if isinstance(pos, torch.Tensor):  # the rows' positions on the device, as a CUDA graph reads them
+        dst.index_copy_(dst.ndim - 2, pos, src.to(dst.dtype))
+        return
     s, max_len = src.shape[-2], dst.shape[-2]
     if pos < 0 or pos + s > max_len:
         raise ValueError(
@@ -120,12 +126,14 @@ def _write_sharded(dst, src: torch.Tensor, pos: int) -> None:
         local[..., lo - first : hi - first, :] = src[..., lo - pos : hi - pos, :].to(local.dtype)
 
 
-def write_attn_cache(cfg: ModelConfig, cache: dict, k, v, mla_payload, pos: int):
+def write_attn_cache(cfg: ModelConfig, cache: dict, k, v, mla_payload, pos):
     """Insert keys/values (k/v [B, Hkv, S, D]), or the MLA payload
     (latent [B, S, r], k_rope [B, S, dr]), at positions [pos, pos + S) in
     place; returns ``cache``.  Raises ``ValueError`` when the rows do not
-    fit."""
-    pos = int(pos)
+    fit.  ``pos`` may instead be the S positions as a device tensor (a
+    captured decode step reads its position from one), written unchecked."""
+    if not isinstance(pos, torch.Tensor):
+        pos = int(pos)
     if cfg.kv_lora_rank:
         latent, k_rope = mla_payload
         _write(cache["latent"], latent, pos)

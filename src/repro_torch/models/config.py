@@ -12,6 +12,15 @@ pattern repeats (stacked params) so HLO stays compact for 88-layer models.
 Port of ``repro.models.config``, copied whole: pure dataclasses.  The
 port's LM keeps the stacked layout (one tensor per parameter, groups
 along axis 0) and loops over the groups in Python.
+
+Beyond the reference: ``MLAConfig`` and ``GroupedMoEConfig``, frozen
+subclasses of ``ModelConfig`` and ``MoEConfig`` that carry what
+DeepSeek-V2's published config adds to the registry's MLA and MoE
+(q-LoRA, the latent norms, YaRN; group-limited routing, the routed
+scale, and the share of the experts one chip holds).  The base classes
+keep exactly the reference's fields, so every registry configuration
+compares field for field with the reference's; code that reads one of
+the new settings treats a base-class configuration as having it off.
 """
 
 from __future__ import annotations
@@ -36,6 +45,45 @@ class MoEConfig:
     first_dense: int = 0
     # router jitter/aux-loss weight
     aux_loss_weight: float = 0.01
+
+
+@dataclass(frozen=True)
+class GroupedMoEConfig(MoEConfig):
+    """DeepSeek-V2's router and one chip's share of its experts.
+
+    The router scores ``n_routed_experts`` experts (the published count),
+    split into ``n_group`` equal groups: each token keeps the
+    ``topk_group`` groups whose best expert scores highest and takes its
+    ``top_k`` experts from those (``group_limited_greedy``).  The weights
+    are the softmax scores of the experts taken times
+    ``routed_scaling_factor``, not renormalised (``norm_topk_prob`` false,
+    as DeepSeek-V2 publishes it).  This chip holds ``n_experts`` of them,
+    from ``first_expert`` on: the layer computes only what those give,
+    and the capacity is counted over the router's width."""
+
+    n_routed_experts: int = 0  # the router's width; 0: n_experts (every expert held)
+    first_expert: int = 0
+    n_group: int = 1
+    topk_group: int = 1
+    routed_scaling_factor: float = 1.0
+
+
+@dataclass(frozen=True)
+class YarnRope:
+    """YaRN's scaling of RoPE (arXiv:2309.00071) with DeepSeek-V2's
+    ``rope_scaling`` keys: the frequencies blend from interpolated
+    (divided by ``factor``) to the original ones over the dims whose
+    wavelengths lie between ``beta_fast`` and ``beta_slow`` rotations of
+    ``original_max_position``; the tables are multiplied by
+    mscale(factor, ``mscale``) / mscale(factor, ``mscale_all_dim``), and
+    the softmax scale by mscale(factor, ``mscale_all_dim``) squared."""
+
+    factor: float
+    original_max_position: int
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale: float = 1.0
+    mscale_all_dim: float = 0.0
 
 
 @dataclass(frozen=True)
@@ -183,6 +231,19 @@ class ModelConfig:
 
     def with_(self, **kw) -> "ModelConfig":
         return replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class MLAConfig(ModelConfig):
+    """MLA as DeepSeek-V2 publishes it (§2.1 of arXiv:2405.04434): q
+    through a rank-``q_lora_rank`` bottleneck with an RMSNorm between its
+    two projections (0: the registry's direct q), an RMSNorm on the
+    latent before its up-projections, and RoPE under ``rope_scaling``
+    (YaRN; None: plain RoPE).  ``head_dim`` is the nope and value head
+    size, ``qk_rope_dim`` the rope part's."""
+
+    q_lora_rank: int = 0
+    rope_scaling: YarnRope | None = None
 
 
 # ---------------------------------------------------------------------------

@@ -16,7 +16,9 @@ differ, and parity tests convert the reference's parameters instead
 
 from __future__ import annotations
 
+import functools
 import itertools
+import math
 
 import torch
 from torch._subclasses.fake_tensor import FakeTensor
@@ -126,13 +128,48 @@ def rmsnorm(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def rope_tables(positions: torch.Tensor, head_dim: int, theta: float = 10000.0):
-    """cos/sin tables for given positions: [..., head_dim//2]."""
+def yarn_mscale(factor: float, mscale: float) -> float:
+    """YaRN's attention-temperature factor: 0.1 mscale ln(factor) + 1."""
+    return 1.0 if factor <= 1 else 0.1 * mscale * math.log(factor) + 1.0
+
+
+@functools.lru_cache(maxsize=None)
+def yarn_frequencies(half: int, theta: float, scaling, device=None) -> torch.Tensor:
+    """YaRN's inverse frequencies of a rope part of ``2 half`` dims
+    (DeepSeek-V2's ``DeepseekV2YarnRotaryEmbedding``) on ``device``: the
+    original theta^(-i / half) on the dims that turn more than
+    ``beta_fast`` times over ``original_max_position``, divided by
+    ``factor`` on those that turn fewer than ``beta_slow`` times, a linear
+    ramp between.  Made once per device: a copy from the host at every
+    call would wait for the device's queue."""
+    exponent = torch.arange(half, dtype=torch.float32) / half
+    extra = 1.0 / theta**exponent
+    inter = 1.0 / (scaling.factor * theta**exponent)
+
+    def dim_of(rotations: float) -> float:
+        return half * math.log(scaling.original_max_position / (rotations * 2 * math.pi)) / math.log(theta)
+
+    low = max(math.floor(dim_of(scaling.beta_fast)), 0)
+    high = min(math.ceil(dim_of(scaling.beta_slow)), 2 * half - 1)
+    ramp = torch.clamp((torch.arange(half, dtype=torch.float32) - low) / ((high - low) or 0.001), 0, 1)
+    keep = 1.0 - ramp  # 1 where the original frequency stays
+    return (inter * (1 - keep) + extra * keep).to(device)
+
+
+def rope_tables(positions: torch.Tensor, head_dim: int, theta: float = 10000.0, scaling=None):
+    """cos/sin tables for given positions: [..., head_dim//2]; with
+    ``scaling`` (``config.YarnRope``) YaRN's frequencies and magnitude."""
     half = head_dim // 2
-    exponent = torch.arange(half, dtype=torch.float32, device=positions.device) / half
-    freqs = 1.0 / (theta**exponent)
+    if scaling is None:
+        exponent = torch.arange(half, dtype=torch.float32, device=positions.device) / half
+        freqs = 1.0 / (theta**exponent)
+    else:
+        freqs = yarn_frequencies(half, theta, scaling, positions.device)
     angles = positions.to(torch.float32)[..., None] * freqs
-    return torch.cos(angles), torch.sin(angles)
+    if scaling is None:
+        return torch.cos(angles), torch.sin(angles)
+    mag = yarn_mscale(scaling.factor, scaling.mscale) / yarn_mscale(scaling.factor, scaling.mscale_all_dim)
+    return torch.cos(angles) * mag, torch.sin(angles) * mag
 
 
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:

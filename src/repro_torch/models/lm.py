@@ -36,8 +36,16 @@ FFN sub-layer, and in an attention block ``attn.qkv``, ``attn.core``
 (the prefill attention: ``kernels.attention.prefill_attention`` where
 ``attention.prefill_kernel_refusal`` takes the configuration, else
 ``blockwise_attention``, counted as ``attn.kernel_calls`` or
-``attn.plain_calls`` by the design that ran; or the cache read and the
-decode attention), ``attn.out`` and ``attn.cache_write``.
+``attn.plain_calls`` by the design that ran, at the configuration's
+``attention.softmax_scale``; or the cache read and the decode
+attention), ``attn.out`` and ``attn.cache_write``; MLA's projections
+record ``mla.q``, ``mla.kv_down`` and (in the prefill) ``mla.up`` inside
+``attn.qkv``.  MLA's decode step makes no k or v: it projects q and the
+latent (``attention.mla_project``), caches the latent and attends in
+latent space (``attention.mla_decode_attention``).  Where every layer
+is MLA attention, a cache made with ``graphs=True`` (``ServingEngine``'s
+on a card) replays the decode step as CUDA graphs cut at each MoE
+router (``_DecodeGraphs``).
 """
 
 from __future__ import annotations
@@ -53,6 +61,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import tracing
 from repro_torch.api import torch_device
 from repro_torch.kernels.attention import prefill_attention
+from repro_torch.kernels.policy import get_policy
 from repro_torch.kernels.ref import torch_dtype
 from repro_torch.models import attention as A
 from repro_torch.models import cache as C
@@ -218,14 +227,15 @@ def _head(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _ffn(lp, cfg: ModelConfig, is_moe: bool, x: torch.Tensor):
-    """The residual FFN sub-layer (dense MLP or MoE) -> (x, aux loss or None)."""
+def _ffn(lp, cfg: ModelConfig, is_moe: bool, x: torch.Tensor, router=None):
+    """The residual FFN sub-layer (dense MLP or MoE) -> (x, aux loss or
+    None); ``router`` as ``moe.moe_ffn`` takes it."""
     if "ffn" not in lp:
         return x, None
     with tracing.span("layer.moe" if is_moe else "layer.ffn"):
         h2 = L.rmsnorm(lp["ln2"], x, cfg.norm_eps)
         if is_moe:
-            f, aux = M.moe_ffn(lp["ffn"], cfg, h2)
+            f, aux = M.moe_ffn(lp["ffn"], cfg, h2) if router is None else M.moe_ffn(lp["ffn"], cfg, h2, router)
             return x + f, aux
         return x + L.mlp(lp["ffn"], h2, compute_dtype=torch_dtype(cfg.compute_dtype)), None
 
@@ -321,10 +331,12 @@ def _empty_layer_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int, de
     raise ValueError(kind)
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device):
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device, graphs: bool = False):
     """Allocate the full decode cache (prefix + stacked groups) on
     ``device``: a KV (or MLA) cache per attention layer, a recurrent state
-    per Mamba / xLSTM layer; ``len`` is the number of positions filled."""
+    per Mamba / xLSTM layer; ``len`` is the number of positions filled.
+    With ``graphs`` the cache also keeps ``decode_step``'s CUDA graphs
+    (``graphs_fit``), captured at its first step that can replay them."""
     dev = torch.device(device)
     prefix = [
         _empty_layer_cache(cfg, cfg.layer_kind(i), batch, max_len, dev)
@@ -335,7 +347,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device):
         f"pos{p}": _empty_layer_cache(cfg, kind, batch, max_len, dev, lead)
         for p, kind in enumerate(cfg.pattern)
     }
-    return {"prefix": prefix, "groups": groups, "len": 0}
+    cache = {"prefix": prefix, "groups": groups, "len": 0}
+    if graphs:
+        cache["graphs"] = None
+    return cache
 
 
 def _store_state(lcache: dict, state) -> None:
@@ -359,7 +374,8 @@ def _apply_layer_prefill(lp, cfg: ModelConfig, kind, is_moe, x, positions, lcach
             with tracing.span("attn.qkv"):
                 q, k, v, mla = A.qkv_project(lp["block"], cfg, h, positions)
             window = cfg.window if cfg.attn_kind == "swa" else 0
-            opts = {"window": window, "chunk_q": cfg.attn_chunk, "chunk_kv": cfg.attn_chunk}
+            opts = {"window": window, "chunk_q": cfg.attn_chunk, "chunk_kv": cfg.attn_chunk,
+                    "scale": A.softmax_scale(cfg)}
             with tracing.span("attn.core"):
                 if A.prefill_kernel_refusal(cfg) is None:
                     attend = functools.partial(prefill_attention, **opts)
@@ -419,24 +435,30 @@ def prefill(
         return logits, cache
 
 
-def _apply_layer_decode(lp, cfg: ModelConfig, kind, is_moe, x, lcache, cur_len: int, positions):
-    """One-token step.  x [B,1,d]; cur_len = tokens already in the cache,
-    ``positions`` = [cur_len], this token's position."""
+def _apply_layer_decode(lp, cfg: ModelConfig, kind, is_moe, x, lcache, cur_len, positions, router=None):
+    """One-token step.  x [B,1,d]; cur_len = tokens already in the cache
+    (an int, or for MLA the device tensor [cur_len]), ``positions`` =
+    [cur_len], this token's position."""
     with tracing.span(_LAYER_SPANS.get(kind, "layer")):
         h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
         compute = torch_dtype(cfg.compute_dtype)
         if kind == "attn":
-            with tracing.span("attn.qkv"):
-                q, k, v, mla = A.qkv_project(lp["block"], cfg, h, positions)
-            with tracing.span("attn.cache_write"):
-                C.write_attn_cache(cfg, lcache, k, v, mla, cur_len)
-            with tracing.span("attn.core"):
-                if cfg.kv_lora_rank:
+            if cfg.kv_lora_rank:  # MLA: the latent is cached and attended; no k or v is made
+                with tracing.span("attn.qkv"):
+                    q, latent, k_rope = A.mla_project(lp["block"], cfg, h, positions)
+                with tracing.span("attn.cache_write"):
+                    C.write_attn_cache(cfg, lcache, None, None, (latent, k_rope), cur_len)
+                with tracing.span("attn.core"):
                     dh = cfg.head_dim_
                     out = A.mla_decode_attention(
                         lp["block"], cfg, q[..., :dh], q[..., dh:], lcache["latent"], lcache["k_rope"], cur_len + 1
                     )
-                else:
+            else:
+                with tracing.span("attn.qkv"):
+                    q, k, v, mla = A.qkv_project(lp["block"], cfg, h, positions)
+                with tracing.span("attn.cache_write"):
+                    C.write_attn_cache(cfg, lcache, k, v, mla, cur_len)
+                with tracing.span("attn.core"):
                     window = cfg.window if cfg.attn_kind == "swa" else 0
                     kc, vc = C.read_attn_cache(cfg, lcache, compute)
                     out = A.decode_attention(q, kc, vc, cur_len + 1, window=window)
@@ -454,28 +476,126 @@ def _apply_layer_decode(lp, cfg: ModelConfig, kind, is_moe, x, lcache, cur_len: 
         else:
             raise ValueError(kind)
         x = x + y
-    return _ffn(lp, cfg, is_moe, x)[0]
+    return _ffn(lp, cfg, is_moe, x, router)[0]
+
+
+def graphs_fit(cfg: ModelConfig) -> bool:
+    """Whether ``decode_step`` can run the model's step as CUDA graphs:
+    MLA attention in every layer.  The absorbed decode attends the whole
+    latent cache under a mask, so every step of a cache has one shape and
+    reads its position from the device."""
+    return bool(cfg.kv_lora_rank) and all(kind == "attn" for kind, _ in layer_kinds(cfg))
+
+
+def _replays(params, token: torch.Tensor) -> bool:
+    """Whether this step may replay graphs: plain CUDA tensors, nothing
+    recording (its counters read the device back) or differentiating, and
+    no product routed to the scheduled GEMM, whose launches are counted
+    on the host (a batch of fewer than the policy's ``min_m`` rows)."""
+    table, pol = params["embed"]["table"], get_policy()
+    return (table.is_cuda and not isinstance(table, DTensor) and tracing.active() is None
+            and not torch.is_grad_enabled() and (pol is None or token.shape[0] < pol.min_m))
+
+
+def _decode_body(params, cfg: ModelConfig, cache, token, cur_len, positions, router=None):
+    """Embedding, every layer and the head of one decode step -> logits
+    [B, 1, V] f32 (``cur_len`` and ``positions`` as
+    ``_apply_layer_decode`` takes them)."""
+    with tracing.span("lm.embed"):
+        x = L.embed(params["embed"], token).to(torch_dtype(cfg.compute_dtype))
+    npre, period = n_prefix_layers(cfg), len(cfg.pattern)
+    layers = zip(iter_layers(params, cfg), _stacked(cache, cfg), strict=True)
+    for i, ((lp, kind, is_moe), lcache) in enumerate(layers):
+        if i >= npre and (i - npre) % period == 0:
+            x = constrain(x, "dp", "boundary", None)
+        x = _apply_layer_decode(lp, cfg, kind, is_moe, x, lcache, cur_len, positions, router)
+    with tracing.span("lm.head"):
+        x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+        return _head(params, cfg, x).to(torch.float32)
+
+
+class _DecodeGraphs:
+    """A cache's decode step as CUDA graphs, one before each MoE layer's
+    router and one after the last: the host launches a graph where the
+    eager step launches a few hundred kernels.  Between the graphs each
+    router runs eagerly through ``moe.route``, as the eager step calls
+    it, on the input the graph before it left, and its weights and
+    experts are copied into the buffers the graph after it reads.  The
+    token and the position are read from device buffers, so one capture
+    serves every step of the cache; the graphs share one memory pool and
+    replay in the order they were captured."""
+
+    def __init__(self, params, cfg: ModelConfig, cache, token: torch.Tensor):
+        dev, t = token.device, token.numel()
+        self.token = token.clone()
+        self.pos = torch.full((1,), cache["len"], dtype=torch.long, device=dev)
+        k = cfg.moe.top_k if cfg.moe is not None else 0
+        self.routed = [
+            (torch.empty(t, k, dtype=torch.float32, device=dev), torch.empty(t, k, dtype=torch.long, device=dev))
+            for _, _, is_moe in iter_layers(params, cfg)
+            if is_moe
+        ]
+        self.routers: list = []  # (the MoE FFN's parameters, its router's input), in order
+        self.graphs: list = []
+        pool = torch.cuda.graph_pool_handle()
+        stream = torch.cuda.Stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            # one eager step on the capture's stream first (cuBLAS's state for
+            # it; its routers run through moe.route too); it writes the cache
+            # row that the replay writes again
+            _decode_body(params, cfg, cache, self.token, self.pos, self.pos)
+            stream.synchronize()
+            graph = torch.cuda.CUDAGraph()
+            graph.capture_begin(pool=pool)
+
+            def cut(ffn, _cfg, xt):
+                nonlocal graph
+                graph.capture_end()
+                self.graphs.append(graph)
+                self.routers.append((ffn, xt))
+                graph = torch.cuda.CUDAGraph()
+                graph.capture_begin(pool=pool)
+                weights, idx = self.routed[len(self.routers) - 1]
+                return weights, idx, None
+
+            self.logits = _decode_body(params, cfg, cache, self.token, self.pos, self.pos, cut)
+            graph.capture_end()
+            self.graphs.append(graph)
+        torch.cuda.current_stream(dev).wait_stream(stream)
+
+    def __call__(self, cfg: ModelConfig, token: torch.Tensor, cur_len: int) -> torch.Tensor:
+        self.token.copy_(token)
+        self.pos.fill_(cur_len)
+        for graph, router, routed in zip(self.graphs, self.routers + [None], self.routed + [None], strict=True):
+            graph.replay()
+            if router is not None:
+                ffn, xt = router
+                weights, idx, _ = M.route(ffn, cfg, xt)
+                routed[0].copy_(weights)
+                routed[1].copy_(idx)
+        return self.logits.clone()
 
 
 @on_mesh
 def decode_step(params, cfg: ModelConfig, cache, token: torch.Tensor):
     """token [B, 1] -> (logits [B, 1, V] f32, cache), the cache updated in
-    place."""
+    place.  A cache made with ``graphs=True`` for a model that
+    ``graphs_fit`` replays the step as CUDA graphs (``_DecodeGraphs``,
+    captured at the first step that ``_replays``); the logits are then a
+    copy of the graphs' output, and the routers still run through
+    ``moe.route``."""
+    cur_len = cache["len"]
+    if "graphs" in cache and graphs_fit(cfg) and _replays(params, token):
+        if cache["graphs"] is None:
+            cache["graphs"] = _DecodeGraphs(params, cfg, cache, token)
+        logits = cache["graphs"](cfg, token, cur_len)
+        cache["len"] = cur_len + 1
+        return logits, cache
     with tracing.span("lm.decode_step"):
-        cur_len = cache["len"]
-        with tracing.span("lm.embed"):
-            x = L.embed(params["embed"], token).to(torch_dtype(cfg.compute_dtype))
-            # made on the device (no host-to-device copy, which would wait
-            # for the queued work)
-            positions = torch.arange(cur_len, cur_len + 1, device=x.device)
-        npre, period = n_prefix_layers(cfg), len(cfg.pattern)
-        layers = zip(iter_layers(params, cfg), _stacked(cache, cfg), strict=True)
-        for i, ((lp, kind, is_moe), lcache) in enumerate(layers):
-            if i >= npre and (i - npre) % period == 0:
-                x = constrain(x, "dp", "boundary", None)
-            x = _apply_layer_decode(lp, cfg, kind, is_moe, x, lcache, cur_len, positions)
-        with tracing.span("lm.head"):
-            x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-            logits = _head(params, cfg, x).to(torch.float32)
+        # made on the device (no host-to-device copy, which would wait for
+        # the queued work)
+        positions = torch.arange(cur_len, cur_len + 1, device=token.device)
+        logits = _decode_body(params, cfg, cache, token, cur_len, positions)
         cache["len"] = cur_len + 1
         return logits, cache

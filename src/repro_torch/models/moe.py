@@ -41,17 +41,17 @@ import torch
 from repro_torch import tracing
 from repro_torch.kernels.ref import torch_dtype
 from repro_torch.models import layers as L
-from repro_torch.models.config import ModelConfig, MoEConfig
+from repro_torch.models.config import GroupedMoEConfig, ModelConfig, MoEConfig
 from repro_torch.parallel.policy import constrain, gather_fsdp, get_policy, run_local, spec_for
 
 
 def init_moe(gen, cfg: ModelConfig, dtype=torch.float32, *, lead=()):
     m = cfg.moe
-    d, ff, e = cfg.d_model, m.d_ff_expert, m.n_experts
+    d, ff, e = cfg.d_model, m.d_ff_expert, m.n_experts  # the experts held here
     scale = (2.0 / (d + ff)) ** 0.5
     # each expert's matrix drawn on its own (lead + expert), as one tensor
     params = {
-        "router": L.init_dense(gen, d, e, dtype=torch.float32, lead=lead),
+        "router": L.init_dense(gen, d, share(m)[0], dtype=torch.float32, lead=lead),  # every expert scored
         "gate": L.draw_normal(gen, (d, ff), scale, dtype, (*lead, e)),
         "up": L.draw_normal(gen, (d, ff), scale, dtype, (*lead, e)),
         "down": L.draw_normal(gen, (ff, d), scale, dtype, (*lead, e)),
@@ -61,22 +61,49 @@ def init_moe(gen, cfg: ModelConfig, dtype=torch.float32, *, lead=()):
     return params
 
 
+def share(m: MoEConfig) -> tuple[int, int]:
+    """(the router's width, the first expert held here): a
+    ``GroupedMoEConfig``'s share, else every expert from 0."""
+    if isinstance(m, GroupedMoEConfig) and m.n_routed_experts:
+        return m.n_routed_experts, m.first_expert
+    return m.n_experts, 0
+
+
 def capacity(m: MoEConfig, t: int) -> int:
-    """Slots per expert for ``t`` tokens (the reference's formula)."""
-    return int(max(-(-t * m.top_k * m.capacity_factor // m.n_experts), min(t, 16)))
+    """Slots per expert for ``t`` tokens (the reference's formula), over
+    the router's width: an expert's share of the pairs is the same whether
+    or not the others are held here."""
+    return int(max(-(-t * m.top_k * m.capacity_factor // share(m)[0]), min(t, 16)))
+
+
+def group_limited_top_k(probs: torch.Tensor, k: int, n_group: int, topk_group: int):
+    """DeepSeek-V2's ``group_limited_greedy``: (scores, expert ids) [T, k],
+    the best k of each token's experts among the ``topk_group`` of its
+    ``n_group`` equal groups whose best expert scores highest."""
+    t, e = probs.shape
+    best = probs.reshape(t, n_group, e // n_group).amax(-1)  # [T, groups]
+    kept = torch.zeros_like(best, dtype=torch.bool).scatter_(1, torch.topk(best, topk_group, dim=-1).indices, True)
+    mask = kept[:, :, None].expand(t, n_group, e // n_group).reshape(t, e)
+    return torch.topk(probs.masked_fill(~mask, 0.0), k, dim=-1)
 
 
 def route(params, cfg: ModelConfig, xt: torch.Tensor):
-    """[T, d] -> (weights [T, k] f32, expert ids [T, k], aux loss): the f32
-    router, its softmax, the top-k renormalized, the load-balance loss."""
+    """[T, d] -> (weights [T, k] f32, expert ids [T, k] over the router's
+    width, aux loss): the f32 router, its softmax, the top-k renormalized
+    (a ``GroupedMoEConfig``: group-limited and scaled), the load-balance
+    loss."""
     m: MoEConfig = cfg.moe
     logits = L.dense(params["router"], xt.to(torch.float32))  # [T, E]
     probs = torch.softmax(logits, dim=-1)
-    weights, idx = torch.topk(probs, m.top_k, dim=-1)
-    weights = weights / torch.clamp_min(weights.sum(-1, keepdim=True), 1e-9)
-    experts = torch.arange(m.n_experts, device=xt.device)
+    if isinstance(m, GroupedMoEConfig):  # DeepSeek-V2: scaled, not renormalized
+        weights, idx = group_limited_top_k(probs, m.top_k, m.n_group, m.topk_group)
+        weights = weights * m.routed_scaling_factor
+    else:
+        weights, idx = torch.topk(probs, m.top_k, dim=-1)
+        weights = weights / torch.clamp_min(weights.sum(-1, keepdim=True), 1e-9)
+    experts = torch.arange(probs.shape[-1], device=xt.device)
     density = (idx[:, :1] == experts).to(torch.float32).mean(0)  # one_hot(idx[:, 0]).mean(0)
-    aux = m.n_experts * torch.sum(density * probs.mean(0)) * m.aux_loss_weight
+    aux = probs.shape[-1] * torch.sum(density * probs.mean(0)) * m.aux_loss_weight
     return weights, idx, aux
 
 
@@ -87,16 +114,22 @@ def _num_groups(t: int) -> int:
 
 
 def dispatch(idx: torch.Tensor, n_experts: int, cap: int):
-    """Slots of one group's flattened [T·k] (token, choice) pairs:
-    (position within the expert, kept, slot -> source token + 1 as [E, C]
-    with 0 = empty)."""
+    """Slots of one group's flattened [T·k] (token, choice) pairs, ``idx``
+    the experts held here numbered from 0 and -1 for a pair routed to an
+    expert held elsewhere (it takes no slot): (position within the
+    expert, kept, slot -> source token + 1 as [E, C] with 0 = empty)."""
     t, k = idx.shape
-    flat = idx.reshape(-1)
-    onehot = torch.nn.functional.one_hot(flat, n_experts).to(torch.int32)  # [T*k, E]
-    pos = ((torch.cumsum(onehot, dim=0) - onehot) * onehot).sum(-1)  # [T*k]
-    keep = pos < cap
-    safe_pos = torch.where(keep, pos, torch.full_like(pos, cap - 1))
+    held = idx.reshape(-1) >= 0
     token_of = torch.arange(t, device=idx.device).repeat_interleave(k)
+    flat = torch.clamp_min(idx.reshape(-1), 0)
+    onehot = torch.nn.functional.one_hot(flat, n_experts).to(torch.int32) * held[:, None]  # [T*k, E]
+    # each expert's running count, scanned along its own row of [E, T*k]: a
+    # scan over the outer dim of [T*k, E] runs one thread an expert (about
+    # 100 ms a layer at T*k = 393k on an H100)
+    count = torch.cumsum(onehot.t().contiguous(), dim=1).t()
+    pos = ((count - onehot) * onehot).sum(-1)  # [T*k]
+    keep = (pos < cap) & held
+    safe_pos = torch.where(keep, pos, torch.full_like(pos, cap - 1))
     src = torch.where(keep, token_of + 1, torch.zeros_like(token_of))
     slot_src = torch.zeros(n_experts * cap, dtype=src.dtype, device=idx.device)
     slot_src.scatter_reduce_(0, flat * cap + safe_pos, src, "amax", include_self=True)
@@ -125,15 +158,28 @@ def _combine(out_buf: torch.Tensor, idx_g: torch.Tensor, safe_pos, keep, w_g: to
     g, tl, k = idx_g.shape
     d = out_buf.shape[-1]
     rows = torch.arange(g, device=out_buf.device)[:, None]
-    gathered = out_buf[rows, idx_g.reshape(g, tl * k), safe_pos]  # [G, Tl*k, d]
+    gathered = out_buf[rows, torch.clamp_min(idx_g, 0).reshape(g, tl * k), safe_pos]  # [G, Tl*k, d]
     zero = torch.zeros((), dtype=gathered.dtype, device=gathered.device)
     gathered = torch.where(keep[..., None], gathered, zero)
     mixed = (gathered.reshape(g * tl, k, d) * w_g.reshape(g * tl, k, 1).to(out_buf.dtype)).sum(1)
     return mixed.reshape(g, tl, d)
 
 
-def moe_ffn(params, cfg: ModelConfig, x: torch.Tensor):
+def moe_ffn(params, cfg: ModelConfig, x: torch.Tensor, router=None):
     """x [B, S, d] -> ([B, S, d], aux load-balance loss).
+
+    The router scores every expert (``share``: the router's width); the
+    layer computes what the experts held here give to the tokens routed
+    to them, from the (token, choice) pairs routed here, each expert
+    taking at most ``capacity`` of them, and adds the shared experts.
+    Pairs routed to experts held elsewhere are left out: their part of
+    the result is the other chips'.  Under a recording it counts
+    ``moe.pairs`` (every pair routed), ``moe.held_pairs`` (those routed
+    here) and ``moe.dropped_pairs`` (those past capacity), which reads
+    the last two back from the device: one wait a layer, only while a
+    recording is on.  ``router`` stands in for ``route`` (the same
+    arguments and results): the captured decode step cuts its CUDA graphs
+    there (``lm._DecodeGraphs``).
 
     On DTensors the slot fill and the combine run per group under
     ``local_map``, each shard on its own groups (G on the data axes), and
@@ -150,11 +196,15 @@ def moe_ffn(params, cfg: ModelConfig, x: torch.Tensor):
     xt = x.reshape(t, d)
 
     with tracing.span("moe.route"):
-        weights, idx, aux = route(params, cfg, xt)
+        weights, idx, aux = (router or route)(params, cfg, xt)
     g = _num_groups(t)
     tl = t // g
     cap = capacity(m, tl)
     with tracing.span("moe.dispatch"):
+        routed, first = share(m)
+        if routed != e or first:  # the experts held here from 0, -1 for the others'
+            local = idx - first
+            idx = torch.where((local >= 0) & (local < e), local, torch.full_like(local, -1))
         xg = constrain(xt.reshape(g, tl, d), "dp", None, None)
         idx_g = constrain(idx.reshape(g, tl, k), "dp", None, None)
         w_g = constrain(weights.reshape(g, tl, k), "dp", None, None)
@@ -166,6 +216,11 @@ def moe_ffn(params, cfg: ModelConfig, x: torch.Tensor):
             out_specs=(gspec + (None, None, None), gspec + (None,), gspec + (None,)),
         )
         buf = constrain(buf, "dp", "tp", None, None)  # the GShard (g, e) layout
+        if tracing.active() is not None:  # one readback a layer, only while recording
+            held, kept = torch.stack([(idx >= 0).sum(), keep.sum()]).tolist()
+            tracing.count("moe.pairs", t * k)
+            tracing.count("moe.held_pairs", held)
+            tracing.count("moe.dropped_pairs", held - kept)
 
     # expert SwiGLU on [E, G·C, d]
     with tracing.span("moe.experts"):

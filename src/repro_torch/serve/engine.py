@@ -3,9 +3,11 @@ decode over a request list.
 
 The engine keeps a fixed decode batch: prompts are served in waves of
 ``batch``, each wave left-padded with token 0 to its longest prompt (no
-padding mask, as in the reference), prefilled into a fresh KV cache and
+padding mask, as in the reference), prefilled into a KV cache and
 decoded for ``max_new_tokens`` steps.  KV caches use the model config's
-dtype.
+dtype.  Where ``lm.graphs_fit`` takes the model on a card, the engine
+keeps one cache for all waves, and its decode steps replay the CUDA
+graphs captured in the first.
 
 Port of ``repro.serve.engine`` (``ServeConfig``, ``Request``,
 ``ServingEngine``).  The reference jits ``prefill`` and ``decode_step``;
@@ -70,6 +72,20 @@ class ServingEngine:
         self.params = params
         self.scfg = serve_cfg
         self.device = params["embed"]["table"].device
+        self._cache = None  # the one cache of a model whose decode step replays CUDA graphs
+
+    def _wave_cache(self, bsz: int):
+        """A fresh cache for each wave; for a model on a card that
+        ``lm.graphs_fit``, the engine's one cache, kept with its captured
+        decode step (``lm.decode_step``) for every wave.  A prefill
+        rewrites the positions it reads and the MLA decode masks the
+        rest, so an earlier wave's rows are never read."""
+        if self.device.type != "cuda" or not lm.graphs_fit(self.cfg):
+            return lm.init_cache(self.cfg, bsz, self.scfg.max_len, device=self.device)
+        if self._cache is None:
+            self._cache = lm.init_cache(self.cfg, bsz, self.scfg.max_len, device=self.device, graphs=True)
+        self._cache["len"] = 0
+        return self._cache
 
     def _next_tokens(self, logits: torch.Tensor, step: int) -> torch.Tensor:
         """[B, 1] int32: argmax, or a sample at ``temperature``."""
@@ -104,7 +120,7 @@ class ServingEngine:
                             toks[i, plen - len(r.prompt) :] = r.prompt  # left-pad
                         toks = torch.from_numpy(toks).to(self.device)
                     with tracing.span("engine.cache_init"):
-                        cache = lm.init_cache(self.cfg, bsz, s.max_len, device=self.device)
+                        cache = self._wave_cache(bsz)
                     logits, cache = lm.prefill(self.params, self.cfg, toks, cache)
                     with tracing.span("engine.next_token"):
                         cur = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)

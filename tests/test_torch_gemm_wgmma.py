@@ -244,6 +244,21 @@ def test_geometry_fits_the_card():
         assert ks == 1 or (2 * live < gemm.WG_SMS and ks * live <= gemm.WG_SMS)
 
 
+@pytest.mark.parametrize("m, n, block, dataflow", [(11776, 3072, (96, 128), "WS"), (1000, 1000, (96, 128), "OS"),
+                                                    (130, 600, (256, 512), "WS"), (64, 64, (64, 64), "OS")])
+def test_the_split_counts_the_tiles_it_would_list(m, n, block, dataflow):
+    """``wgmma_geometry`` counts the clusters' non-empty tiles without
+    listing them (``_filled``): the count ``tiles()`` lists, here and for
+    every geometry of the suite."""
+    extra = (m, 512, n, GemmKernelConfig(block[0], 64, block[1], dataflow, **_BF16))
+    for mm, k, nn, cfg in [*_ALL, extra]:
+        geo = gemm.wgmma_geometry(mm, k, nn, cfg)
+        listed = sum(r0 < r1 and c0 < c1 for _, (r0, r1), (c0, c1) in geo.tiles())
+        counted = gemm._filled(mm, geo.block[0], geo.sub[0], geo.tile[0]) * gemm._filled(nn, geo.block[1], geo.sub[1],
+                                                                                        geo.tile[1])
+        assert counted == listed, (mm, nn, cfg)
+
+
 def test_one_warpgroup_tiles_let_three_ctas_share_an_sm():
     """A one-warpgroup tile's ring leaves room for three of its CTAs on an
     SM (233,472 bytes, 1 KB more per resident block) up to the widest

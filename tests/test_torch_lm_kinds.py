@@ -475,6 +475,9 @@ ROUTED = {
     # 2 MoE layers x (router + 3 shared-expert GEMMs), the head
     "deepseek_v2_236b": 3 * 5 + 3 + 2 * 4 + 1,
 }
+#: products the decode step does not make: MLA's k_up and v_up, whose k
+#: and v the absorbed decode never reads
+DECODE_UNMADE = {"deepseek_v2_236b": 3 * 2}
 
 
 @pytest.mark.parametrize("arch", sorted(ROUTED))
@@ -509,7 +512,7 @@ def test_policy_routes_every_block_kind_like_the_plain_run(arch, monkeypatch):
             counts.append(len(calls) - sum(counts))
             routed.append(lm.decode_step(params, cfg, c, toks[:, :1])[0])
             counts.append(len(calls) - sum(counts))
-    assert counts == [ROUTED[arch]] * 3
+    assert counts == [ROUTED[arch]] * 2 + [ROUTED[arch] - DECODE_UNMADE.get(arch, 0)]
     assert all(dt == torch.float32 for *_, dt in calls)
     routers = [c for c in calls if c[2] == cfg.moe.n_experts] if cfg.moe else []
     assert len(routers) == 3 * sum(m for _, m in lm.layer_kinds(cfg))

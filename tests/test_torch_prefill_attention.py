@@ -12,6 +12,8 @@ KV tiles included (each causal or windowed case at ragged lengths):
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_prefill_attention.py
 """
 
+import math
+
 import pytest
 import torch
 
@@ -37,7 +39,7 @@ REGISTRY = {
     "granite_34b": None,  # MQA: one KV head
     "paligemma_3b": "head dim 256",
     "musicgen_medium": None,  # head dim 64
-    "deepseek_v2_236b": "head dims differ (q 192, k 192, v 128)",  # MLA
+    "deepseek_v2_236b": None,  # MLA: q and k 128 + 64, v 128
 }
 
 
@@ -69,7 +71,7 @@ def _bf16(*shape, requires_grad=False):
          "torch.float32"),
         (lambda: (_bf16(2, 8, 256, 128, requires_grad=True), _bf16(2, 2, 256, 128), _bf16(2, 2, 256, 128)),
          "requires grad"),
-        (lambda: (_bf16(2, 8, 256, 192), _bf16(2, 8, 256, 192), _bf16(2, 8, 256, 128)), "head dims differ"),
+        (lambda: (_bf16(2, 8, 256, 192), _bf16(2, 8, 256, 192), _bf16(2, 8, 256, 64)), "head dims differ"),
         (lambda: (_bf16(2, 8, 256, 96), _bf16(2, 2, 256, 96), _bf16(2, 2, 256, 96)), "head dim 96"),
         (lambda: (_bf16(2, 8, 1, 128), _bf16(2, 2, 257, 128), _bf16(2, 2, 257, 128)), "position 0"),
         (lambda: (_bf16(2, 6, 256, 64), _bf16(2, 4, 256, 64), _bf16(2, 4, 256, 64)), "6 query heads over 4"),
@@ -318,3 +320,64 @@ def test_kernel_visits_exactly_the_unmasked_tiles(card, s, window):
     q, k, v = _qkv(1, 4, 1, s, 64, torch.bfloat16, seed=s + window, device=card, scale=1.5)
     got = KA.prefill_attention(q, k, v, window=window)
     assert _widest(got, _oracle(q, k, v, window)) <= _plain_err(q, k, v, window, seed=s + window)
+
+
+# ---------------------------------------------------------------------------
+# MLA's expanded prefill on the card: q and k 192 (nope 128 + rope 64), v 128
+# ---------------------------------------------------------------------------
+
+#: deepseek-v2's softmax scale: 192^-1/2 x YaRN's mscale(40, 0.707)^2
+MLA_SCALE = 192**-0.5 * (0.1 * 0.707 * math.log(40) + 1) ** 2
+
+
+def _mla_qkv(b, h, s, seed, device, scale=1.5):
+    """q, k, v as ``models.attention.qkv_project`` gives MLA's: q and k
+    made whole by ``torch.cat`` (k's 64 rope dims one head shared by every
+    head), v split off the [B, S, H * 128] up-projection."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def draw(*shape):
+        return (torch.randn(*shape, generator=gen) * scale).to(torch.bfloat16).to(device)
+
+    q = torch.cat([draw(b, s, h * 128).reshape(b, s, h, 128).permute(0, 2, 1, 3),
+                   draw(b, h, s, 64)], dim=-1)
+    k_nope = draw(b, s, h * 128).reshape(b, s, h, 128).permute(0, 2, 1, 3)
+    k = torch.cat([k_nope, draw(b, 1, s, 64).expand(b, h, s, 64)], dim=-1)
+    v = draw(b, s, h * 128).reshape(b, s, h, 128).permute(0, 2, 1, 3)
+    return q, k, v
+
+
+def _mla_plain_err(s: int, window: int, seed: int, device) -> float:
+    """The plain version's widest distance from the oracle at MLA's dims,
+    on draws of ``s`` rounded up to whole 128-key tiles (a ragged length
+    would cut its chunks into one-key pairs)."""
+    q, k, v = _mla_qkv(1, 128, -(-s // 128) * 128, seed, device)
+    plain = A.blockwise_attention(q, k, v, causal=True, window=window, scale=MLA_SCALE)
+    want = flash_attention_ref(q.float(), k.float(), v.float(), causal=True, window=window or None, scale=MLA_SCALE)
+    return _widest(plain, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [0, 1, 128, 300, 4096])
+@pytest.mark.parametrize("s", [128, 640, 2432, 4096, 4093, 1000])
+def test_mla_kernel_visits_exactly_the_unmasked_tiles(card, s, window):
+    """The (192, 128) instantiation at H 128 with the YaRN scale, held to
+    the dense float32 oracle as the (64, 64) one is above, at the served
+    lengths, a prime one and a ragged one."""
+    q, k, v = _mla_qkv(1, 128, s, s + window, card)
+    assert KA.attention_refusal(q, k, v) is None
+    got = KA.prefill_attention(q, k, v, window=window, scale=MLA_SCALE)
+    want = flash_attention_ref(q.float(), k.float(), v.float(), causal=True, window=window or None, scale=MLA_SCALE)
+    assert got.shape == (1, 128, s, 128) and got.permute(0, 2, 1, 3).is_contiguous()
+    assert _widest(got, want) <= _mla_plain_err(s, window, s + window, card)
+
+
+@pytest.mark.cuda
+def test_mla_kernel_at_the_cells_batch_is_bit_stable(card):
+    """B 4 at a ragged length: two launches bit-equal, each batch row
+    equal to its own launch (the CTAs of one row read only its K and V)."""
+    q, k, v = _mla_qkv(4, 128, 1000, 9, card)
+    KA.reset_launches()
+    first = KA.prefill_attention(q, k, v, scale=MLA_SCALE)
+    assert torch.equal(first, KA.prefill_attention(q, k, v, scale=MLA_SCALE)) and KA.ATTN_LAUNCHES == 2
+    assert torch.equal(first[2:3], KA.prefill_attention(q[2:3], k[2:3], v[2:3], scale=MLA_SCALE))

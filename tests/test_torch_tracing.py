@@ -45,6 +45,7 @@ BLOCK = {
     "slstm": set(),
 }
 MOE = {"moe.route", "moe.dispatch", "moe.experts", "moe.combine"}
+MLA = {"mla.q", "mla.kv_down", "mla.up"}  # inside attn.qkv (mla.up in the prefill only)
 
 
 @pytest.fixture(autouse=True)
@@ -234,7 +235,7 @@ def test_served_path_records_every_layers_spans(arch, served):
     kinds = lm.layer_kinds(cfg)
     want = ENGINE | {"lm.prefill", "lm.decode_step", "lm.embed", "lm.head", "policy.solve"}
     for kind, is_moe in kinds:
-        want |= {f"layer.{kind}"} | BLOCK[kind]
+        want |= {f"layer.{kind}"} | BLOCK[kind] | (MLA if kind == "attn" and cfg.kv_lora_rank else set())
         if is_moe:
             want |= {"layer.moe"} | MOE
         elif cfg.d_ff:
@@ -299,11 +300,19 @@ def test_product_counters_equal_the_shapes_arithmetic(arch, served):
     # version: CPU tensors
     attn_layers = sum(cfg.layer_kind(i) == "attn" for i in range(cfg.n_layers))
     assert c.get("attn.plain_calls", 0) == len(run.prefill_shapes) * attn_layers
+    # every (token, choice) pair of every MoE layer routed, all held here
+    # (the smoke configurations hold every expert)
+    moe_pairs = {"moe.pairs", "moe.held_pairs", "moe.dropped_pairs"} if cfg.moe else set()
+    if cfg.moe:
+        moe_layers = sum(m for _, m in lm.layer_kinds(cfg))
+        positions = sum(b * s for b, s in run.prefill_shapes) + sum(b for b, _ in run.prefill_shapes) * NEW
+        assert c["moe.pairs"] == c["moe.held_pairs"] == positions * cfg.moe.top_k * moe_layers
+        assert 0 <= c["moe.dropped_pairs"] <= c["moe.held_pairs"]
     # and no counter beyond those the benchmark and these tests read
     unrouted = {"gemm.unrouted_flops"} if len(run.routed) < len(run.dense) or heads or run.experts else set()
     attn = {"attn.plain_calls"} if attn_layers else set()
     assert set(c) == {"engine.prompt_tokens", "engine.padded_positions", "engine.decode_steps", "gemm.routed_flops",
-                      "policy.solves"} | unrouted | attn
+                      "policy.solves"} | unrouted | attn | moe_pairs
 
 
 @pytest.mark.parametrize("arch", ARCHS)
