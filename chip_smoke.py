@@ -260,9 +260,21 @@ fails; nothing is caught and passed over:
      (deepseek-v2's MLA too) launches one a prefill and attention layer
      and counts no ``attn.plain_calls``, and every other launches none
      (phase 21's own launches are in no window).
+ 22. Mamba's selective scan (``kernels/csrc/selective_scan.cu``; after
+     21): jamba's layer (B 8, d_in 8192, d_state 16, bf16) at S 1024 and
+     640 and at a decode step from a state, and an f32 case at ragged
+     sizes with d_state 8, each admitted, one launch a call, two launches
+     bit-equal, within one rounding of the plain version on the same
+     tensors (y) and 1e-4 (the f32 state); ms beside bound_ms (the exps
+     and logs at the multi-function unit's rate, or the bytes) and
+     plain_ms (``selective_scan_plain``, the chunked log-step scan, CUDA
+     events, eager).  The kernels line carries it as ``selective_scan``,
+     its launches the sum of the LM windows of 13 and 16, where each
+     Mamba layer launches one a prefill and decode step (the f32 smoke
+     jamba of 13 too, at d_state 8) and counts ``mamba.kernel_calls``.
 
-The launch counts (the scheduled GEMM's and the prefill attention's,
-``reset_launches``) are set to 0 just before each of phases 4, 6-10, the
+The launch counts (the scheduled GEMM's, the prefill attention's and the
+selective scan's, ``reset_launches``) are set to 0 just before each of phases 4, 6-10, the
 paths of 11 (each serve call too), the LM's served runs and smoke
 archs of 13, the traced modules' runs of 14, the sharded modules'
 runs and serve call of 15, the tpu_v5e modules' runs and each
@@ -319,7 +331,7 @@ from repro_torch.core.scheduler import ExtendedCosaScheduler, ScheduleResult  # 
 from repro_torch.core.strategy import gemm_instances, workload_from_node  # noqa: E402
 from repro_torch.frontend import trace_model  # noqa: E402
 from repro_torch.kernels import attention as KA  # noqa: E402
-from repro_torch.kernels import build, gemm, ops  # noqa: E402
+from repro_torch.kernels import build, gemm, ops, scan  # noqa: E402
 from repro_torch.kernels.gemm import GemmKernelConfig, gemm_plain, scheduled_gemm  # noqa: E402
 from repro_torch.kernels.policy import ScheduledKernelPolicy, scheduled_kernels  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
@@ -377,6 +389,23 @@ MLA_CONFIG = "deepseek-v2-236b.12l.ep8"
 MLA_SERVE = (4, 1024, 4)
 ATTN_GRAPH_LAUNCHES = 20
 ATTN_PLAIN_RUNS = 3
+#: Mamba's selective scan, and its cases at the main path's shapes (label,
+#: B, S, d_in, d_state, dtype, from a state): jamba's layer at the
+#: benchmark's longest wave and its shortest, a decode step, and an f32
+#: case past a tile, a group and a CTA's channels; the kernels line
+#: carries the first
+SCAN_SOURCE = "src/repro_torch/kernels/csrc/selective_scan.cu"
+SCAN_CASES = (
+    ("jamba S 1024", 8, 1024, 8192, 16, torch.bfloat16, False),
+    ("jamba S 640", 8, 640, 8192, 16, torch.bfloat16, False),
+    ("jamba decode step", 8, 1, 8192, 16, torch.bfloat16, True),
+    ("f32 ragged", 3, 45, 200, 8, torch.float32, True),
+)
+#: H100 SXM's multi-function unit (exp2, log2): 16 results a clock per SM,
+#: 132 SMs, at the 1,980 MHz boost clock
+SFU_OPS_PER_S = 132 * 16 * 1.98e9
+SCAN_GRAPH_LAUNCHES = 20
+SCAN_PLAIN_RUNS = 3
 REPLACES = {
     "qgemm_requant": "src/repro/kernels/qgemm.py:19",
     "gemm_int32": "src/repro/kernels/gemm.py:97",
@@ -2187,6 +2216,99 @@ LM_DECODE_SAMPLES = 16
 MIN_M = ScheduledKernelPolicy.min_m
 
 
+def scan_inputs(dev: torch.device, b: int, s: int, d_in: int, n: int, dtype, state: bool, seed: int):
+    """(u, dt, a_log, d, b, c, h0) drawn on the card as a Mamba layer makes
+    them: u after SiLU, dt as dt_proj gives it (a few entries past
+    softplus's threshold and far below zero), A_log near log(1..n)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def draw(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    u = torch.nn.functional.silu(draw(b, s, d_in)).to(dtype)
+    dt = draw(b, s, d_in)
+    dt.view(-1)[::97] = 25.0
+    dt.view(-1)[1::89] = -30.0
+    a_log = (torch.log(torch.arange(1, n + 1, dtype=torch.float32, device=dev)) + 0.1 * draw(d_in, n)).contiguous()
+    return (u, dt.to(dtype), a_log, 1.0 + 0.1 * draw(d_in), draw(b, s, n).to(dtype), draw(b, s, n).to(dtype),
+            draw(b, d_in, n) if state else None)
+
+
+def scan_bound(b: int, s: int, d_in: int, n: int, elt: int, state: bool) -> tuple[float, str]:
+    """(ms, bound_by): the least time of one selective scan on the card:
+    its n exps of exp(delta A) and softplus's exp and log per (batch
+    row, position, channel) at ``SFU_OPS_PER_S``, or its bytes (u, dt
+    and y; B and C; A_log, D; the states) at the HBM rate."""
+    ops_ms = b * s * d_in * (n + 2) / SFU_OPS_PER_S * 1e3
+    nbytes = 3 * b * s * d_in * elt + 2 * b * s * n * elt + d_in * (n + 1) * 4 + (2 if state else 1) * b * d_in * n * 4
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(ops_ms, byte_ms), ("operations" if ops_ms >= byte_ms else "bytes")
+
+
+def scan_phase(dev: torch.device, card_line: str) -> dict:
+    """Phase 22, Mamba's selective scan (after 21): each of ``SCAN_CASES``
+    admitted, one launch a call, two launches bit-equal, y within one
+    rounding of the plain version on the same tensors (f32: 1e-5) and the
+    final f32 state within 1e-4; device ms per call (CUDA-graph replay)
+    beside ``scan_bound`` and the plain version's ms per call (CUDA
+    events, eager; the chunked log-step scan at chunk 128)."""
+    results = {}
+    for i, (label, b, s, d_in, n, dtype, state) in enumerate(SCAN_CASES):
+        args = scan_inputs(dev, b, s, d_in, n, dtype, state, seed=i)
+        refusal = scan.scan_refusal(*args) or scan.kernel_refusal(*args)
+        check(refusal is None, f"scan {label}: refused ({refusal})")
+        before = scan.SCAN_LAUNCHES
+        y, h = scan.selective_scan(*args)
+        y2, h2 = scan.selective_scan(*args)
+        py, ph = scan.selective_scan_plain(*args)
+        torch.cuda.synchronize()
+        check(scan.SCAN_LAUNCHES == before + 2, f"scan {label}: {scan.SCAN_LAUNCHES - before} launches for 2 calls")
+        check(torch.equal(y, y2) and torch.equal(h, h2), f"scan {label}: two launches differ")
+        scale = float(py.float().abs().max())
+        err = max_err(y.float(), py.float())
+        if dtype == torch.bfloat16:  # both round one f32 value once
+            y_ok = bool(((y.float() - py.float()).abs() <= bf16_ulp(py.float()) + 1e-5 * scale).all())
+        else:
+            y_ok = bool(torch.allclose(y, py, rtol=1e-5, atol=1e-5 * scale))
+        h_err = max_err(h, ph)
+        h_ok = bool(torch.allclose(h, ph, rtol=1e-4, atol=1e-5 * float(ph.abs().max())))
+        check(y_ok and h_ok, f"scan {label}: kernel vs plain max |err| y {err:.3e}, h {h_err:.3e}")
+        del y2, h2, py, ph
+        ms = device_ms(lambda: scan.selective_scan(*args), SCAN_GRAPH_LAUNCHES)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        scan.selective_scan_plain(*args)
+        start.record()
+        for _ in range(SCAN_PLAIN_RUNS):
+            scan.selective_scan_plain(*args)
+        end.record()
+        end.synchronize()
+        plain_ms = start.elapsed_time(end) / SCAN_PLAIN_RUNS
+        bound_ms, by = scan_bound(b, s, d_in, n, y.element_size(), state)
+        results[label] = {"b": b, "s": s, "d_in": d_in, "d_state": n, "dtype": str(dtype), "state": state,
+                          "ms": ms, "bound_ms": bound_ms, "bound_by": by, "roofline": bound_ms / ms,
+                          "plain_ms": plain_ms, "library_ms": None, "max_abs_err": err, "h_max_abs_err": h_err}
+        print(f"scan {label} (B {b}, S {s}, d_in {d_in}, d_state {n}, {dtype}): {ms:.4f} ms "
+              f"({100 * bound_ms / ms:.1f} % of the {bound_ms:.4f} ms bound, by {by}), plain {plain_ms:.3f} ms; "
+              f"max |err| from the plain version y {err:.3e} (max |y| {scale:.3f}), h {h_err:.3e} [{card_line}]")
+        del args, y, h
+        torch.cuda.empty_cache()
+    return results
+
+
+def mamba_layers(cfg) -> int:
+    return sum(cfg.layer_kind(i) == "mamba" for i in range(cfg.n_layers))
+
+
+def check_scan(label: str, cfg, rec) -> None:
+    """The recording's scan counters and the kernel's launches since the
+    window opened: one kernel call and launch per Mamba layer and model
+    call (prefill or decode step) the recording holds, no plain call."""
+    calls = sum(sp.name in ("lm.prefill", "lm.decode_step") for sp in rec.spans) * mamba_layers(cfg)
+    got = {name: rec.counters.get(name, 0) for name in ("mamba.kernel_calls", "mamba.plain_calls")}
+    check(got == {"mamba.kernel_calls": calls, "mamba.plain_calls": 0} and scan.SCAN_LAUNCHES == calls,
+          f"{label}: selective scan {got}, {scan.SCAN_LAUNCHES} launches, want {calls} kernel calls")
+
+
 def dense_rows(cfg, batch: int, seq: int, call: str) -> list[int]:
     """The m of every ``layers.dense`` one call makes, layer by layer
     (``lm.layer_kinds``): ``call`` is ``forward`` or ``prefill`` over
@@ -2201,9 +2323,8 @@ def dense_rows(cfg, batch: int, seq: int, call: str) -> list[int]:
                 out += [rows] * ((2 if getattr(cfg, "q_lora_rank", 0) else 1) + (2 if call == "decode" else 4))
             else:
                 out += [rows] * 4
-        elif kind == "mamba":  # in_proj, (x_proj, dt_proj) per chunk, out_proj
-            chunk = L.chunk_len(s, cfg.mamba.chunk)
-            out += [rows] + [batch * chunk] * (2 * (s // chunk)) + [rows]
+        elif kind == "mamba":  # in_proj, x_proj, dt_proj, out_proj
+            out += [rows] * 4
         elif kind == "mlstm":  # up, q, k, v, i, f, o gates, down per chunk
             chunk = L.chunk_len(s, cfg.attn_chunk)
             out += [batch * chunk] * (8 * (s // chunk))
@@ -2324,16 +2445,18 @@ def design_split(calls) -> dict[str, int]:
 
 
 def reset_launches() -> None:
-    """Open a launch window: the scheduled GEMM's counts and the prefill
-    attention's to 0."""
+    """Open a launch window: the scheduled GEMM's counts, the prefill
+    attention's and the selective scan's to 0."""
     gemm.reset_launches()
     KA.reset_launches()
+    scan.reset_launches()
 
 
 def with_designs(counts: dict[str, int]) -> dict[str, int]:
-    """An LM launch window's counts with the float form's per-design split
-    and the prefill attention's launches."""
-    return {**counts, **gemm.DESIGN_LAUNCHES, "prefill_attention": KA.ATTN_LAUNCHES}
+    """An LM launch window's counts with the float form's per-design split,
+    the prefill attention's launches and the selective scan's."""
+    return {**counts, **gemm.DESIGN_LAUNCHES, "prefill_attention": KA.ATTN_LAUNCHES,
+            "selective_scan": scan.SCAN_LAUNCHES}
 
 
 def attention_calls(cfg, prefills: int) -> dict[str, int]:
@@ -2393,6 +2516,7 @@ def lm_smoke_phase(dev: torch.device, backend, windows: dict, card_line: str) ->
         seq = LM_SMOKE_PROMPT + (cfg.n_frontend_tokens if fe is not None else 0)
         per_call = {c: routed_per_call(cfg, LM_SMOKE_BATCH, seq, c) for c in ("forward", "prefill", "decode")}
         tokens = {}
+        scans = scan.SCAN_LAUNCHES
         with scheduled_kernels(backend), torch.inference_mode(), GemmRecorder() as rec:
             before = gemm.LAUNCHES["gemm_float"]
             got, _ = lm.forward(params, cfg, toks.to(dev), None if fe is None else fe.to(dev))
@@ -2418,6 +2542,9 @@ def lm_smoke_phase(dev: torch.device, backend, windows: dict, card_line: str) ->
                     check(launched == want_n,
                           f"{arch} smoke prefill + {LM_SMOKE_STEPS} steps: {launched} launches, not {want_n}")
         check(torch.equal(tokens["cuda"], tokens["cpu"]), f"{arch} smoke greedy tokens: cuda != cpu")
+        want_scans = mamba_layers(cfg) * (2 + LM_SMOKE_STEPS)  # the forward, the prefill, the decode steps
+        check(scan.SCAN_LAUNCHES - scans == want_scans,
+              f"{arch} smoke: {scan.SCAN_LAUNCHES - scans} selective scan launches, not {want_scans}")
         calls |= set(rec.calls)
         print(f"lm smoke {arch}: forward logits cuda vs cpu max |err| {err:.3e} (rtol 1e-4, atol 1e-3); "
               f"greedy tokens of prefill + {LM_SMOKE_STEPS} steps equal ({tokens['cuda'].numel()}); "
@@ -2788,6 +2915,7 @@ def full_width_lm(dev: torch.device, card_line: str, windows: dict, arch: str, n
                     logits[routed], c = lm.prefill(params, cfg, toks, c)
                 torch.cuda.synchronize()
                 check_attention(f"{cfg.name} {'routed' if routed else 'unrouted'} prefill", cfg, trec, 1)
+                check_scan(f"{cfg.name} {'routed' if routed else 'unrouted'} prefill", cfg, trec)
                 pf, pf_d, n_pf = dict(gemm.LAUNCHES), dict(gemm.DESIGN_LAUNCHES), len(rec.calls)
                 routers[routed] = list(rr.ids)
                 reset_launches()
@@ -2831,6 +2959,7 @@ def full_width_lm(dev: torch.device, card_line: str, windows: dict, arch: str, n
         wall = time.perf_counter() - t0
         window = dict(gemm.LAUNCHES)  # read just after it
         check_attention(f"{cfg.name} {'routed' if routed else 'unrouted'} run", cfg, trec, 1)
+        check_scan(f"{cfg.name} {'routed' if routed else 'unrouted'} run", cfg, trec)
         want = {v: (per["prefill"] + FW_NEW * per["decode"] if routed and v == "gemm_float" else 0)
                 for v in gemm.LAUNCHES}
         check(window == want, f"{cfg.name} {'routed' if routed else 'unrouted'} run: launches {window}, want {want}")
@@ -4098,6 +4227,7 @@ def main(argv: list[str] | None = None) -> int:
     tpu = tpu_v5e_phase(tpu_compiled, cases, card_line, windows)  # phase 16, step 1
     host_ops = host_ops_phase(dev, card_line)
     attention = attention_phase(dev, card_line)  # phase 21
+    scans = scan_phase(dev, card_line)  # phase 22
     lm_run = lm_phase(dev, card_line, windows)  # sets the counts to 0 before each LM window
     full_width = full_width_phase(dev, card_line, windows)  # phase 16: likewise, after codeqwen is freed
     training = train_phase(dev, card_line, work, windows)  # phase 17, after phase 16's models are freed
@@ -4183,6 +4313,17 @@ def main(argv: list[str] | None = None) -> int:
         **{k: attn[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         "shapes": f"{ATTN_CASES[0][0]}: B 8, H 32 / 4, D 128; every case in the report",
     })
+    first = scans[SCAN_CASES[0][0]]
+    line["kernels"].append({
+        "name": "selective_scan",
+        "route": "cuda",
+        "source": SCAN_SOURCE,
+        "replaces": "none: src/repro/models/ssm.py:_scan_chunk is jax.lax.associative_scan",
+        "launches": sum(w.get("selective_scan", 0) for w in windows.values()),
+        "max_abs_err": max(c["max_abs_err"] for c in scans.values()),
+        **{k: first[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "shapes": f"{SCAN_CASES[0][0]}: B 8, d_in 8192, d_state 16, bf16; every case in the report",
+    })
     path_cases = [
         {"variant": c["variant"], "shape": f"{c['m']}x{c['k']}x{c['n']}",
          "blocks": f"{c['blocks']} {c['dataflow']}",
@@ -4196,13 +4337,13 @@ def main(argv: list[str] | None = None) -> int:
               "verify_gate": gate, "host_ops": host_ops, "lm": lm_run, "launch_windows": windows,
               "frontend": frontend, "sharded": sharded, "tpu_v5e": tpu, "full_width": full_width,
               "training": training, "emulated": emulated, "sharded_lm": sharded_lm, "examples": examples,
-              "path_cases": path_cases, "attention": attention}
+              "path_cases": path_cases, "attention": attention, "scan": scans}
     if args.report:
         Path(args.report).parent.mkdir(parents=True, exist_ok=True)
         Path(args.report).write_text(json.dumps({**report, **line}, indent=1))
     # the per-path summaries are long and printed above, path by path
     long = ("paths", "measured_dse", "pipelined", "decode_paths", "path_cases", "lm", "frontend", "sharded",
-            "tpu_v5e", "full_width", "training", "emulated", "sharded_lm", "examples", "attention")
+            "tpu_v5e", "full_width", "training", "emulated", "sharded_lm", "examples", "attention", "scan")
     print(json.dumps({k: v for k, v in report.items() if k not in long}))
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

@@ -32,9 +32,10 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 #: the sources of each library: the scheduled GEMM's mma.sync design
-#: (every form) and its wgmma + TMA design (bf16, m >= 64), and the LM
-#: prefill's fused attention (``kernels/attention.py``)
-SOURCES = {"gemm": ("gemm.cu", "gemm_wgmma.cu", "attention_wgmma.cu")}
+#: (every form) and its wgmma + TMA design (bf16, m >= 64), the LM
+#: prefill's fused attention (``kernels/attention.py``) and Mamba's
+#: selective scan (``kernels/scan.py``)
+SOURCES = {"gemm": ("gemm.cu", "gemm_wgmma.cu", "attention_wgmma.cu", "selective_scan.cu")}
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}

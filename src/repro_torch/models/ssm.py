@@ -1,24 +1,26 @@
 """Mamba (selective SSM) block — Jamba's recurrent layer.
 
-Prefill runs a chunked selective scan: a loop over sequence chunks
-carrying the SSM state h [B, d_in, d_state]; inside a chunk the
-recurrence h_t = a_t * h_{t-1} + b_t is a parallel prefix scan, so peak
-memory is O(chunk * d_in * d_state) instead of O(S * ...).  Decode
-carries h explicitly, O(1) per token.
+A block call runs the causal conv, then the x and dt projections once
+over the whole sequence, then one selective scan
+(``kernels/scan.py:selective_scan``) carrying the SSM state h [B, d_in,
+d_state] from the given state (or zeros) to the returned one: the fused
+CUDA kernel on the card, the chunked plain version elsewhere, whose peak
+memory is O(chunk * d_in * d_state) instead of O(S * ...).  Decode is the
+same call at S = 1, O(1) per token.
 
-The selective scan is elementwise work, not a GEMM; the projections
-around it (in, x, dt, out) go through ``layers.dense`` and so through the
-scheduled kernel under ``scheduled_kernels``.
+The scan is elementwise work, not a GEMM; the projections around it (in,
+x, dt, out) go through ``layers.dense`` and so through the scheduled
+kernel under ``scheduled_kernels``.
 
-Port of ``repro.models.ssm``.  ``jax.lax.associative_scan`` becomes a
-log-step (Hillis–Steele) scan over the chunk axis with the reference's
-combine ``(a1·a2, a2·b1 + b2)``: ⌈log₂ chunk⌉ rounds of whole-tensor
-products (7 at chunk 128) instead of one host step per position.  The
-two scans associate the products differently, so they agree to float
-rounding, not bit for bit.  ``jax.checkpoint`` (training only) is left
-out.  Under ``repro_torch.tracing.recording`` a block records the spans
-``mamba.in_proj`` (with the causal conv), ``mamba.scan`` (the chunk loop)
-and ``mamba.out_proj`` (with the gate).
+Port of ``repro.models.ssm``; the reference computes the x and dt
+projections inside its chunk loop, the port before it, on the same rows.
+``jax.checkpoint`` (training only) is left out.  The kernel has no
+backward and reads a tensor's own memory, so a block whose inputs require
+grad (training) or are DTensors (a sharded block) calls the plain version
+itself.  Under ``repro_torch.tracing.recording`` a block records the spans
+``mamba.in_proj`` (with the causal conv), ``mamba.scan`` (the x and dt
+projections and the scan) and ``mamba.out_proj`` (with the gate), and
+counts ``mamba.kernel_calls`` or ``mamba.plain_calls`` once.
 """
 
 from __future__ import annotations
@@ -26,8 +28,10 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch import tracing
+from repro_torch.kernels import scan
 from repro_torch.kernels.ref import torch_dtype
 from repro_torch.models import layers as L
 from repro_torch.models.config import MambaConfig, ModelConfig
@@ -85,42 +89,10 @@ def init_mamba_state(cfg: ModelConfig, batch: int, dtype=torch.float32, *, devic
     )
 
 
-def _ssm_params(params, cfg: ModelConfig, u: torch.Tensor):
-    """u [B,S,d_in] -> (dA [B,S,d_in,n], dBu [B,S,d_in,n], C [B,S,n])."""
-    mc = cfg.mamba or MambaConfig()
-    dtr = _dt_rank(cfg)
-    proj = L.dense(params["x_proj"], u)  # [B,S,dtr+2n]
-    # dt is a strided slice: ops._operands copies it to a contiguous tensor
-    dt, bmat, cmat = torch.split(proj, [dtr, mc.d_state, mc.d_state], dim=-1)
-    dt = torch.nn.functional.softplus(L.dense(params["dt_proj"], dt).to(torch.float32))  # [B,S,d_in]
-    a = -torch.exp(params["A_log"])  # [d_in, n]
-    d_a = torch.exp(dt[..., None] * a[None, None])
-    d_bu = (dt * u.to(torch.float32))[..., None] * bmat.to(torch.float32)[:, :, None, :]
-    return d_a, d_bu, cmat.to(torch.float32)
-
-
-def _scan_chunk(h0: torch.Tensor, d_a: torch.Tensor, d_bu: torch.Tensor):
-    """Inclusive scan of h_t = dA_t h_{t-1} + dBu_t over the chunk axis
-    (dim 1), log-step: at offset o each position combines with the one o
-    before it, ``(a1·a2, a2·b1 + b2)`` with 1 the earlier.
-    h0 [B,d_in,n]; dA/dBu [B,c,d_in,n] -> (h over the chunk, final h)."""
-    a, b = d_a, d_bu
-    c = a.shape[1]
-    off = 1
-    while off < c:
-        a, b = (
-            torch.cat([a[:, :off], a[:, :-off] * a[:, off:]], dim=1),
-            torch.cat([b[:, :off], a[:, off:] * b[:, :-off] + b[:, off:]], dim=1),
-        )
-        off *= 2
-    h = a * h0[:, None] + b
-    return h, h[:, -1]
-
-
 def mamba_block(params, cfg: ModelConfig, x: torch.Tensor, state: MambaState | None = None):
-    """x [B,S,d] -> (y [B,S,d], final MambaState).  Chunked over S."""
+    """x [B,S,d] -> (y [B,S,d], final MambaState): one scan over S."""
     mc = cfg.mamba or MambaConfig()
-    b, s, _ = x.shape
+    s = x.shape[1]
     compute = torch_dtype(cfg.compute_dtype)
     with tracing.span("mamba.in_proj"):
         xz = L.dense(params["in_proj"], x, compute_dtype=compute)
@@ -130,20 +102,19 @@ def mamba_block(params, cfg: ModelConfig, x: torch.Tensor, state: MambaState | N
         u = torch.nn.functional.silu(u)
 
     with tracing.span("mamba.scan"):
-        if state is not None:
-            h = state.h
+        proj = L.dense(params["x_proj"], u)  # [B,S,dtr+2n]
+        # dt is a strided slice: ops._operands copies it to a contiguous tensor
+        dt, bmat, cmat = torch.split(proj, [_dt_rank(cfg), mc.d_state, mc.d_state], dim=-1)
+        dt = L.dense(params["dt_proj"], dt)  # [B,S,d_in], before softplus
+        h0 = state.h.contiguous() if state is not None else None
+        args = (u, dt, params["A_log"], params["D"], bmat.contiguous(), cmat.contiguous(), h0)
+        opts = {"chunk": L.chunk_len(s, mc.chunk)}
+        differentiated = torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in args)
+        if differentiated or isinstance(u, DTensor):
+            tracing.count("mamba.plain_calls")
+            y, h = scan.selective_scan_plain(*args, **opts)
         else:
-            h = torch.zeros((b, u.shape[-1], mc.d_state), dtype=torch.float32, device=x.device)
-
-        chunk = L.chunk_len(s, mc.chunk)
-        ys = []
-        for c0 in range(0, s, chunk):
-            u_c = u[:, c0 : c0 + chunk]
-            d_a, d_bu, c_c = _ssm_params(params, cfg, u_c)
-            h_seq, h = _scan_chunk(h, d_a, d_bu)
-            y_c = torch.einsum("bcdn,bcn->bcd", h_seq, c_c)  # [B,c,d_in]
-            ys.append(y_c + params["D"][None, None] * u_c.to(torch.float32))
-        y = torch.cat(ys, dim=1)
+            y, h = scan.selective_scan(*args, **opts)
 
     with tracing.span("mamba.out_proj"):
         y = y.to(compute) * torch.nn.functional.silu(z.to(torch.float32)).to(compute)

@@ -35,7 +35,7 @@ from repro.models import xlstm as ref_xlstm
 from repro_torch.configs import ARCH_IDS, get_smoke_config
 from repro_torch.core.configurators import build_backend
 from repro_torch.core.descriptions import make_gemmini_description
-from repro_torch.kernels import gemm, ops, policy
+from repro_torch.kernels import gemm, ops, policy, scan
 from repro_torch.models import attention, cache, lm, moe, ssm, xlstm
 
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -309,7 +309,7 @@ def test_mamba_scan_and_conv_match_the_reference():
         d_bu = rng.normal(size=(2, c, 3, 4)).astype(np.float32)
         h0 = rng.normal(size=(2, 3, 4)).astype(np.float32)
         want = ref_ssm._scan_chunk(jnp.asarray(h0), jnp.asarray(d_a), jnp.asarray(d_bu))
-        got = ssm._scan_chunk(torch.from_numpy(h0), torch.from_numpy(d_a), torch.from_numpy(d_bu))
+        got = scan._scan_chunk(torch.from_numpy(h0), torch.from_numpy(d_a), torch.from_numpy(d_bu))
         for g, w in zip(got, want):
             _close(g.numpy(), w, dict(rtol=1e-6, atol=1e-6))
     x = rng.normal(size=(2, 5, 6)).astype(np.float32)

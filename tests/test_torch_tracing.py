@@ -300,6 +300,10 @@ def test_product_counters_equal_the_shapes_arithmetic(arch, served):
     # version: CPU tensors
     attn_layers = sum(cfg.layer_kind(i) == "attn" for i in range(cfg.n_layers))
     assert c.get("attn.plain_calls", 0) == len(run.prefill_shapes) * attn_layers
+    # one scan a Mamba layer and model call, on the plain version: CPU
+    # tensors
+    mamba_layers = sum(cfg.layer_kind(i) == "mamba" for i in range(cfg.n_layers))
+    assert c.get("mamba.plain_calls", 0) == calls * mamba_layers
     # every (token, choice) pair of every MoE layer routed, all held here
     # (the smoke configurations hold every expert)
     moe_pairs = {"moe.pairs", "moe.held_pairs", "moe.dropped_pairs"} if cfg.moe else set()
@@ -311,8 +315,25 @@ def test_product_counters_equal_the_shapes_arithmetic(arch, served):
     # and no counter beyond those the benchmark and these tests read
     unrouted = {"gemm.unrouted_flops"} if len(run.routed) < len(run.dense) or heads or run.experts else set()
     attn = {"attn.plain_calls"} if attn_layers else set()
+    mamba = {"mamba.plain_calls"} if mamba_layers else set()
     assert set(c) == {"engine.prompt_tokens", "engine.padded_positions", "engine.decode_steps", "gemm.routed_flops",
-                      "policy.solves"} | unrouted | attn | moe_pairs
+                      "policy.solves"} | unrouted | attn | mamba | moe_pairs
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_a_recorded_prefill_counts_one_scan_a_mamba_layer(arch):
+    """``mamba.kernel_calls`` or ``mamba.plain_calls`` once per Mamba layer
+    of a prefill (the plain version here: CPU tensors), and neither where
+    the model has no Mamba layer."""
+    cfg = get_smoke_config(arch)
+    params = lm.init_lm(0, cfg, device="cpu")
+    tokens = torch.from_numpy(np.random.default_rng(4).integers(0, cfg.vocab, size=(2, 6)).astype(np.int64))
+    with torch.inference_mode(), tracing.recording() as rec:
+        lm.prefill(params, cfg, tokens, lm.init_cache(cfg, 2, 8, device="cpu"))
+    mamba_layers = sum(cfg.layer_kind(i) == "mamba" for i in range(cfg.n_layers))
+    counts = {k: v for k, v in rec.counters.items() if k.startswith("mamba.")}
+    assert counts == ({"mamba.plain_calls": mamba_layers} if mamba_layers else {})
+    assert sum(s.name == "mamba.scan" for s in rec.spans) == mamba_layers
 
 
 @pytest.mark.parametrize("arch", ARCHS)
