@@ -273,8 +273,7 @@ fails; nothing is caught and passed over:
      Mamba layer launches one a prefill and decode step (the f32 smoke
      jamba of 13 too, at d_state 8) and counts ``mamba.kernel_calls``.
 
-The launch counts (the scheduled GEMM's, the prefill attention's and the
-selective scan's, ``reset_launches``) are set to 0 just before each of phases 4, 6-10, the
+The launch counts (every kernel's, ``build.reset_launches``) are set to 0 just before each of phases 4, 6-10, the
 paths of 11 (each serve call too), the LM's served runs and smoke
 archs of 13, the traced modules' runs of 14, the sharded modules'
 runs and serve call of 15, the tpu_v5e modules' runs and each
@@ -857,7 +856,7 @@ def main_path(dev: torch.device, card_line: str) -> dict:
                     repro_torch.Target("gemmini", mode=mode, device=str(dev) if where == "cuda" else "cpu"),
                 )
     summary = {}
-    reset_launches()  # the main path's run starts here
+    build.reset_launches()  # the main path's run starts here
     for mode in MODES:
         variant = "gemm_int32" if mode == "naive" else "qgemm_requant"
         m16, m1 = compiled[mode, 16, "cuda"], compiled[mode, 1, "cuda"]
@@ -1119,7 +1118,7 @@ def serve_phase(dev: torch.device, cases: dict, card_line: str, windows: dict) -
         args = argparse.Namespace(zoo=name, target=target, batch=batch, requests=requests,
                                   deadline_ms=SERVE_DEADLINE_MS, device=str(dev))
         with TraceSpy() as spy:
-            reset_launches()  # this serve call's window starts here
+            build.reset_launches()  # this serve call's window starts here
             result = serve.serve_zoo(args)
             window = dict(gemm.LAUNCHES)  # read just after it
         check(spy.calls > 0, f"serve {name}: booted without the tracer")
@@ -1253,7 +1252,7 @@ def measured_dse_phase(dev: torch.device, card_line: str, work: Path, windows: d
     options = repro_torch.CompileOptions(measure_top_k=MEASURE_K, fresh_backend=True)
     rng = np.random.default_rng(2)
     builds, measured_keys = {}, set()
-    reset_launches()  # the measured compiles' window starts here
+    build.reset_launches()  # the measured compiles' window starts here
     for name, batch in MEASURED_BUILDS:
         for acc in ("gemmini", "edge_npu"):
             label = f"{name}@{acc}:optimized b{batch}"
@@ -1340,7 +1339,7 @@ def measured_dse_phase(dev: torch.device, card_line: str, work: Path, windows: d
               f"{p50['measured']} ms [{card_line}]")
 
     # a fresh process-level backend over the same cache: zero work
-    reset_launches()
+    build.reset_launches()
     for label, (name, acc, batch, module, _, _) in builds.items():
         repro_torch.clear_backend_cache()
         warm = repro_torch.compile(
@@ -1388,7 +1387,7 @@ def artifact_phase(dev: torch.device, card_line: str, work: Path, windows: dict)
           f"artifact load did compile work: {work_done.counts}")
     subs = {f"b{b}": (loaded.bucket_module(b), compiled.bucket_module(b)) for b in loaded.bucket_sizes()}
     subs["sample"] = (loaded.sample_module, compiled.sample_module)
-    reset_launches()  # the restored module's runs start here
+    build.reset_launches()  # the restored module's runs start here
     per_run = {}
     for label, (got, want) in subs.items():
         check(got.backend.scheduler.n_solver_calls == 0 and got.backend.n_measurements == 0,
@@ -1416,7 +1415,7 @@ def artifact_phase(dev: torch.device, card_line: str, work: Path, windows: dict)
     args = argparse.Namespace(zoo=name, target=target_spec, batch=batch, requests=requests,
                               deadline_ms=SERVE_DEADLINE_MS, device=str(dev), artifact=str(path))
     repro_torch.clear_backend_cache()
-    reset_launches()  # the artifact-booted serve call's window starts here
+    build.reset_launches()  # the artifact-booted serve call's window starts here
     with WorkCounter() as serve_work:
         result = serve.serve_zoo(args)
     windows[f"serve {name}@{target_spec} --artifact"] = dict(gemm.LAUNCHES)  # read just after it
@@ -1443,7 +1442,7 @@ def pipelined_phase(compiled: dict, card_line: str, windows: dict) -> dict:
     """Phase 10: every phase-6 module in optimized and naive, pipelined
     against sequential on the card."""
     summary = {}
-    reset_launches()  # the pipelined runs' window starts here
+    build.reset_launches()  # the pipelined runs' window starts here
     for (name, acc, mode, batch), mods in compiled.items():
         if mode not in ("optimized", "naive"):
             continue
@@ -1605,7 +1604,7 @@ def decode_serve_phase(dev: torch.device, cases: dict, card_line: str, windows: 
                               "--requests", str(requests), "--device", str(dev)])
     check((args.prompt_len, args.new_tokens) == (32, 16), "serve defaults changed")
     with TraceSpy() as spy:
-        reset_launches()  # the decode serve call's window starts here
+        build.reset_launches()  # the decode serve call's window starts here
         result = serve.serve_decode(args)
         window = dict(gemm.LAUNCHES)  # read just after it
     check(spy.calls == 2, f"serve {DECODE.name}: the engine compiled {spy.calls} traced graphs, not 2")
@@ -1630,7 +1629,7 @@ def decode_serve_phase(dev: torch.device, cases: dict, card_line: str, windows: 
 
     acc, mode = target.split(":")
     cfg = engine.cfg
-    reset_launches()  # the sequential baseline's window starts here
+    build.reset_launches()  # the sequential baseline's window starts here
     seq_reqs = random_requests(DECODE, requests, cfg.prompt_len, seed=0)
     seq = sequential_generate(DECODE, repro_torch.Target(acc, mode=mode, device=str(dev)), seq_reqs, cfg)
     windows[f"sequential {DECODE.name}@{target}"] = dict(gemm.LAUNCHES)
@@ -1825,7 +1824,7 @@ def frontend_phase(dev: torch.device, card_line: str, windows: dict) -> dict:
     feeds = {name: [zoo.get_model(name).feeds(seed) for seed in range(PATH_FEEDS)] for name in zoo.ZOO}
     want = {key: [c[1].run(f) for f in feeds[key[0]]] for key, c in compiled.items()}
     summary = {}
-    reset_launches()  # the traced modules' runs start here
+    build.reset_launches()  # the traced modules' runs start here
     for (name, acc, mode), (traced, golden, compile_ms, golden_ms) in compiled.items():
         label = frontend_label(name, acc, mode)
         check(traced.modeled_cycles() == golden.modeled_cycles(), f"{label}: modeled cycles differ")
@@ -1917,7 +1916,7 @@ def sharded_phase(dev: torch.device, compiled: dict, cases: dict, card_line: str
         feeds[label] = [zoo.get_model(name).feeds(seed, batch=batch) for seed in range(PATH_FEEDS)]
     want = {label: [single.run(f) for f in feeds[label]] for label, (_, single, _, _) in compiled.items()}
     summary = {}
-    reset_launches()  # the sharded modules' runs start here
+    build.reset_launches()  # the sharded modules' runs start here
     for label, (sharded, single, name, batch) in compiled.items():
         per_call = plan_launches(sharded)
         before = dict(gemm.LAUNCHES)
@@ -1968,7 +1967,7 @@ def sharded_phase(dev: torch.device, compiled: dict, cases: dict, card_line: str
     args = argparse.Namespace(zoo=name, target=target, batch=batch, requests=requests,
                               deadline_ms=SERVE_DEADLINE_MS, device=str(dev), devices=devices)
     with TraceSpy() as spy:
-        reset_launches()  # the sharded serve call's window starts here
+        build.reset_launches()  # the sharded serve call's window starts here
         result = serve.serve_zoo(args)
         window = dict(gemm.LAUNCHES)  # read just after it
     check(spy.calls > 0, f"serve {name} --devices {devices}: booted without the tracer")
@@ -2118,11 +2117,11 @@ def attention_phase(dev: torch.device, card_line: str) -> dict:
         scale = A.softmax_scale(mla_cfg) if d != dv else None
         refusal = KA.attention_refusal(q, k, v)
         check(refusal is None, f"attention {label}: refused ({refusal})")
-        before = KA.ATTN_LAUNCHES
+        before = KA.LAUNCHES["prefill_attention"]
         got = KA.prefill_attention(q, k, v, scale=scale)
         again = KA.prefill_attention(q, k, v, scale=scale)
         torch.cuda.synchronize()
-        check(KA.ATTN_LAUNCHES == before + 2, f"attention {label}: {KA.ATTN_LAUNCHES - before} launches for 2 calls")
+        check(KA.LAUNCHES["prefill_attention"] == before + 2, f"attention {label}: {KA.LAUNCHES['prefill_attention'] - before} launches for 2 calls")
         check(torch.equal(got, again), f"attention {label}: two launches differ")
         del again
         nh = h if h <= 32 else ATTN_ORACLE_HEADS
@@ -2179,7 +2178,7 @@ def mla_serve_check(dev: torch.device, card_line: str) -> dict:
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", ReproDeprecationWarning)
         engine = ServingEngine(cfg, weights, ServeConfig(batch=b, max_len=plen + new, max_new_tokens=new))
-    before = KA.ATTN_LAUNCHES
+    before = KA.LAUNCHES["prefill_attention"]
     t0 = time.perf_counter()
     with scheduled_kernels(build_backend(make_gemmini_description())), tracing.recording() as rec:
         reqs = engine.generate(prompts)
@@ -2188,9 +2187,9 @@ def mla_serve_check(dev: torch.device, card_line: str) -> dict:
     c = rec.counters
     check(all(len(r.output) == new for r in reqs), f"{MLA_CONFIG}: a request was not served in full")
     check(c.get("attn.kernel_calls") == cfg.n_layers and not c.get("attn.plain_calls")
-          and KA.ATTN_LAUNCHES - before == cfg.n_layers,
+          and KA.LAUNCHES["prefill_attention"] - before == cfg.n_layers,
           f"{MLA_CONFIG}: {c.get('attn.kernel_calls')} kernel and {c.get('attn.plain_calls')} plain calls, "
-          f"{KA.ATTN_LAUNCHES - before} launches for one prefill of {cfg.n_layers} attention layers")
+          f"{KA.LAUNCHES['prefill_attention'] - before} launches for one prefill of {cfg.n_layers} attention layers")
     held = c["moe.held_pairs"] / c["moe.pairs"]
     print(f"attention served {MLA_CONFIG}: B {b}, prompts of {plen}, {new} new in {seconds:.3f} s (schedules "
           f"solved in the call); {c['attn.kernel_calls']} kernel calls, held pairs {100 * held:.2f} %, dropped "
@@ -2257,12 +2256,12 @@ def scan_phase(dev: torch.device, card_line: str) -> dict:
         args = scan_inputs(dev, b, s, d_in, n, dtype, state, seed=i)
         refusal = scan.scan_refusal(*args) or scan.kernel_refusal(*args)
         check(refusal is None, f"scan {label}: refused ({refusal})")
-        before = scan.SCAN_LAUNCHES
+        before = scan.LAUNCHES["selective_scan"]
         y, h = scan.selective_scan(*args)
         y2, h2 = scan.selective_scan(*args)
         py, ph = scan.selective_scan_plain(*args)
         torch.cuda.synchronize()
-        check(scan.SCAN_LAUNCHES == before + 2, f"scan {label}: {scan.SCAN_LAUNCHES - before} launches for 2 calls")
+        check(scan.LAUNCHES["selective_scan"] == before + 2, f"scan {label}: {scan.LAUNCHES['selective_scan'] - before} launches for 2 calls")
         check(torch.equal(y, y2) and torch.equal(h, h2), f"scan {label}: two launches differ")
         scale = float(py.float().abs().max())
         err = max_err(y.float(), py.float())
@@ -2305,8 +2304,8 @@ def check_scan(label: str, cfg, rec) -> None:
     call (prefill or decode step) the recording holds, no plain call."""
     calls = sum(sp.name in ("lm.prefill", "lm.decode_step") for sp in rec.spans) * mamba_layers(cfg)
     got = {name: rec.counters.get(name, 0) for name in ("mamba.kernel_calls", "mamba.plain_calls")}
-    check(got == {"mamba.kernel_calls": calls, "mamba.plain_calls": 0} and scan.SCAN_LAUNCHES == calls,
-          f"{label}: selective scan {got}, {scan.SCAN_LAUNCHES} launches, want {calls} kernel calls")
+    check(got == {"mamba.kernel_calls": calls, "mamba.plain_calls": 0} and scan.LAUNCHES["selective_scan"] == calls,
+          f"{label}: selective scan {got}, {scan.LAUNCHES['selective_scan']} launches, want {calls} kernel calls")
 
 
 def dense_rows(cfg, batch: int, seq: int, call: str) -> list[int]:
@@ -2444,21 +2443,6 @@ def design_split(calls) -> dict[str, int]:
     return {"gemm_float/mma_sync": len(calls) - wg, "gemm_float/wgmma": wg}
 
 
-def reset_launches() -> None:
-    """Open a launch window: the scheduled GEMM's counts, the prefill
-    attention's and the selective scan's to 0."""
-    gemm.reset_launches()
-    KA.reset_launches()
-    scan.reset_launches()
-
-
-def with_designs(counts: dict[str, int]) -> dict[str, int]:
-    """An LM launch window's counts with the float form's per-design split,
-    the prefill attention's launches and the selective scan's."""
-    return {**counts, **gemm.DESIGN_LAUNCHES, "prefill_attention": KA.ATTN_LAUNCHES,
-            "selective_scan": scan.SCAN_LAUNCHES}
-
-
 def attention_calls(cfg, prefills: int) -> dict[str, int]:
     """The prefill attention's counters over ``prefills`` prefills of
     ``cfg`` on the card: one call a prefill and attention layer, on the
@@ -2474,8 +2458,8 @@ def check_attention(label: str, cfg, rec, prefills: int) -> None:
     since the window opened, against ``attention_calls``."""
     want = attention_calls(cfg, prefills)
     got = {name: rec.counters.get(name, 0) for name in want}
-    check(got == want and KA.ATTN_LAUNCHES == want["attn.kernel_calls"],
-          f"{label}: prefill attention {got}, {KA.ATTN_LAUNCHES} launches, want {want}")
+    check(got == want and KA.LAUNCHES["prefill_attention"] == want["attn.kernel_calls"],
+          f"{label}: prefill attention {got}, {KA.LAUNCHES['prefill_attention']} launches, want {want}")
 
 
 def tree_leaves(tree, path=()):
@@ -2506,7 +2490,7 @@ def lm_smoke_phase(dev: torch.device, backend, windows: dict, card_line: str) ->
     kinds imply; the frontend archs take embeddings drawn with numpy."""
     calls = set()
     rng = np.random.default_rng(3)
-    reset_launches()  # the smoke archs' window starts here
+    build.reset_launches()  # the smoke archs' window starts here
     for arch in LM_SMOKE_ARCHS:
         cfg = get_smoke_config(arch)
         cpu_params = lm.init_lm(0, cfg, device="cpu")
@@ -2516,7 +2500,7 @@ def lm_smoke_phase(dev: torch.device, backend, windows: dict, card_line: str) ->
         seq = LM_SMOKE_PROMPT + (cfg.n_frontend_tokens if fe is not None else 0)
         per_call = {c: routed_per_call(cfg, LM_SMOKE_BATCH, seq, c) for c in ("forward", "prefill", "decode")}
         tokens = {}
-        scans = scan.SCAN_LAUNCHES
+        scans = scan.LAUNCHES["selective_scan"]
         with scheduled_kernels(backend), torch.inference_mode(), GemmRecorder() as rec:
             before = gemm.LAUNCHES["gemm_float"]
             got, _ = lm.forward(params, cfg, toks.to(dev), None if fe is None else fe.to(dev))
@@ -2543,14 +2527,14 @@ def lm_smoke_phase(dev: torch.device, backend, windows: dict, card_line: str) ->
                           f"{arch} smoke prefill + {LM_SMOKE_STEPS} steps: {launched} launches, not {want_n}")
         check(torch.equal(tokens["cuda"], tokens["cpu"]), f"{arch} smoke greedy tokens: cuda != cpu")
         want_scans = mamba_layers(cfg) * (2 + LM_SMOKE_STEPS)  # the forward, the prefill, the decode steps
-        check(scan.SCAN_LAUNCHES - scans == want_scans,
-              f"{arch} smoke: {scan.SCAN_LAUNCHES - scans} selective scan launches, not {want_scans}")
+        check(scan.LAUNCHES["selective_scan"] - scans == want_scans,
+              f"{arch} smoke: {scan.LAUNCHES['selective_scan'] - scans} selective scan launches, not {want_scans}")
         calls |= set(rec.calls)
         print(f"lm smoke {arch}: forward logits cuda vs cpu max |err| {err:.3e} (rtol 1e-4, atol 1e-3); "
               f"greedy tokens of prefill + {LM_SMOKE_STEPS} steps equal ({tokens['cuda'].numel()}); "
               f"launches per forward / prefill / decode step {per_call['forward']} / {per_call['prefill']} / "
               f"{per_call['decode']} [{card_line}]")
-    windows["LM smoke archs"] = with_designs(dict(gemm.LAUNCHES))  # read just after them
+    windows["LM smoke archs"] = build.launches()  # read just after them
     check(windows["LM smoke archs"]["gemm_float/wgmma"] == 0,
           f"lm smoke archs (f32) launched the wgmma design: {windows['LM smoke archs']}")
     check(windows["LM smoke archs"]["prefill_attention"] == 0,
@@ -2594,18 +2578,18 @@ def lm_phase(dev: torch.device, card_line: str, windows: dict, cfg=None) -> dict
                 c = lm.init_cache(cfg, LM_BATCH, LM_MAX_LEN, device=dev)
                 policy = scheduled_kernels(backend) if routed else contextlib.nullcontext()
                 with policy, GemmRecorder() as rec:
-                    reset_launches()
+                    build.reset_launches()
                     with tracing.recording() as trec:
                         logits[routed], c = lm.prefill(params, cfg, toks, c)
                     torch.cuda.synchronize()
                     check_attention(f"lm {'routed' if routed else 'unrouted'} prefill", cfg, trec, 1)
                     pf, pf_d = dict(gemm.LAUNCHES), dict(gemm.DESIGN_LAUNCHES)
                     n_pf = len(rec.calls)
-                    reset_launches()
+                    build.reset_launches()
                     lm.decode_step(params, cfg, c, torch.argmax(logits[routed][:, -1:], -1))
                     torch.cuda.synchronize()
                     dc, dc_d = dict(gemm.LAUNCHES), dict(gemm.DESIGN_LAUNCHES)
-                    check(KA.ATTN_LAUNCHES == 0, f"lm decode step launched the prefill attention {KA.ATTN_LAUNCHES}")
+                    check(KA.LAUNCHES["prefill_attention"] == 0, f"lm decode step launched the prefill attention {KA.LAUNCHES['prefill_attention']}")
                 want = {v: (per_call if routed and v == "gemm_float" else 0) for v in gemm.LAUNCHES}
                 check(pf == want and dc == want,
                       f"lm {'routed' if routed else 'unrouted'} prefill / decode step launches {pf} / {dc}, "
@@ -2646,7 +2630,7 @@ def lm_phase(dev: torch.device, card_line: str, windows: dict, cfg=None) -> dict
         nxt = torch.argmax(logits4[:, -1:], -1)
         copy = tree_map(lambda t: t.clone() if isinstance(t, torch.Tensor) else t, c4)
         want4, _ = lm.decode_step(params, cfg, c4, nxt)
-        reset_launches()
+        build.reset_launches()
         with scheduled_kernels(backend):
             got4, _ = lm.decode_step(params, cfg, copy, nxt)
         torch.cuda.synchronize()
@@ -2662,7 +2646,7 @@ def lm_phase(dev: torch.device, card_line: str, windows: dict, cfg=None) -> dict
         engine = ServingEngine(cfg, params, scfg)
     served = {}
     for routed in (True, False):
-        reset_launches()  # the served window starts here
+        build.reset_launches()  # the served window starts here
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with (scheduled_kernels(backend) if routed else contextlib.nullcontext(), GemmRecorder() as rec,
@@ -2678,7 +2662,7 @@ def lm_phase(dev: torch.device, card_line: str, windows: dict, cfg=None) -> dict
         check(window == want, f"lm served {'routed' if routed else 'unrouted'}: launches {window}, want {want}")
         check(gemm.DESIGN_LAUNCHES == design_split(rec.calls),
               f"lm served: designs {gemm.DESIGN_LAUNCHES}, want {design_split(rec.calls)}")
-        windows[f"LM served {'routed' if routed else 'unrouted'}"] = with_designs(window)
+        windows[f"LM served {'routed' if routed else 'unrouted'}"] = build.launches()
         tokens = [r.output for r in done]
         check(len(tokens) == LM_REQUESTS and all(len(t) == LM_NEW for t in tokens)
               and all(0 <= tok < cfg.vocab for t in tokens for tok in t), "lm served tokens")
@@ -2782,7 +2766,7 @@ def compile_tpu_paths(dev: torch.device) -> dict[tuple, dict]:
 def tpu_v5e_phase(compiled: dict, cases: dict, card_line: str, windows: dict) -> dict:
     """Phase 16, step 1: the 12 tpu_v5e modules on the card, bit-equal to
     the CPU run with the launches the plan implies (phase 6's checks)."""
-    reset_launches()  # the tpu_v5e modules' runs start here
+    build.reset_launches()  # the tpu_v5e modules' runs start here
     summary = new_paths_phase(compiled, cases, card_line)
     windows["tpu_v5e modules"] = dict(gemm.LAUNCHES)  # read just after them
     return summary
@@ -2910,7 +2894,7 @@ def full_width_lm(dev: torch.device, card_line: str, windows: dict, arch: str, n
             c = lm.init_cache(cfg, FW_BATCH, max_len, device=dev)
             policy = scheduled_kernels(backend) if routed else contextlib.nullcontext()
             with policy, GemmRecorder() as rec, RouterRecorder() as rr:
-                reset_launches()
+                build.reset_launches()
                 with tracing.recording() as trec:
                     logits[routed], c = lm.prefill(params, cfg, toks, c)
                 torch.cuda.synchronize()
@@ -2918,11 +2902,11 @@ def full_width_lm(dev: torch.device, card_line: str, windows: dict, arch: str, n
                 check_scan(f"{cfg.name} {'routed' if routed else 'unrouted'} prefill", cfg, trec)
                 pf, pf_d, n_pf = dict(gemm.LAUNCHES), dict(gemm.DESIGN_LAUNCHES), len(rec.calls)
                 routers[routed] = list(rr.ids)
-                reset_launches()
+                build.reset_launches()
                 lm.decode_step(params, cfg, c, torch.argmax(logits[routed][:, -1:], -1))
                 torch.cuda.synchronize()
                 dc, dc_d = dict(gemm.LAUNCHES), dict(gemm.DESIGN_LAUNCHES)
-                check(KA.ATTN_LAUNCHES == 0, f"{cfg.name} decode step launched the prefill attention")
+                check(KA.LAUNCHES["prefill_attention"] == 0, f"{cfg.name} decode step launched the prefill attention")
             want = {c: {v: (per[c] if routed and v == "gemm_float" else 0) for v in gemm.LAUNCHES} for c in per}
             check(pf == want["prefill"] and dc == want["decode"], f"{cfg.name} {'routed' if routed else 'unrouted'} "
                   f"prefill / decode step launches {pf} / {dc}, want {want['prefill']} / {want['decode']}")
@@ -2949,7 +2933,7 @@ def full_width_lm(dev: torch.device, card_line: str, windows: dict, arch: str, n
         warnings.simplefilter("ignore", ReproDeprecationWarning)
         engine = ServingEngine(cfg, params, ServeConfig(batch=FW_BATCH, max_len=max_len, max_new_tokens=FW_NEW))
     for routed in (True, False):
-        reset_launches()  # this arch's window starts here
+        build.reset_launches()  # this arch's window starts here
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with (scheduled_kernels(backend) if routed else contextlib.nullcontext(), GemmRecorder() as rec,
@@ -2967,7 +2951,7 @@ def full_width_lm(dev: torch.device, card_line: str, windows: dict, arch: str, n
               f"{cfg.name} served: designs {gemm.DESIGN_LAUNCHES}, want {design_split(rec.calls)}")
         check(all(0 <= t < cfg.vocab for row in tokens for t in row), f"{cfg.name}: tokens out of the vocabulary")
         if routed:
-            windows[f"LM {short} routed"] = with_designs(window)
+            windows[f"LM {short} routed"] = build.launches()
         served_runs["routed" if routed else "unrouted"] = {"wall_s": wall, "tok_per_s": FW_BATCH * FW_NEW / wall}
     print(f"lm {cfg.name} served at batch {FW_BATCH}, prompts of {FW_PROMPT}: routed "
           f"{served_runs['routed']['tok_per_s']:.1f} tok/s "
@@ -3401,7 +3385,7 @@ def train_phase(dev: torch.device, card_line: str, work: Path, windows: dict) ->
     """Phase 17: training on the card, in one launch window that must
     count no launch of any instantiation."""
     train_refusal(dev, card_line)
-    reset_launches()  # the training window starts here
+    build.reset_launches()  # the training window starts here
     summary = {"flash_backward": flash_backward_phase(dev, card_line),
                "smoke": smoke_train_phase(dev, card_line),
                "xlstm": xlstm_train_phase(dev, card_line, work),
@@ -3842,7 +3826,7 @@ def emulated_phase(dev: torch.device, compiled: dict, card_line: str, windows: d
     for (name, acc, mode), mods in modules.items():
         feeds = [zoo.get_model(name).feeds(seed) for seed in range(EMULATED_FEEDS)]
         wants[name, acc, mode] = [mods["cpu"].run(f) for f in feeds]
-    reset_launches()  # the emulated window starts here
+    build.reset_launches()  # the emulated window starts here
     for (name, acc, mode), mods in modules.items():
         label = path_label(name, acc, mode, None)
         emu, calls = mods["cuda"], mods["calls"]
@@ -3926,7 +3910,7 @@ def run_launches(modules, runs: int = 1) -> dict[str, int]:
 
 def example_window(windows: dict, label: str, fn):
     """``fn()`` with the counts set to 0 just before it and read just after."""
-    reset_launches()
+    build.reset_launches()
     t0 = time.perf_counter()
     result = fn()
     torch.cuda.synchronize()
@@ -4102,7 +4086,7 @@ def docs_on_card(dev: torch.device, card_line: str) -> dict:
         check(blocks and blocks[0] == 'device = "cuda"\n', f"{doc.name}: its first block is not the device line")
         namespace = {"__name__": f"docs_{doc.stem}", "device": dev.type}
         printed = io.StringIO()  # what the blocks print goes to the report, not the log
-        reset_launches()
+        build.reset_launches()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(printed):
             for i, block in enumerate(blocks[1:]):
@@ -4207,7 +4191,7 @@ def main(argv: list[str] | None = None) -> int:
         # against the wall time of one batch-16 run
         s["kernel_ms_per_run_batch16"] = kernels[s["variant"]]["ms"]
         s["kernel_share_of_run_batch16"] = kernels[s["variant"]]["ms"] / s["run_ms_batch16_p50"]
-    reset_launches()  # the new paths' run starts here
+    build.reset_launches()  # the new paths' run starts here
     paths = new_paths_phase(compiled, cases, card_line)
     windows["new paths"] = dict(gemm.LAUNCHES)  # read just after it
     emulated = emulated_phase(dev, compiled, card_line, windows)  # phase 18: sets the counts to 0 first
@@ -4216,7 +4200,7 @@ def main(argv: list[str] | None = None) -> int:
     artifact = artifact_phase(dev, card_line, work, windows)
     pipelined = pipelined_phase(compiled, card_line, windows)
     host_gemm_refused(dev)
-    reset_launches()  # the decode modules' runs start here
+    build.reset_launches()  # the decode modules' runs start here
     decode_paths = decode_modules_phase(decode_compiled, cases, card_line)
     windows["decode modules"] = dict(gemm.LAUNCHES)  # read just after them
     decode_served = decode_serve_phase(dev, cases, card_line, windows)
@@ -4231,7 +4215,7 @@ def main(argv: list[str] | None = None) -> int:
     lm_run = lm_phase(dev, card_line, windows)  # sets the counts to 0 before each LM window
     full_width = full_width_phase(dev, card_line, windows)  # phase 16: likewise, after codeqwen is freed
     training = train_phase(dev, card_line, work, windows)  # phase 17, after phase 16's models are freed
-    reset_launches()  # phase 19's window starts here
+    build.reset_launches()  # phase 19's window starts here
     sharded_lm = sharded_lm_phase(dev, card_line, work)
     windows["sharded LM and dry run (no policy)"] = dict(gemm.LAUNCHES)  # read just after it
     check(not any(windows["sharded LM and dry run (no policy)"].values()),

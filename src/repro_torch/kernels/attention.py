@@ -2,7 +2,7 @@
 (``csrc/attention_wgmma.cu``) beside its plain PyTorch version.
 
 ``prefill_attention(q, k, v, window=, scale=)`` is what the serving
-prefill calls (``models/lm.py:_apply_layer_prefill``, inside the
+prefill calls (``models/attention.py:prefill_core``, inside the
 ``attn.core`` span) for a configuration the kernel takes: causal,
 optionally sliding-window attention of q [B, H, S, D] over k [B, Hkv,
 S, D], v [B, Hkv, S, Dv], each KV head serving its H / Hkv consecutive
@@ -18,7 +18,7 @@ requires grad.  ``shape_refusal`` is the part of the rule that a
 configuration's shapes decide: where it refuses (f32, other MLA sizes,
 head dim 256) the prefill calls the plain version itself.  ``tracing.count`` records ``attn.kernel_calls``
 or ``attn.plain_calls``, one per call, by the design that ran;
-``ATTN_LAUNCHES`` counts the kernel's launches.
+``LAUNCHES["prefill_attention"]`` counts the kernel's launches.
 
 The kernel replaces no TPU kernel: the reference's prefill attention,
 ``repro/models/attention.py:blockwise_attention``, is plain ``jnp`` and
@@ -43,7 +43,6 @@ pair computed.
 from __future__ import annotations
 
 import ctypes
-import threading
 
 import torch
 
@@ -201,44 +200,19 @@ def tma_strides(t: torch.Tensor) -> tuple[int, int, int] | None:
     return strides if all(st > 0 and st % 8 == 0 for st in strides) else None
 
 
-#: kernel launches (the plain version never counts); serving threads
-#: launch beside the caller's, so the count moves under a lock
-ATTN_LAUNCHES = 0
-_launches_lock = threading.Lock()
+#: the kernel's launches (``build.LaunchCounts``)
+LAUNCHES = build.LaunchCounts("prefill_attention")
 
-
-def record_launch() -> None:
-    global ATTN_LAUNCHES
-    with _launches_lock:
-        ATTN_LAUNCHES += 1
-
-
-def reset_launches() -> None:
-    global ATTN_LAUNCHES
-    with _launches_lock:
-        ATTN_LAUNCHES = 0
-
-
-#: the kernel's own error codes, beyond CUDA's (csrc/attention_wgmma.cu)
-_ENCODE_ERROR, _NO_ENCODER = 100_000, 200_000
-
-
-def _library() -> ctypes.CDLL:
-    lib = build.load("gemm")
-    if lib.repro_prefill_attention.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        strides = ctypes.POINTER(ctypes.c_longlong)
-        lib.repro_prefill_attention.argtypes = [
-            p, p, p, p,  # q, k, v, out
-            i, i, i, i, i, i,  # batch, heads, kv_heads, s_len, dim, v_dim
-            strides, strides, strides, strides,  # q, k, v, out (batch, head, position)
-            i, ctypes.c_float,  # window, scale
-            p,  # stream
-        ]
-        lib.repro_prefill_attention.restype = ctypes.c_int
-        lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.repro_cuda_error_string.restype = ctypes.c_char_p
-    return lib
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_STRIDES = ctypes.POINTER(ctypes.c_longlong)
+#: the argument types of csrc/attention_wgmma.cu's entry point
+_ARGS = [
+    _P, _P, _P, _P,  # q, k, v, out
+    _I, _I, _I, _I, _I, _I,  # batch, heads, kv_heads, s_len, dim, v_dim
+    _STRIDES, _STRIDES, _STRIDES, _STRIDES,  # q, k, v, out (batch, head, position)
+    _I, ctypes.c_float,  # window, scale
+    _P,  # stream
+]
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int, scale: float) -> torch.Tensor:
@@ -255,9 +229,9 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int, scal
         operands.append(t)
     out = torch.empty((b, s, h, dv), dtype=q.dtype, device=q.device).permute(0, 2, 1, 3)
     arrays = [(ctypes.c_longlong * 3)(*tma_strides(t)) for t in (*operands, out)]
-    lib = _library()
+    lib = build.load("gemm")
     with torch.cuda.device(q.device):
-        rc = lib.repro_prefill_attention(
+        rc = build.bind(lib.repro_prefill_attention, _ARGS)(
             *(t.data_ptr() for t in operands),
             out.data_ptr(),
             b,
@@ -271,14 +245,8 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int, scal
             scale,
             torch.cuda.current_stream(q.device).cuda_stream,
         )
-    if rc >= _NO_ENCODER:
-        raise RuntimeError("prefill attention: the CUDA driver has no cuTensorMapEncodeTiled")
-    if rc >= _ENCODE_ERROR:
-        raise RuntimeError(f"prefill attention: cuTensorMapEncodeTiled failed: CUresult {rc - _ENCODE_ERROR}")
-    if rc != 0:
-        msg = lib.repro_cuda_error_string(rc).decode()
-        raise RuntimeError(f"prefill attention kernel launch failed: CUDA error {rc} ({msg})")
-    record_launch()
+    build.check(lib, rc, "prefill attention kernel")
+    LAUNCHES.record("prefill_attention")
     return out
 
 

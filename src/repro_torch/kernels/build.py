@@ -9,6 +9,10 @@ the flags, so an edited source or header rebuilds and an unchanged tree
 loads what is there.  Nothing builds when a module is imported: ``load``
 runs inside the first launch.
 
+It also holds what every kernel wrapper shares: ``check`` turns an entry
+point's return code into an error, and ``LaunchCounts`` counts each
+kernel's launches, all of them reset at once by ``reset_launches``.
+
 The port's own module, with no counterpart in the reference (Pallas
 compiles its kernels inside ``pl.pallas_call``).
 """
@@ -39,6 +43,10 @@ SOURCES = {"gemm": ("gemm.cu", "gemm_wgmma.cu", "attention_wgmma.cu", "selective
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
+
+#: ``hopper.cuh``'s own return codes beyond CUDA's: kEncodeError plus the
+#: CUresult of a failed cuTensorMapEncodeTiled, and kNoEncoder
+ENCODE_ERROR, NO_ENCODER = 100_000, 200_000
 
 
 def nvcc() -> str:
@@ -121,5 +129,70 @@ def load(name: str) -> ctypes.CDLL:
         lib = _loaded.get(name)
         if lib is None:
             path, _ = build(name)
-            lib = _loaded[name] = ctypes.CDLL(str(path))
+            lib = ctypes.CDLL(str(path))
+            lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+            lib.repro_cuda_error_string.restype = ctypes.c_char_p
+            _loaded[name] = lib
         return lib
+
+
+def bind(fn, argtypes: list) -> ctypes._CFuncPtr:
+    """An entry point ``fn`` of a loaded library, its arguments typed as
+    ``argtypes`` on first use; every entry point returns an int status
+    (``check``)."""
+    if fn.argtypes is None:
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    return fn
+
+
+def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    """Raise RuntimeError unless ``rc``, the status an entry point of
+    ``lib`` returned for the kernel ``what``, is 0: ``hopper.cuh``'s
+    tensor-map codes, else a CUDA error with its string."""
+    if rc == 0:
+        return
+    if rc >= NO_ENCODER:
+        raise RuntimeError(f"{what}: the CUDA driver has no cuTensorMapEncodeTiled")
+    if rc >= ENCODE_ERROR:
+        raise RuntimeError(f"{what}: cuTensorMapEncodeTiled failed: CUresult {rc - ENCODE_ERROR}")
+    msg = lib.repro_cuda_error_string(rc).decode()
+    raise RuntimeError(f"{what} launch failed: CUDA error {rc} ({msg})")
+
+
+_counts_lock = threading.Lock()
+_counts: list[LaunchCounts] = []
+
+
+class LaunchCounts(dict):
+    """A kernel's launches by key, a live dict whose keys its wrapper
+    declares, counted where the kernel launches and nowhere else (the
+    plain versions never count).  Serving threads launch beside the
+    caller's, so every kernel's counts move under one lock, and
+    ``reset_launches`` zeros them all."""
+
+    def __init__(self, *keys: str) -> None:
+        super().__init__(dict.fromkeys(keys, 0))
+        with _counts_lock:
+            _counts.append(self)
+
+    def record(self, key: str, *split: tuple[LaunchCounts, str]) -> None:
+        """Count one launch under ``key``, and under each (counts, key) of
+        ``split`` in the same hold of the lock."""
+        with _counts_lock:
+            self[key] += 1
+            for counts, sub in split:
+                counts[sub] += 1
+
+
+def reset_launches() -> None:
+    """Every kernel's launch counts to 0: a launch window opens."""
+    with _counts_lock:
+        for counts in _counts:
+            for key in counts:
+                counts[key] = 0
+
+
+def launches() -> dict[str, int]:
+    """Every kernel's launch counts in one table, read at once."""
+    with _counts_lock:
+        return {key: n for counts in _counts for key, n in counts.items()}

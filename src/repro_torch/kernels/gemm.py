@@ -41,7 +41,6 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import threading
 from dataclasses import dataclass
 
 import torch
@@ -267,10 +266,12 @@ def wgmma_geometry(m: int, k: int, n: int, cfg: GemmKernelConfig) -> WgmmaGeomet
     227 KB, at least 3; a one-warpgroup tile takes at most the stages that
     let three of its CTAs share an SM (still at least 3), since more
     warpgroups issuing ``wgmma`` on an SM beat a deeper ring there (3
-    stages of a 64 x 128 tile).  K splits over a cluster only where the tiles number fewer than
-    half the card's 132 SMs: by the largest power of two, at most 8 (the
-    portable cluster) and at most the stages, that keeps the CTAs within
-    the SMs."""
+    stages of a 64 x 128 tile).  K splits over a cluster only where the
+    tiles number fewer than half the card's 132 SMs: by the largest power
+    of two that is at most 8 (the portable cluster), at most the SMs per
+    tile (so the CTAs stay within the SMs) and at most K's 64-deep stages
+    (so each rank takes at least one); the ring's depth does not bound
+    it."""
     block_m, block_n = min(cfg.block_m, m), min(cfg.block_n, n)
     if block_m < 64 or cfg.block_n % 8 or k < 1:
         return None
@@ -336,31 +337,22 @@ def copy_paths(x: torch.Tensor, w: torch.Tensor, cfg: GemmKernelConfig) -> tuple
     return vector_copies(x, k), vector_copies(w, n, cfg.block_n if grid_n > 1 else n)
 
 
-#: kernel launches per instantiation of ``csrc/gemm.cu``, counted where the
-#: kernel launches and nowhere else (the plain version never counts); a
-#: serving dispatcher thread launches beside the caller's, so the count
-#: moves under a lock
-LAUNCHES: dict[str, int] = {"qgemm_requant": 0, "gemm_int32": 0, "gemm_float": 0}
+#: kernel launches per instantiation of ``csrc/gemm.cu`` (``build.LaunchCounts``)
+LAUNCHES = build.LaunchCounts("qgemm_requant", "gemm_int32", "gemm_float")
 #: the float form's launches by design (their sum is LAUNCHES["gemm_float"])
-DESIGN_LAUNCHES: dict[str, int] = {"gemm_float/mma_sync": 0, "gemm_float/wgmma": 0}
-_launches_lock = threading.Lock()
+DESIGN_LAUNCHES = build.LaunchCounts("gemm_float/mma_sync", "gemm_float/wgmma")
+#: the benchmark's name for ``build.reset_launches``, which zeros every kernel's counts
+reset_launches = build.reset_launches
 
 
 def record_launch(cfg: GemmKernelConfig, kernel_design: str = "mma_sync") -> None:
     """Count one launch of the instantiation ``cfg`` selects, made by the
     design ``kernel_design``."""
-    with _launches_lock:
-        name = variant(cfg)
-        LAUNCHES[name] += 1
-        if name == "gemm_float":
-            DESIGN_LAUNCHES[f"gemm_float/{kernel_design}"] += 1
-
-
-def reset_launches() -> None:
-    with _launches_lock:
-        for counts in (LAUNCHES, DESIGN_LAUNCHES):
-            for key in counts:
-                counts[key] = 0
+    name = variant(cfg)
+    if name == "gemm_float":
+        LAUNCHES.record(name, (DESIGN_LAUNCHES, f"gemm_float/{kernel_design}"))
+    else:
+        LAUNCHES.record(name)
 
 
 _IN_TYPES = {torch.int8: 0, torch.float32: 1, torch.bfloat16: 2}
@@ -451,36 +443,18 @@ def gemm_plain(
     )
 
 
-def _library() -> ctypes.CDLL:
-    lib = build.load("gemm")
-    if lib.repro_scheduled_gemm.argtypes is None:
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.repro_scheduled_gemm.argtypes = [
-            p, p, p, p,  # x, w, bias, out
-            i, i, i,  # m, k, n
-            i, i, i,  # block_m, block_n, weight_stationary
-            i, i, i,  # col_split, k_split, col_tile
-            i, i,  # vec_x, vec_w
-            i, i, i,  # in_type, out_type, epilogue
-            f, f, f,  # scale, clip_lo, clip_hi
-            p,  # stream
-        ]
-        lib.repro_scheduled_gemm.restype = ctypes.c_int
-        lib.repro_wgmma_gemm.argtypes = [
-            p, p, p, p,  # x, w, bias, out
-            i, i, i,  # m, k, n
-            i, i, i,  # block_m, block_n, weight_stationary
-            i, i, i,  # tile_m, tile_n, inst_n
-            i, i, i, p, i,  # sub_m, sub_n, k_split, k_begin, stages
-            i, i,  # out_type, epilogue
-            p,  # stream
-        ]
-        lib.repro_wgmma_gemm.restype = ctypes.c_int
-        lib.repro_noop.argtypes = [i, p]
-        lib.repro_noop.restype = ctypes.c_int
-        lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.repro_cuda_error_string.restype = ctypes.c_char_p
-    return lib
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+#: the argument types of csrc/gemm.cu's entry point
+_MMA_SYNC_ARGS = [
+    _P, _P, _P, _P,  # x, w, bias, out
+    _I, _I, _I,  # m, k, n
+    _I, _I, _I,  # block_m, block_n, weight_stationary
+    _I, _I, _I,  # col_split, k_split, col_tile
+    _I, _I,  # vec_x, vec_w
+    _I, _I, _I,  # in_type, out_type, epilogue
+    _F, _F, _F,  # scale, clip_lo, clip_hi
+    _P,  # stream
+]
 
 
 def _launch(
@@ -505,9 +479,9 @@ def _launch(
         return _launch_wgmma(x, w, cfg, bias, out)
     geo = launch_geometry(m, k, n, cfg)
     vec_x, vec_w = copy_paths(x, w, cfg)
-    lib = _library()
+    lib = build.load("gemm")
     with torch.cuda.device(x.device):
-        rc = lib.repro_scheduled_gemm(
+        rc = build.bind(lib.repro_scheduled_gemm, _MMA_SYNC_ARGS)(
             x.data_ptr(),
             w.data_ptr(),
             None if bias is None else bias.data_ptr(),
@@ -531,15 +505,21 @@ def _launch(
             0.0 if cfg.clip_hi is None else cfg.clip_hi,
             torch.cuda.current_stream(x.device).cuda_stream,
         )
-    if rc != 0:
-        msg = lib.repro_cuda_error_string(rc).decode()
-        raise RuntimeError(f"scheduled GEMM kernel launch failed: CUDA error {rc} ({msg})")
+    build.check(lib, rc, "scheduled GEMM kernel")
     record_launch(cfg)
     return out
 
 
-#: the wgmma design's own error codes, beyond CUDA's (csrc/gemm_wgmma.cu)
-_ENCODE_ERROR, _NO_ENCODER = 100_000, 200_000
+#: the argument types of csrc/gemm_wgmma.cu's entry point
+_WGMMA_ARGS = [
+    _P, _P, _P, _P,  # x, w, bias, out
+    _I, _I, _I,  # m, k, n
+    _I, _I, _I,  # block_m, block_n, weight_stationary
+    _I, _I, _I,  # tile_m, tile_n, inst_n
+    _I, _I, _I, _P, _I,  # sub_m, sub_n, k_split, k_begin, stages
+    _I, _I,  # out_type, epilogue
+    _P,  # stream
+]
 
 
 def _launch_wgmma(x, w, cfg: GemmKernelConfig, bias, out: torch.Tensor) -> torch.Tensor:
@@ -547,9 +527,9 @@ def _launch_wgmma(x, w, cfg: GemmKernelConfig, bias, out: torch.Tensor) -> torch
     n = w.shape[1]
     geo = wgmma_geometry(m, k, n, cfg)
     k_begin = (ctypes.c_int * geo.k_split)(*(b // WG_STAGE_K for b, _ in geo.k_slices()))
-    lib = _library()
+    lib = build.load("gemm")
     with torch.cuda.device(x.device):
-        rc = lib.repro_wgmma_gemm(
+        rc = build.bind(lib.repro_wgmma_gemm, _WGMMA_ARGS)(
             x.data_ptr(),
             w.data_ptr(),
             None if bias is None else bias.data_ptr(),
@@ -572,13 +552,7 @@ def _launch_wgmma(x, w, cfg: GemmKernelConfig, bias, out: torch.Tensor) -> torch
             _EPILOGUES[_epilogue(cfg)],
             torch.cuda.current_stream(x.device).cuda_stream,
         )
-    if rc >= _NO_ENCODER:
-        raise RuntimeError("wgmma GEMM: the CUDA driver has no cuTensorMapEncodeTiled")
-    if rc >= _ENCODE_ERROR:
-        raise RuntimeError(f"wgmma GEMM: cuTensorMapEncodeTiled failed: CUresult {rc - _ENCODE_ERROR}")
-    if rc != 0:
-        msg = lib.repro_cuda_error_string(rc).decode()
-        raise RuntimeError(f"scheduled GEMM kernel (wgmma) launch failed: CUDA error {rc} ({msg})")
+    build.check(lib, rc, "scheduled GEMM kernel (wgmma)")
     record_launch(cfg, "wgmma")
     return out
 
@@ -587,11 +561,10 @@ def launch_noop(device: torch.device, cluster: int = 1) -> None:
     """Launch the source's empty kernel, as one cluster of ``cluster`` CTAs,
     on ``device``'s current stream: the floor under a launch's device
     time, for measurements."""
-    lib = _library()
+    lib = build.load("gemm")
     with torch.cuda.device(device):
-        rc = lib.repro_noop(cluster, torch.cuda.current_stream(device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"empty kernel launch failed: CUDA error {rc}")
+        rc = build.bind(lib.repro_noop, [_I, _P])(cluster, torch.cuda.current_stream(device).cuda_stream)
+    build.check(lib, rc, "empty kernel")
 
 
 def scheduled_gemm(

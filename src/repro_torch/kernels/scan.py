@@ -19,7 +19,8 @@ not take; then a CUDA tensor launches the kernel, or raises with
 requires grad, another device), and a CPU tensor (or the dry run's meta
 tensor) runs the plain version; nothing falls back.  ``tracing.count``
 records ``mamba.kernel_calls`` or ``mamba.plain_calls``, one per call, by
-the design that ran; ``SCAN_LAUNCHES`` counts the kernel's launches.
+the design that ran; ``LAUNCHES["selective_scan"]`` counts the kernel's
+launches.
 
 The kernel replaces no TPU kernel: the reference's scan,
 ``repro/models/ssm.py:_scan_chunk``, is ``jax.lax.associative_scan`` and
@@ -40,7 +41,6 @@ bit for bit.
 from __future__ import annotations
 
 import ctypes
-import threading
 
 import torch
 
@@ -144,38 +144,17 @@ def kernel_refusal(u, dt, a_log, d, b, c, h0) -> str | None:
     return None
 
 
-#: kernel launches (the plain version never counts); serving threads
-#: launch beside the caller's, so the count moves under a lock
-SCAN_LAUNCHES = 0
-_launches_lock = threading.Lock()
+#: the kernel's launches (``build.LaunchCounts``)
+LAUNCHES = build.LaunchCounts("selective_scan")
 
-
-def record_launch() -> None:
-    global SCAN_LAUNCHES
-    with _launches_lock:
-        SCAN_LAUNCHES += 1
-
-
-def reset_launches() -> None:
-    global SCAN_LAUNCHES
-    with _launches_lock:
-        SCAN_LAUNCHES = 0
-
-
-def _library() -> ctypes.CDLL:
-    lib = build.load("gemm")
-    if lib.repro_selective_scan.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.repro_selective_scan.argtypes = [
-            p, p, p, p, p, p, p,  # u, dt, a_log, d, b, c, h0 (null: zeros)
-            p, p,  # y, h_out
-            i, i, i, i, i,  # batch, s_len, d_in, d_state, dtype code
-            p,  # stream
-        ]
-        lib.repro_selective_scan.restype = ctypes.c_int
-        lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.repro_cuda_error_string.restype = ctypes.c_char_p
-    return lib
+_P, _I = ctypes.c_void_p, ctypes.c_int
+#: the argument types of csrc/selective_scan.cu's entry point
+_ARGS = [
+    _P, _P, _P, _P, _P, _P, _P,  # u, dt, a_log, d, b, c, h0 (null: zeros)
+    _P, _P,  # y, h_out
+    _I, _I, _I, _I, _I,  # batch, s_len, d_in, d_state, dtype code
+    _P,  # stream
+]
 
 
 def _launch(u, dt, a_log, d, b, c, h0):
@@ -183,9 +162,9 @@ def _launch(u, dt, a_log, d, b, c, h0):
     n = a_log.shape[1]
     y = torch.empty_like(u)
     h = torch.empty((bsz, d_in, n), dtype=torch.float32, device=u.device)
-    lib = _library()
+    lib = build.load("gemm")
     with torch.cuda.device(u.device):
-        rc = lib.repro_selective_scan(
+        rc = build.bind(lib.repro_selective_scan, _ARGS)(
             *(t.data_ptr() for t in (u, dt, a_log, d, b, c)),
             None if h0 is None else h0.data_ptr(),
             y.data_ptr(),
@@ -197,10 +176,8 @@ def _launch(u, dt, a_log, d, b, c, h0):
             DTYPE_CODES[u.dtype],
             torch.cuda.current_stream(u.device).cuda_stream,
         )
-    if rc != 0:
-        msg = lib.repro_cuda_error_string(rc).decode()
-        raise RuntimeError(f"selective scan kernel launch failed: CUDA error {rc} ({msg})")
-    record_launch()
+    build.check(lib, rc, "selective scan kernel")
+    LAUNCHES.record("selective_scan")
     return y, h
 
 

@@ -7,7 +7,8 @@ plain version of the prefill's fused kernel, imported here) chunks both
 query and key/value axes with an online-softmax accumulator, so peak
 memory is O(chunk_q x chunk_kv) per head instead of O(S^2).
 Fully-masked KV chunks are still *computed* in the baseline;
-``causal_block_skip_attention`` skips them.
+``causal_block_skip_attention`` skips them.  ``prefill_core`` is the
+serving prefill's choice between that kernel and the blockwise loop.
 
 Port of ``repro.models.attention``, MLA included.  Head order follows
 the reference: ``jnp.repeat`` of the KV heads is ``repeat_interleave``
@@ -175,6 +176,22 @@ def prefill_kernel_refusal(cfg: ModelConfig) -> str | None:
     return KA.shape_refusal((1, h, 1, dq), (1, hkv, 1, dq), (1, hkv, 1, dh), torch_dtype(cfg.compute_dtype))
 
 
+def prefill_core(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The prefill's causal attention of ``qkv_project``'s q, k, v under
+    ``cfg`` (its window, chunk and ``softmax_scale``), [B, H, S, Dv]; call
+    it under ``on_local_heads``.  Where ``prefill_kernel_refusal`` takes
+    the configuration, ``kernels.attention.prefill_attention`` (the kernel
+    on the card, the plain version elsewhere, each counted there); else
+    (f32, MLA at other sizes, head dim 256) ``blockwise_attention`` on any
+    device, counted as ``attn.plain_calls``."""
+    window = cfg.window if cfg.attn_kind == "swa" else 0
+    opts = {"window": window, "chunk_q": cfg.attn_chunk, "chunk_kv": cfg.attn_chunk, "scale": softmax_scale(cfg)}
+    if prefill_kernel_refusal(cfg) is None:
+        return KA.prefill_attention(q, k, v, **opts)
+    tracing.count("attn.plain_calls")
+    return blockwise_attention(q, k, v, causal=True, **opts)
+
+
 def causal_block_skip_attention(q, k, v, *, window: int = 0, chunk_q=512, chunk_kv=512):
     """Per-q-chunk KV truncation (true skip).
 
@@ -236,20 +253,36 @@ def decode_attention(
     On DTensor caches see ``_sharded_decode``."""
     if isinstance(k_cache, DTensor):
         return _sharded_decode(q, k_cache, v_cache, cur_len, window=window)
-    b, h, _, d = q.shape
-    s = k_cache.shape[2]
+    pos = torch.arange(k_cache.shape[2], device=q.device)
+    return _decode_core(q, k_cache, v_cache, cur_len, window, pos, None)
+
+
+def _decode_core(q, k_cache, v_cache, cur_len: int, window: int, pos: torch.Tensor, group) -> torch.Tensor:
+    """``decode_attention``'s arithmetic over the cache positions ``pos``
+    held here; with ``group`` (a (mesh, dim) pair) each rank of it holds a
+    slice of the positions, and the softmax combines across the group."""
+    h, d = q.shape[1], q.shape[-1]
     k_cache, v_cache = _repeat_kv(k_cache, v_cache, h)
     scale = 1.0 / (d**0.5)
     logits = torch.einsum(
         "bhqd,bhkd->bhqk", q.to(torch.float32), k_cache.to(torch.float32)
     ) * scale
-    pos = torch.arange(s, device=q.device)
     mask = pos[None, None, None, :] < cur_len
     if window:
         mask &= pos[None, None, None, :] >= cur_len - window
     logits = torch.where(mask, logits, NEG_INF)
-    p = torch.softmax(logits, dim=-1)
-    return torch.einsum("bhqk,bhkd->bhqd", p.to(v_cache.dtype), v_cache).to(q.dtype)
+    if group is None:
+        p = torch.softmax(logits, dim=-1)
+        return torch.einsum("bhqk,bhkd->bhqd", p.to(v_cache.dtype), v_cache).to(q.dtype)
+    # flash-decoding's combine: row maxes and sums all-reduced over the
+    # group, then the weighted values
+    from torch.distributed import _functional_collectives as funcol
+
+    m = funcol.all_reduce(logits.amax(-1, keepdim=True), "max", group)
+    p = torch.exp(logits - m)
+    den = funcol.all_reduce(p.sum(-1, keepdim=True), "sum", group)
+    out = torch.einsum("bhqk,bhkd->bhqd", p.to(v_cache.dtype), v_cache)
+    return (funcol.all_reduce(out.to(torch.float32), "sum", group) / den).to(q.dtype)
 
 
 def _seq_split(cache: torch.Tensor, seq_dim: int):
@@ -262,21 +295,6 @@ def _seq_split(cache: torch.Tensor, seq_dim: int):
     if tp is not None and cache.placements[tp] == Shard(seq_dim):
         return mesh, tp
     return mesh, None
-
-
-def _softmax_attend(logits: torch.Tensor, values: torch.Tensor, group):
-    """softmax(logits) @ values over the last logits dim, where each rank
-    of ``group`` (a (mesh, dim) pair, or None for one rank) holds a slice
-    of the positions: row maxes, row sums and the weighted values are
-    all-reduced over the group (flash-decoding's combine)."""
-    if group is None:
-        return torch.softmax(logits, dim=-1), None
-    from torch.distributed import _functional_collectives as funcol
-
-    m = funcol.all_reduce(logits.amax(-1, keepdim=True), "max", group)
-    p = torch.exp(logits - m)
-    den = funcol.all_reduce(p.sum(-1, keepdim=True), "sum", group)
-    return p, den
 
 
 def _local_positions(mesh, tp, s_local: int, device) -> torch.Tensor:
@@ -301,24 +319,8 @@ def _sharded_decode(q, k_cache, v_cache, cur_len: int, *, window: int = 0):
     group = (mesh, tp) if tp is not None else None
 
     def local(q, k_cache, v_cache):
-        h, d = q.shape[1], q.shape[-1]
-        k_cache, v_cache = _repeat_kv(k_cache, v_cache, h)
-        scale = 1.0 / (d**0.5)
-        logits = torch.einsum(
-            "bhqd,bhkd->bhqk", q.to(torch.float32), k_cache.to(torch.float32)
-        ) * scale
         pos = _local_positions(mesh, tp, k_cache.shape[2], q.device)
-        mask = pos[None, None, None, :] < cur_len
-        if window:
-            mask &= pos[None, None, None, :] >= cur_len - window
-        logits = torch.where(mask, logits, NEG_INF)
-        p, den = _softmax_attend(logits, v_cache, group)
-        out = torch.einsum("bhqk,bhkd->bhqd", p.to(v_cache.dtype), v_cache)
-        if den is not None:
-            from torch.distributed import _functional_collectives as funcol
-
-            out = funcol.all_reduce(out.to(torch.float32), "sum", group) / den
-        return out.to(q.dtype)
+        return _decode_core(q, k_cache, v_cache, cur_len, window, pos, group)
 
     out = run_local(local, q, k_cache, v_cache)
     return constrain(out, "dp", "tp", None, None)

@@ -33,12 +33,10 @@ spans: ``lm.prefill`` / ``lm.decode_step`` around each call, ``lm.embed``
 and ``lm.head`` inside it, ``layer.<kind>`` around each block (its norm
 and residual included) and ``layer.ffn`` / ``layer.moe`` around each
 FFN sub-layer, and in an attention block ``attn.qkv``, ``attn.core``
-(the prefill attention: ``kernels.attention.prefill_attention`` where
-``attention.prefill_kernel_refusal`` takes the configuration, else
-``blockwise_attention``, counted as ``attn.kernel_calls`` or
-``attn.plain_calls`` by the design that ran, at the configuration's
-``attention.softmax_scale``; or the cache read and the decode
-attention), ``attn.out`` and ``attn.cache_write``; MLA's projections
+(the prefill attention, ``attention.prefill_core``, which picks the
+kernel or ``blockwise_attention`` and counts ``attn.kernel_calls`` or
+``attn.plain_calls`` by the design that ran; or the cache read and the
+decode attention), ``attn.out`` and ``attn.cache_write``; MLA's projections
 record ``mla.q``, ``mla.kv_down`` and (in the prefill) ``mla.up`` inside
 ``attn.qkv``.  MLA's decode step makes no k or v: it projects q and the
 latent (``attention.mla_project``), caches the latent and attends in
@@ -60,7 +58,6 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import tracing
 from repro_torch.api import torch_device
-from repro_torch.kernels.attention import prefill_attention
 from repro_torch.kernels.policy import get_policy
 from repro_torch.kernels.ref import torch_dtype
 from repro_torch.models import attention as A
@@ -373,16 +370,8 @@ def _apply_layer_prefill(lp, cfg: ModelConfig, kind, is_moe, x, positions, lcach
         if kind == "attn":
             with tracing.span("attn.qkv"):
                 q, k, v, mla = A.qkv_project(lp["block"], cfg, h, positions)
-            window = cfg.window if cfg.attn_kind == "swa" else 0
-            opts = {"window": window, "chunk_q": cfg.attn_chunk, "chunk_kv": cfg.attn_chunk,
-                    "scale": A.softmax_scale(cfg)}
             with tracing.span("attn.core"):
-                if A.prefill_kernel_refusal(cfg) is None:
-                    attend = functools.partial(prefill_attention, **opts)
-                else:  # f32, MLA, head dim 256: the plain version on any device
-                    tracing.count("attn.plain_calls")
-                    attend = functools.partial(A.blockwise_attention, causal=True, **opts)
-                out = A.on_local_heads(attend, q, k, v)
+                out = A.on_local_heads(functools.partial(A.prefill_core, cfg), q, k, v)
             compute = torch_dtype(cfg.compute_dtype)
             with tracing.span("attn.out"):
                 y = L.dense(lp["block"]["o"], A._merge_heads(out), compute_dtype=compute)

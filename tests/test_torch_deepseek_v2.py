@@ -215,13 +215,13 @@ def test_mla_at_the_published_head_dims_takes_the_kernel_with_its_scale(monkeypa
     cfg = CONFIG.model_config(spec)
     assert A.prefill_kernel_refusal(cfg) is None
     assert A.prefill_kernel_refusal(CONFIG.model_config(small_spec(dtype="bfloat16"))) is not None  # 24 / 16
-    seen, real = [], lm.prefill_attention
+    seen, real = [], KA.prefill_attention
 
     def spy(q, k, v, **kw):
         seen.append((q.shape[-1], k.shape[-1], v.shape[-1], kw["scale"]))
         return real(q, k, v, **kw)
 
-    monkeypatch.setattr(lm, "prefill_attention", spy)
+    monkeypatch.setattr(KA, "prefill_attention", spy)
     params = lm.init_lm(0, cfg, device="cpu")
     tokens = torch.randint(0, cfg.vocab, (2, 20), generator=torch.Generator().manual_seed(0))
     with torch.inference_mode():

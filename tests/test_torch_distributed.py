@@ -23,8 +23,10 @@ shape, so the MoE layers group their tokens alike (G = 2).
   their final parameters.
 - Decoding: a prefill of 8 tokens and 4 greedy decode steps give the
   same tokens sharded, unsharded and in the reference.  deepseek-v2's
-  MLA latent cache is sequence-parallel (positions over ``model``);
-  jamba's KV heads shard over ``model``, its Mamba states beside them.
+  MLA latent cache is sequence-parallel (positions over ``model``), and
+  so is granite's KV cache (MQA: one KV head, which the model axis does
+  not divide); jamba's KV heads shard over ``model``, its Mamba states
+  beside them.
 """
 
 import os
@@ -41,7 +43,7 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 MESH = {"data": 2, "model": 2}
 TRAIN_ARCHS = ("yi_34b", "mixtral_8x7b", "jamba_v0_1_52b")
-DECODE_ARCHS = ("jamba_v0_1_52b", "deepseek_v2_236b")
+DECODE_ARCHS = ("jamba_v0_1_52b", "deepseek_v2_236b", "granite_34b")
 BATCH, SEQ = 4, 16
 PROMPT, MAX_LEN, STEPS = 8, 16, 4
 
@@ -265,6 +267,9 @@ def test_sharded_prefill_and_decode_give_the_unsharded_tokens(arch, runs):
     model = list(MESH).index("model")
     if arch == "deepseek_v2_236b":  # the sequence-parallel latent: positions over model
         ndim, placements = layout["latent"]
+        assert placements[model] == Shard(ndim - 2), layout
+    elif arch == "granite_34b":  # the sequence-parallel KV cache: positions over model
+        ndim, placements = layout["k"]
         assert placements[model] == Shard(ndim - 2), layout
     else:  # KV heads over model
         ndim, placements = layout["k"]

@@ -12,6 +12,7 @@ reference's pure-jnp ``ref`` oracles, which cost nothing.
 """
 
 import dataclasses
+import threading
 
 import jax.numpy as jnp
 import numpy as np
@@ -269,6 +270,63 @@ def test_kernel_library_is_keyed_by_its_source():
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     assert not any("fast_math" in f for f in build.NVCC_FLAGS)
     assert (root / "src" / "repro_torch" / "kernels" / "csrc" / "gemm.cu").exists()
+
+
+class _StubLibrary:
+    """A loaded library's error-string entry point, and nothing else."""
+
+    @staticmethod
+    def repro_cuda_error_string(rc: int) -> bytes:
+        return f"error string {rc}".encode()
+
+
+@pytest.mark.parametrize(
+    "rc, message",
+    [
+        (700, "some kernel launch failed: CUDA error 700 (error string 700)"),
+        (build.ENCODE_ERROR + 1, "some kernel: cuTensorMapEncodeTiled failed: CUresult 1"),
+        (build.NO_ENCODER, "some kernel: the CUDA driver has no cuTensorMapEncodeTiled"),
+    ],
+    ids=["cuda error", "encode error", "no encoder"],
+)
+def test_check_turns_every_return_code_into_its_error(rc, message):
+    """One decoder for every entry point: a CUDA error with its string,
+    and ``hopper.cuh``'s two tensor-map codes; 0 passes."""
+    build.check(_StubLibrary(), 0, "some kernel")
+    with pytest.raises(RuntimeError) as err:
+        build.check(_StubLibrary(), rc, "some kernel")
+    assert str(err.value) == message
+
+
+def test_one_reset_zeros_every_kernels_launches_and_threads_all_count():
+    """Every kernel's counts form one table; concurrent launches from 8
+    threads are all counted, and one reset zeros the whole table."""
+    from repro_torch.kernels import attention as KA
+    from repro_torch.kernels import scan
+
+    flt = GemmKernelConfig(64, 64, 64, "WS", out_dtype="bfloat16")
+    workers, per = 8, 2000
+
+    def launch():
+        for _ in range(per):
+            gemm.record_launch(flt, "wgmma")
+            KA.LAUNCHES.record("prefill_attention")
+            scan.LAUNCHES.record("selective_scan")
+
+    threads = [threading.Thread(target=launch) for _ in range(workers)]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        n = workers * per
+        assert build.launches() == {"qgemm_requant": 0, "gemm_int32": 0, "gemm_float": n,
+                                    "gemm_float/mma_sync": 0, "gemm_float/wgmma": n,
+                                    "prefill_attention": n, "selective_scan": n}
+    finally:
+        gemm.reset_launches()
+    assert len(build.launches()) == 7 and not any(build.launches().values())
+    assert not any(KA.LAUNCHES.values()) and not any(scan.LAUNCHES.values())
 
 
 def test_kernel_build_outside_a_checkout_raises(monkeypatch, tmp_path):

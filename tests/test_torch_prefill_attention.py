@@ -20,6 +20,7 @@ import torch
 from repro_torch import tracing
 from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.kernels import attention as KA
+from repro_torch.kernels import build
 from repro_torch.kernels.ref import flash_attention_ref
 from repro_torch.models import attention as A
 from repro_torch.models import lm
@@ -142,7 +143,7 @@ def test_cpu_takes_the_plain_version_bit_for_bit(dtype, window, monkeypatch):
     the result is held to the call the wrapper made)."""
     q, k, v = _qkv(2, 8, 2, 96, 64, dtype)
     calls = _spy_plain(monkeypatch)
-    KA.reset_launches()
+    build.reset_launches()
     with tracing.recording() as rec:
         got = KA.prefill_attention(q, k, v, window=window, chunk_q=32, chunk_kv=32)
     [(args, kwargs, out)] = calls
@@ -150,7 +151,7 @@ def test_cpu_takes_the_plain_version_bit_for_bit(dtype, window, monkeypatch):
     assert all(a is b for a, b in zip(args, (q, k, v), strict=True))
     assert kwargs == {"causal": True, "window": window, "chunk_q": 32, "chunk_kv": 32}
     assert rec.counters == {"attn.plain_calls": 1}
-    assert KA.ATTN_LAUNCHES == 0
+    assert KA.LAUNCHES["prefill_attention"] == 0
 
 
 def test_meta_tensors_take_the_plain_version(monkeypatch):
@@ -182,13 +183,13 @@ def test_the_prefill_chooses_the_design_from_its_configuration(arch, changes, de
     and count it, one a layer."""
     cfg = get_smoke_config(arch).with_(**changes)
     assert (A.prefill_kernel_refusal(cfg) is None) == (design == "kernel")
-    seen, real = [], lm.prefill_attention
+    seen, real = [], KA.prefill_attention
 
     def spy(q, k, v, **kwargs):
         seen.append(kwargs["window"])
         return real(q, k, v, **kwargs)
 
-    monkeypatch.setattr(lm, "prefill_attention", spy)
+    monkeypatch.setattr(KA, "prefill_attention", spy)
     params = lm.init_lm(0, cfg, device="cpu")
     tokens = torch.randint(0, cfg.vocab, (2, 24), generator=torch.Generator().manual_seed(0))
     frontend = torch.zeros(2, cfg.n_frontend_tokens, cfg.d_model) if cfg.frontend else None
@@ -268,12 +269,12 @@ def test_kernel_at_a_prime_length(card):
 @pytest.mark.cuda
 def test_two_launches_are_bit_identical_and_counted(card):
     q, k, v = _qkv(2, 32, 4, 1000, 128, torch.bfloat16, seed=1, device=card)
-    KA.reset_launches()
+    build.reset_launches()
     with tracing.recording() as rec:
         first = KA.prefill_attention(q, k, v)
         second = KA.prefill_attention(q, k, v)
     assert torch.equal(first, second)
-    assert KA.ATTN_LAUNCHES == 2 and rec.counters == {"attn.kernel_calls": 2}
+    assert KA.LAUNCHES["prefill_attention"] == 2 and rec.counters == {"attn.kernel_calls": 2}
     # [B, H, S, D] laid out as [B, S, H, D]: merging the heads is a view
     assert first.permute(0, 2, 1, 3).is_contiguous()
 
@@ -292,10 +293,10 @@ def test_refused_calls_on_the_card_raise(card, monkeypatch):
     prefill, never here."""
     q, k, v = _qkv(1, 4, 4, 256, 16, torch.float32, seed=3, device=card)
     calls = _spy_plain(monkeypatch)
-    KA.reset_launches()
+    build.reset_launches()
     with tracing.recording() as rec, pytest.raises(ValueError, match="torch.float32"):
         KA.prefill_attention(q, k, v, chunk_q=64, chunk_kv=64)
-    assert not calls and KA.ATTN_LAUNCHES == 0 and rec.counters == {}
+    assert not calls and KA.LAUNCHES["prefill_attention"] == 0 and rec.counters == {}
 
 
 def _plain_err(q, k, v, window: int, seed: int) -> float:
@@ -377,7 +378,7 @@ def test_mla_kernel_at_the_cells_batch_is_bit_stable(card):
     """B 4 at a ragged length: two launches bit-equal, each batch row
     equal to its own launch (the CTAs of one row read only its K and V)."""
     q, k, v = _mla_qkv(4, 128, 1000, 9, card)
-    KA.reset_launches()
+    build.reset_launches()
     first = KA.prefill_attention(q, k, v, scale=MLA_SCALE)
-    assert torch.equal(first, KA.prefill_attention(q, k, v, scale=MLA_SCALE)) and KA.ATTN_LAUNCHES == 2
+    assert torch.equal(first, KA.prefill_attention(q, k, v, scale=MLA_SCALE)) and KA.LAUNCHES["prefill_attention"] == 2
     assert torch.equal(first[2:3], KA.prefill_attention(q[2:3], k[2:3], v[2:3], scale=MLA_SCALE))

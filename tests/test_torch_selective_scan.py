@@ -192,11 +192,11 @@ def card():
 
 def _against_plain(args, chunk=128):
     """The kernel's (y, h) and the plain version's on the same tensors."""
-    before = scan.SCAN_LAUNCHES
+    before = scan.LAUNCHES["selective_scan"]
     got = scan.selective_scan(*args)
     want = scan.selective_scan_plain(*args, chunk=chunk)
     torch.cuda.synchronize()
-    assert scan.SCAN_LAUNCHES == before + 1
+    assert scan.LAUNCHES["selective_scan"] == before + 1
     return got, want
 
 
@@ -235,16 +235,16 @@ def test_the_kernel_matches_the_plain_version_at_ragged_sizes_in_f32(card, n):
 @pytest.mark.cuda
 def test_one_launch_a_call_counted_as_a_kernel_call_and_bit_equal_twice(card):
     args = inputs(2, 70, 256, 16, torch.bfloat16, device=card)
-    before = scan.SCAN_LAUNCHES
+    before = scan.LAUNCHES["selective_scan"]
     with tracing.recording() as rec:
         first = scan.selective_scan(*args)
         again = scan.selective_scan(*args)
     torch.cuda.synchronize()
-    assert scan.SCAN_LAUNCHES == before + 2
+    assert scan.LAUNCHES["selective_scan"] == before + 2
     assert mamba_counts(rec) == {"mamba.kernel_calls": 2}
     assert all(torch.equal(a, b) for a, b in zip(first, again))
     scan.selective_scan_plain(*args)
-    assert scan.SCAN_LAUNCHES == before + 2
+    assert scan.LAUNCHES["selective_scan"] == before + 2
 
 
 @pytest.mark.cuda
@@ -264,11 +264,11 @@ def test_a_jamba_block_on_the_card_calls_the_kernel_once(card):
     gen = torch.Generator(device=card).manual_seed(0)
     p = ssm.init_mamba(gen, cfg)
     x = torch.randn(2, 40, cfg.d_model, device=card)
-    before = scan.SCAN_LAUNCHES
+    before = scan.LAUNCHES["selective_scan"]
     with torch.inference_mode(), tracing.recording() as rec:
         y, st = ssm.mamba_block(p, cfg, x)
     torch.cuda.synchronize()
-    assert mamba_counts(rec) == {"mamba.kernel_calls": 1} and scan.SCAN_LAUNCHES == before + 1
+    assert mamba_counts(rec) == {"mamba.kernel_calls": 1} and scan.LAUNCHES["selective_scan"] == before + 1
     cpu_p = {k: (v.cpu() if isinstance(v, torch.Tensor) else {kk: vv.cpu() for kk, vv in v.items()})
              for k, v in p.items()}
     want, want_st = ssm.mamba_block(cpu_p, cfg, x.cpu())
