@@ -254,7 +254,12 @@ fails; nothing is caught and passed over:
      (``scaled_dot_product_attention``, a yardstick the port never
      calls; neither at MLA's unequal head dims); then the benchmark's
      deepseek-v2-236b.12l.ep8 served once (B 4 x 1024, 4 new) with 12
-     kernel calls and no plain call in its prefill.  The kernels line
+     kernel calls and no plain call in its prefill and 12 MLA decode
+     kernel calls a decode step (the recorder on: eager steps), then
+     twice more with nothing recording, as the benchmark serves: 12
+     launches of the MLA decode kernel and 12 of its combine for each
+     step the capture runs eagerly and each replay, none for the capture,
+     and the recorded wave's tokens.  The kernels line
      carries it as ``prefill_attention``, its launches the sum of the LM
      windows of 13 and 16, where each bf16 arch the rule takes
      (deepseek-v2's MLA too) launches one a prefill and attention layer
@@ -272,6 +277,20 @@ fails; nothing is caught and passed over:
      its launches the sum of the LM windows of 13 and 16, where each
      Mamba layer launches one a prefill and decode step (the f32 smoke
      jamba of 13 too, at d_state 8) and counts ``mamba.kernel_calls``.
+ 23. MLA's decode attention over the latent cache
+     (``kernels/csrc/mla_decode.cu``; after 22): deepseek-longdoc's layer
+     (B 4, H 128, r 512, dr 64, 16,448 rows, bf16, the cell's softmax
+     scale) at lengths 8,192, 11,776 and 16,448, each admitted, one
+     launch of the kernel and one of its combine a call, two calls
+     bit-equal, every output within 2^-8 of its softmax weights times
+     |latent| of the f32 softmax over the first n positions; ms (CUDA-graph
+     replay, the length read on the device) beside bound_ms (the latent's
+     bytes, or the products at the bf16 peak) and plain_ms (the f32
+     arithmetic over every row, eager).  The kernels line carries it as
+     ``mla_decode``, its launches (and ``combine_launches``) the sum of
+     the LM windows of 13 and 16, where each decode step of a bf16 MLA
+     arch the rule takes (deepseek-v2 at full width) launches one a layer
+     and counts ``mla.kernel_calls``, and the f32 smoke archs none.
 
 The launch counts (every kernel's, ``build.reset_launches``) are set to 0 just before each of phases 4, 6-10, the
 paths of 11 (each serve call too), the LM's served runs and smoke
@@ -331,12 +350,14 @@ from repro_torch.core.strategy import gemm_instances, workload_from_node  # noqa
 from repro_torch.frontend import trace_model  # noqa: E402
 from repro_torch.kernels import attention as KA  # noqa: E402
 from repro_torch.kernels import build, gemm, ops, scan  # noqa: E402
+from repro_torch.kernels import mla as KM  # noqa: E402
 from repro_torch.kernels.gemm import GemmKernelConfig, gemm_plain, scheduled_gemm  # noqa: E402
 from repro_torch.kernels.policy import ScheduledKernelPolicy, scheduled_kernels  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.kernels.ref import flash_attention_ref, torch_dtype  # noqa: E402
 from repro_torch.models import attention as A  # noqa: E402
+from repro_torch.models import cache as C  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import flash, lm, moe  # noqa: E402
 from repro_torch.models import ssm as S  # noqa: E402
@@ -405,6 +426,15 @@ SCAN_CASES = (
 SFU_OPS_PER_S = 132 * 16 * 1.98e9
 SCAN_GRAPH_LAUNCHES = 20
 SCAN_PLAIN_RUNS = 3
+#: MLA's decode attention over the latent cache, at deepseek-longdoc's
+#: layer (batch, heads, latent width, rope dims, the cache's rows) and the
+#: lengths it is timed at: a wave of 8,192, the mean wave (~11.6k), the
+#: whole cache; the kernels line carries the last
+MLA_SOURCE = "src/repro_torch/kernels/csrc/mla_decode.cu"
+MLA_LAYER = (4, 128, 512, 64, 16384 + 64)
+MLA_LENGTHS = (8192, 11776, 16448)
+MLA_GRAPH_LAUNCHES = 50
+MLA_PLAIN_RUNS = 3
 REPLACES = {
     "qgemm_requant": "src/repro/kernels/qgemm.py:19",
     "gemm_int32": "src/repro/kernels/gemm.py:97",
@@ -2166,10 +2196,17 @@ def attention_phase(dev: torch.device, card_line: str) -> dict:
 
 
 def mla_serve_check(dev: torch.device, card_line: str) -> dict:
-    """``MLA_CONFIG`` (the benchmark's weights from a seed) served once at
-    ``MLA_SERVE`` through ``ServingEngine`` under the cell's policy with
-    the recorder on: each prefill makes one kernel call per attention
-    layer and no plain call, and the kernel launches that many times."""
+    """``MLA_CONFIG`` (the benchmark's weights from a seed) served at
+    ``MLA_SERVE`` through ``ServingEngine`` under the cell's policy.  With
+    the recorder on (the decode step eager): each prefill makes one
+    prefill-attention kernel call per attention layer and no plain call,
+    each decode step one MLA decode kernel call per layer and no plain
+    call, and each kernel launches that many times.  Then twice with
+    nothing recording, as the benchmark serves: the engine's cache captures
+    the decode step at the first wave's first step (one eager step, then
+    the capture, which counts nothing) and replays it, each replay
+    counting the MLA kernel and its combine once a layer; the tokens are
+    the recorded wave's."""
     config, cfg = mla_config()
     b, plen, new = MLA_SERVE
     weights = config.make_weights(2**31 + 21, cfg, dev)
@@ -2178,9 +2215,11 @@ def mla_serve_check(dev: torch.device, card_line: str) -> dict:
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", ReproDeprecationWarning)
         engine = ServingEngine(cfg, weights, ServeConfig(batch=b, max_len=plen + new, max_new_tokens=new))
+    policy = scheduled_kernels(build_backend(make_gemmini_description()))
     before = KA.LAUNCHES["prefill_attention"]
+    before_mla = dict(KM.LAUNCHES)
     t0 = time.perf_counter()
-    with scheduled_kernels(build_backend(make_gemmini_description())), tracing.recording() as rec:
+    with policy, tracing.recording() as rec:
         reqs = engine.generate(prompts)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
@@ -2190,13 +2229,33 @@ def mla_serve_check(dev: torch.device, card_line: str) -> dict:
           and KA.LAUNCHES["prefill_attention"] - before == cfg.n_layers,
           f"{MLA_CONFIG}: {c.get('attn.kernel_calls')} kernel and {c.get('attn.plain_calls')} plain calls, "
           f"{KA.LAUNCHES['prefill_attention'] - before} launches for one prefill of {cfg.n_layers} attention layers")
+    mla_launched = {k: KM.LAUNCHES[k] - before_mla[k] for k in before_mla}
+    check(c.get("mla.kernel_calls") == new * cfg.n_layers and not c.get("mla.plain_calls")
+          and set(mla_launched.values()) == {new * cfg.n_layers},
+          f"{MLA_CONFIG}: MLA decode {c.get('mla.kernel_calls')} kernel and {c.get('mla.plain_calls')} plain calls, "
+          f"launches {mla_launched} for {new} eager steps of {cfg.n_layers} layers")
+    replays = []
+    for wave in range(2):
+        before_mla = dict(KM.LAUNCHES)
+        with policy:
+            again = engine.generate(prompts)
+        torch.cuda.synchronize()
+        launched = {k: KM.LAUNCHES[k] - before_mla[k] for k in before_mla}
+        steps = new + (1 if wave == 0 else 0)  # the first wave's capture runs one step eagerly
+        check(engine._cache["graphs"] is not None and set(launched.values()) == {steps * cfg.n_layers},
+              f"{MLA_CONFIG}: graph wave {wave}: MLA decode launches {launched}, want {steps * cfg.n_layers} each")
+        check([r.output for r in again] == [r.output for r in reqs],
+              f"{MLA_CONFIG}: graph wave {wave}: tokens differ from the eager wave's")
+        replays.append(launched["mla_decode"])
     held = c["moe.held_pairs"] / c["moe.pairs"]
     print(f"attention served {MLA_CONFIG}: B {b}, prompts of {plen}, {new} new in {seconds:.3f} s (schedules "
           f"solved in the call); {c['attn.kernel_calls']} kernel calls, held pairs {100 * held:.2f} %, dropped "
-          f"{c['moe.dropped_pairs']} of {c['moe.held_pairs']} [{card_line}]")
+          f"{c['moe.dropped_pairs']} of {c['moe.held_pairs']}; MLA decode {c['mla.kernel_calls']} kernel calls "
+          f"eager, {replays} launches in two waves of CUDA graphs, tokens equal [{card_line}]")
     out = {"kernel_calls": c["attn.kernel_calls"], "plain_calls": c.get("attn.plain_calls", 0),
-           "held_share": held, "dropped_pairs": c["moe.dropped_pairs"], "seconds": seconds}
-    del engine, weights, reqs
+           "held_share": held, "dropped_pairs": c["moe.dropped_pairs"], "seconds": seconds,
+           "mla_kernel_calls": c["mla.kernel_calls"], "mla_graph_launches": replays}
+    del engine, weights, reqs, again
     torch.cuda.empty_cache()
     return out
 
@@ -2306,6 +2365,99 @@ def check_scan(label: str, cfg, rec) -> None:
     got = {name: rec.counters.get(name, 0) for name in ("mamba.kernel_calls", "mamba.plain_calls")}
     check(got == {"mamba.kernel_calls": calls, "mamba.plain_calls": 0} and scan.LAUNCHES["selective_scan"] == calls,
           f"{label}: selective scan {got}, {scan.LAUNCHES['selective_scan']} launches, want {calls} kernel calls")
+
+
+def mla_bound(b: int, h: int, r: int, dr: int, n: int) -> tuple[float, str]:
+    """(ms, bound_by): the least time of one MLA decode attention on the
+    card: the latent and k_rope of n positions, q and the f32 result at
+    the HBM rate, or the products (2 B H n (r + dr + r)) at the bf16 peak."""
+    nbytes = b * n * (r + dr) * 2 + b * h * (r + dr) * 2 + b * h * r * 4
+    op_ms = 2 * b * h * n * (2 * r + dr) / PEAK_OPS_PER_S["bfloat16"] * 1e3
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(op_ms, byte_ms), ("operations" if op_ms >= byte_ms else "bytes")
+
+
+def mla_phase(dev: torch.device, card_line: str) -> dict:
+    """Phase 23, MLA's decode attention (after 22): at deepseek-longdoc's
+    layer (``MLA_LAYER``, bf16, the cell's softmax scale) and each of
+    ``MLA_LENGTHS``, admitted, one launch of the kernel and one of its
+    combine a call, two calls bit-equal, every output within 2^-8 of its
+    softmax weights times |latent| of the f32 softmax over the first n
+    positions (the kernel rounds each weight to bf16, at most 2^-9 of it);
+    device ms per call (CUDA-graph replay, the length read on the device)
+    beside ``mla_bound`` and the plain version's ms per call (CUDA events,
+    eager: the f32 copy and products over every row of the cache)."""
+    b, h, r, dr, s_max = MLA_LAYER
+    scale = A.softmax_scale(mla_config()[1])
+    gen = torch.Generator(device=dev).manual_seed(23)
+    q_lat = (0.05 * torch.randn(b, h, 1, r, generator=gen, device=dev)).to(torch.bfloat16)
+    q_rope = torch.randn(b, h, 1, dr, generator=gen, device=dev).to(torch.bfloat16)
+    latent = torch.randn(b, s_max, r, generator=gen, device=dev).to(torch.bfloat16)
+    k_rope = torch.randn(b, s_max, dr, generator=gen, device=dev).to(torch.bfloat16)
+    results = {}
+    for n in MLA_LENGTHS:
+        length = torch.tensor([n], dtype=torch.int64, device=dev)
+        args = (q_lat, q_rope, latent, k_rope, length)
+        refusal = KM.kernel_refusal(*args)
+        check(refusal is None, f"mla decode len {n}: refused ({refusal})")
+        before = dict(KM.LAUNCHES)
+        got = KM.mla_decode(*args, scale=scale)
+        again = KM.mla_decode(*args, scale=scale)
+        torch.cuda.synchronize()
+        check(all(KM.LAUNCHES[k] == before[k] + 2 for k in before), f"mla decode len {n}: launches {KM.LAUNCHES} "
+              f"after {before} for 2 calls")
+        check(torch.equal(got, again), f"mla decode len {n}: two launches differ")
+        logits = (torch.einsum("bhr,bsr->bhs", q_lat[:, :, 0].float(), latent[:, :n].float())
+                  + torch.einsum("bhd,bsd->bhs", q_rope[:, :, 0].float(), k_rope[:, :n].float())) * scale
+        p = torch.softmax(logits, -1)
+        want = torch.einsum("bhs,bsr->bhr", p, latent[:, :n].float())[:, :, None]
+        weight = torch.einsum("bhs,bsr->bhr", p, latent[:, :n].float().abs())[:, :, None]
+        err = max_err(got, want)
+        check(bool(((got - want).abs() <= 2.0**-8 * weight + 1e-5).all()),
+              f"mla decode len {n}: beyond 2^-8 of the weights times |latent| (max |err| {err:.3e})")
+        del again, logits, p, want, weight
+        ms = device_ms(lambda: KM.mla_decode(*args, scale=scale), MLA_GRAPH_LAUNCHES)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        KM.mla_decode_plain(q_lat, q_rope, latent, k_rope, length, scale=scale)
+        start.record()
+        for _ in range(MLA_PLAIN_RUNS):
+            KM.mla_decode_plain(q_lat, q_rope, latent, k_rope, length, scale=scale)
+        end.record()
+        end.synchronize()
+        plain_ms = start.elapsed_time(end) / MLA_PLAIN_RUNS
+        bound_ms, by = mla_bound(b, h, r, dr, n)
+        label = f"deepseek len {n}"
+        results[label] = {"b": b, "h": h, "r": r, "dr": dr, "s_max": s_max, "len": n, "ms": ms, "bound_ms": bound_ms,
+                          "bound_by": by, "roofline": bound_ms / ms, "plain_ms": plain_ms, "library_ms": None,
+                          "max_abs_err": err, "splits": KM.splits(b, h, s_max, dev.index or 0)}
+        print(f"mla decode {label} (B {b}, H {h}, r {r}, dr {dr}, S_max {s_max}): {ms:.4f} ms "
+              f"({100 * bound_ms / ms:.1f} % of the {bound_ms:.4f} ms bound, by {by}), plain {plain_ms:.3f} ms; "
+              f"max |err| from the f32 softmax {err:.3e} [{card_line}]")
+        del got
+    del q_lat, q_rope, latent, k_rope
+    torch.cuda.empty_cache()
+    return results
+
+
+def mla_calls(cfg, dev: torch.device, steps: int) -> dict[str, int]:
+    """The MLA decode's counters over ``steps`` eager decode steps of
+    ``cfg`` on ``dev``: one call a step and attention layer, on the kernel
+    where ``mla_decode_kernel_refusal`` takes the latent cache the
+    configuration makes, else on the plain version (none without MLA)."""
+    n = steps * sum(cfg.layer_kind(i) == "attn" for i in range(cfg.n_layers)) if cfg.kv_lora_rank else 0
+    kernel = bool(n) and A.mla_decode_kernel_refusal(cfg, C.make_attn_cache(cfg, 1, 1, device=dev)["latent"]) is None
+    return {"mla.kernel_calls": n if kernel else 0, "mla.plain_calls": 0 if kernel else n}
+
+
+def check_mla(label: str, cfg, rec, dev: torch.device) -> None:
+    """The recording's MLA decode counters and the kernel's launches (and
+    its combine's) since the window opened, against ``mla_calls`` of the
+    decode steps the recording holds."""
+    want = mla_calls(cfg, dev, sum(sp.name == "lm.decode_step" for sp in rec.spans))
+    got = {name: rec.counters.get(name, 0) for name in want}
+    launched = (KM.LAUNCHES["mla_decode"], KM.LAUNCHES["mla_decode_combine"])
+    check(got == want and launched == (want["mla.kernel_calls"],) * 2,
+          f"{label}: MLA decode {got}, launches {launched}, want {want}")
 
 
 def dense_rows(cfg, batch: int, seq: int, call: str) -> list[int]:
@@ -2537,8 +2689,8 @@ def lm_smoke_phase(dev: torch.device, backend, windows: dict, card_line: str) ->
     windows["LM smoke archs"] = build.launches()  # read just after them
     check(windows["LM smoke archs"]["gemm_float/wgmma"] == 0,
           f"lm smoke archs (f32) launched the wgmma design: {windows['LM smoke archs']}")
-    check(windows["LM smoke archs"]["prefill_attention"] == 0,
-          f"lm smoke archs (f32) launched the prefill attention: {windows['LM smoke archs']}")
+    check(windows["LM smoke archs"]["prefill_attention"] == windows["LM smoke archs"]["mla_decode"] == 0,
+          f"lm smoke archs (f32) launched the prefill attention or the MLA decode: {windows['LM smoke archs']}")
     return calls
 
 
@@ -2944,6 +3096,7 @@ def full_width_lm(dev: torch.device, card_line: str, windows: dict, arch: str, n
         window = dict(gemm.LAUNCHES)  # read just after it
         check_attention(f"{cfg.name} {'routed' if routed else 'unrouted'} run", cfg, trec, 1)
         check_scan(f"{cfg.name} {'routed' if routed else 'unrouted'} run", cfg, trec)
+        check_mla(f"{cfg.name} {'routed' if routed else 'unrouted'} run", cfg, trec, dev)
         want = {v: (per["prefill"] + FW_NEW * per["decode"] if routed and v == "gemm_float" else 0)
                 for v in gemm.LAUNCHES}
         check(window == want, f"{cfg.name} {'routed' if routed else 'unrouted'} run: launches {window}, want {want}")
@@ -4212,6 +4365,7 @@ def main(argv: list[str] | None = None) -> int:
     host_ops = host_ops_phase(dev, card_line)
     attention = attention_phase(dev, card_line)  # phase 21
     scans = scan_phase(dev, card_line)  # phase 22
+    mla_decode = mla_phase(dev, card_line)  # phase 23
     lm_run = lm_phase(dev, card_line, windows)  # sets the counts to 0 before each LM window
     full_width = full_width_phase(dev, card_line, windows)  # phase 16: likewise, after codeqwen is freed
     training = train_phase(dev, card_line, work, windows)  # phase 17, after phase 16's models are freed
@@ -4308,6 +4462,19 @@ def main(argv: list[str] | None = None) -> int:
         **{k: first[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         "shapes": f"{SCAN_CASES[0][0]}: B 8, d_in 8192, d_state 16, bf16; every case in the report",
     })
+    longest = mla_decode[f"deepseek len {MLA_LENGTHS[-1]}"]
+    line["kernels"].append({
+        "name": "mla_decode",
+        "route": "cuda",
+        "source": MLA_SOURCE,
+        "replaces": "none: src/repro/models/attention.py:mla_decode_attention is plain jnp",
+        "launches": sum(w.get("mla_decode", 0) for w in windows.values()),
+        "combine_launches": sum(w.get("mla_decode_combine", 0) for w in windows.values()),
+        "max_abs_err": max(c["max_abs_err"] for c in mla_decode.values()),
+        **{k: longest[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "shapes": f"deepseek-longdoc's layer at len {MLA_LENGTHS[-1]}: B 4, H 128, r 512, dr 64; every length in "
+                  f"the report",
+    })
     path_cases = [
         {"variant": c["variant"], "shape": f"{c['m']}x{c['k']}x{c['n']}",
          "blocks": f"{c['blocks']} {c['dataflow']}",
@@ -4321,13 +4488,14 @@ def main(argv: list[str] | None = None) -> int:
               "verify_gate": gate, "host_ops": host_ops, "lm": lm_run, "launch_windows": windows,
               "frontend": frontend, "sharded": sharded, "tpu_v5e": tpu, "full_width": full_width,
               "training": training, "emulated": emulated, "sharded_lm": sharded_lm, "examples": examples,
-              "path_cases": path_cases, "attention": attention, "scan": scans}
+              "path_cases": path_cases, "attention": attention, "scan": scans, "mla_decode": mla_decode}
     if args.report:
         Path(args.report).parent.mkdir(parents=True, exist_ok=True)
         Path(args.report).write_text(json.dumps({**report, **line}, indent=1))
     # the per-path summaries are long and printed above, path by path
     long = ("paths", "measured_dse", "pipelined", "decode_paths", "path_cases", "lm", "frontend", "sharded",
-            "tpu_v5e", "full_width", "training", "emulated", "sharded_lm", "examples", "attention", "scan")
+            "tpu_v5e", "full_width", "training", "emulated", "sharded_lm", "examples", "attention", "scan",
+            "mla_decode")
     print(json.dumps({k: v for k, v in report.items() if k not in long}))
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

@@ -43,6 +43,7 @@ pair computed.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -186,17 +187,17 @@ def attention_refusal(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str 
     return None
 
 
-def tma_strides(t: torch.Tensor) -> tuple[int, int, int] | None:
-    """The (batch, head, position) element strides of a [B, H, S, D] bf16
-    tensor as the kernel's tensor maps take them, or None if TMA cannot
-    read it in place: the head dim contiguous, the base 16-byte aligned,
-    the other strides multiples of 16 bytes (a dim of one element takes
-    any such stride)."""
-    if t.stride(3) != 1 or t.data_ptr() % 16:
+def tma_strides(t: torch.Tensor) -> tuple[int, ...] | None:
+    """The element strides of a bf16 tensor's leading dims ([B, H, S, D]:
+    batch, head, position; MLA's [B, S, D]: batch, position) as the
+    kernels' tensor maps take them, or None if TMA cannot read it in
+    place: the last dim contiguous, the base 16-byte aligned, the other
+    strides multiples of 16 bytes (a dim of one element takes any such
+    stride)."""
+    if t.stride(-1) != 1 or t.data_ptr() % 16:
         return None
-    b, h, s, d = t.shape
-    packed = (h * s * d, s * d, d)
-    strides = tuple(p if n == 1 else st for n, st, p in zip((b, h, s), t.stride()[:3], packed, strict=True))
+    packed = [math.prod(t.shape[i + 1 :]) for i in range(t.dim() - 1)]
+    strides = tuple(p if n == 1 else st for n, st, p in zip(t.shape[:-1], t.stride()[:-1], packed, strict=True))
     return strides if all(st > 0 and st % 8 == 0 for st in strides) else None
 
 

@@ -11,7 +11,8 @@ runs inside the first launch.
 
 It also holds what every kernel wrapper shares: ``check`` turns an entry
 point's return code into an error, and ``LaunchCounts`` counts each
-kernel's launches, all of them reset at once by ``reset_launches``.
+kernel's launches, all of them reset at once by ``reset_launches``; a
+CUDA graph's replays add what its capture counted (``add_launches``).
 
 The port's own module, with no counterpart in the reference (Pallas
 compiles its kernels inside ``pl.pallas_call``).
@@ -37,9 +38,10 @@ NVCC_FLAGS = (
 )
 #: the sources of each library: the scheduled GEMM's mma.sync design
 #: (every form) and its wgmma + TMA design (bf16, m >= 64), the LM
-#: prefill's fused attention (``kernels/attention.py``) and Mamba's
-#: selective scan (``kernels/scan.py``)
-SOURCES = {"gemm": ("gemm.cu", "gemm_wgmma.cu", "attention_wgmma.cu", "selective_scan.cu")}
+#: prefill's fused attention (``kernels/attention.py``), Mamba's
+#: selective scan (``kernels/scan.py``) and MLA's decode attention
+#: (``kernels/mla.py``)
+SOURCES = {"gemm": ("gemm.cu", "gemm_wgmma.cu", "attention_wgmma.cu", "selective_scan.cu", "mla_decode.cu")}
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -196,3 +198,13 @@ def launches() -> dict[str, int]:
     """Every kernel's launch counts in one table, read at once."""
     with _counts_lock:
         return {key: n for counts in _counts for key, n in counts.items()}
+
+
+def add_launches(counts: dict[str, int], times: int = 1) -> None:
+    """Add ``times`` x ``counts`` (keys of ``launches()``) to the live
+    counts at once: a CUDA graph's replay launches what its capture
+    counted, and the capture itself launched nothing."""
+    with _counts_lock:
+        for live in _counts:
+            for key in live.keys() & counts.keys():
+                live[key] += times * counts[key]

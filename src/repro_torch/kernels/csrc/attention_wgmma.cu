@@ -102,17 +102,6 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int 
       : "memory");
 }
 
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 pair = __floats2bfloat162_rn(lo, hi);  // .x (lower 16 bits) = lo
-  return *reinterpret_cast<uint32_t*>(&pair);
-}
-
 // The operands' shared-memory descriptors (hopper.cuh: smem_desc):
 //   q, k (K-major: head dim contiguous): rows of 128 bytes, 8-row groups
 //     1024 bytes apart (stride); the leading offset is unused within one

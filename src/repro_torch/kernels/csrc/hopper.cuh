@@ -1,8 +1,9 @@
-// What the two Hopper (sm_90a) designs share, gemm_wgmma.cu's scheduled
-// GEMM and attention_wgmma.cu's prefill attention: the PTX wrappers of
-// mbarriers and wgmma, the shared-memory matrix descriptor, and on the host
-// the lookup of cuTensorMapEncodeTiled and the error codes beyond CUDA's
-// own.  Each source keeps its own TMA loads (2-D, 4-D) and wgmma shapes.
+// What the Hopper (sm_90a) designs share, gemm_wgmma.cu's scheduled GEMM,
+// attention_wgmma.cu's prefill attention and mla_decode.cu's MLA decode: the
+// PTX wrappers of mbarriers and wgmma, the shared-memory matrix descriptor,
+// the online softmax's exp2 and bf16 packing, and on the host the lookup of
+// cuTensorMapEncodeTiled and the error codes beyond CUDA's own.  Each source
+// keeps its own TMA loads (2-D, 3-D, 4-D) and wgmma shapes.
 
 #pragma once
 
@@ -86,6 +87,22 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lead, uint
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>(lead >> 4) << 16) | (static_cast<uint64_t>(stride >> 4) << 32) |
          (1ull << 62);
+}
+
+// -- the online softmax's arithmetic ----------------------------------------------
+
+// 2^x on the multi-function unit (the softmax's exps, in units of log2).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Two floats rounded to a bf16 pair, lo in the lower 16 bits: a wgmma A
+// fragment's register, or two adjacent bf16 elements in shared memory.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 pair = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&pair);
 }
 
 // -- host side -----------------------------------------------------------------

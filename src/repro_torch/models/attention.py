@@ -20,7 +20,9 @@ cache whose positions are sharded combines its shards' softmax partials
 (``_sharded_decode``).  MLA's four projections (q, kv_down, k_up, v_up) go through
 ``layers.dense`` and so through the scheduled kernel; its absorbed
 decode contracts the up-projection weights directly, as the reference's
-einsums do.
+einsums do, and attends the latent cache through ``kernels.mla`` where
+``mla_decode_kernel_refusal`` takes the cache (the kernel, up to a
+length read on the device), else through the plain f32 arithmetic.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from torch.distributed.tensor import DTensor, Shard
 
 from repro_torch import tracing
 from repro_torch.kernels import attention as KA
+from repro_torch.kernels import mla as KM
 from repro_torch.kernels.attention import NEG_INF, _pick_chunk, _repeat_kv, blockwise_attention
 from repro_torch.kernels.ref import torch_dtype
 from repro_torch.models import layers as L
@@ -326,6 +329,20 @@ def _sharded_decode(q, k_cache, v_cache, cur_len: int, *, window: int = 0):
     return constrain(out, "dp", "tp", None, None)
 
 
+def mla_decode_kernel_refusal(cfg: ModelConfig, latent: torch.Tensor) -> str | None:
+    """Why the MLA decode kernel does not take ``cfg``'s decode over the
+    latent cache ``latent``, or None if it does: a plain (not DTensor)
+    tensor, compute in bf16 (the kernel rounds q_lat to it), and
+    ``kernels.mla.cache_refusal``'s rule (a bf16 CUDA cache at the (r,
+    dr) the kernel is built for).  The length and batch are any."""
+    if isinstance(latent, DTensor):
+        return "a DTensor latent: each shard attends its own slice, combined across the mesh"
+    compute = torch_dtype(cfg.compute_dtype)
+    if compute != torch.bfloat16:
+        return f"compute in {compute}: the kernel rounds q to bfloat16"
+    return KM.cache_refusal(latent, cfg.qk_rope_dim)
+
+
 def mla_decode_attention(
     params,
     cfg: ModelConfig,
@@ -333,75 +350,57 @@ def mla_decode_attention(
     q_rope: torch.Tensor,  # [B,H,1,dr] (already rotated)
     latent_cache: torch.Tensor,  # [B,S,r]
     k_rope_cache: torch.Tensor,  # [B,S,dr] (already rotated)
-    cur_len: int,
+    cur_len,  # positions to attend: an int, or a device tensor of one element
 ) -> torch.Tensor:
     """Matrix-absorbed MLA decode: attention runs in latent space.
 
     score_s = (W_uk^T q)^T . latent_s + q_rope . k_rope_s
     out     = W_uv^T-projection of (sum_s p_s latent_s)
 
-    Per-token cost is O(S.r) instead of O(S.H.dh) with re-expansion; all
-    of it in f32, the result in q's dtype; the scale is ``softmax_scale``'s.
-    Every product takes contiguous operands, so that a DTensor run (its
-    redistributions lay local tensors out contiguously) and a plain run
-    hand their products one layout."""
+    Per-token cost is O(S.r) instead of O(S.H.dh) with re-expansion; the
+    absorbing products in f32, the result in q's dtype; the scale is
+    ``softmax_scale``'s.  Where ``mla_decode_kernel_refusal`` takes the
+    cache, the attention is ``kernels.mla.mla_decode`` on q_lat rounded to
+    bf16, over the cache in place up to ``cur_len`` (read on the device);
+    else the plain f32 arithmetic over every position under a mask
+    (``kernels.mla.mla_decode_plain``; a sequence-parallel DTensor latent
+    on each shard's slice, combined across the model axis), counted as
+    ``mla.plain_calls``.  Every product takes contiguous operands, so that
+    a DTensor run (its redistributions lay local tensors out
+    contiguously) and a plain run hand their products one layout."""
     b, h, _, dh = q_nope.shape
     r = cfg.kv_lora_rank
     f32 = torch.float32
     w_ku = gather_fsdp(params["k_up"]["w"]).reshape(r, h, dh).to(f32)
     w_vu = gather_fsdp(params["v_up"]["w"]).reshape(r, h, dh).to(f32)
     scale = softmax_scale(cfg)
-    latent = latent_cache.to(f32)
-
     q_lat = torch.einsum("bhqd,rhd->bhqr", q_nope.to(f32).contiguous(), w_ku.contiguous())
-    if isinstance(latent, DTensor):
-        # every head beside each shard's slice of the sequence-parallel latent
-        q_lat = constrain(q_lat, "dp", None, None, None)
-        q_rope = constrain(q_rope, "dp", None, None, None)
-        ctx_lat = run_local(
-            functools.partial(_mla_context, scale=scale, cur_len=cur_len, split=_seq_split(latent, 1)),
-            q_lat,
-            q_rope,
-            latent,
-            k_rope_cache,
-        )
-        ctx_lat = constrain(ctx_lat, "dp", "tp", None, None)
+    if mla_decode_kernel_refusal(cfg, latent_cache) is None:
+        if not isinstance(cur_len, torch.Tensor):
+            cur_len = torch.full((1,), cur_len, dtype=torch.int64, device=latent_cache.device)
+        ctx_lat = KM.mla_decode(q_lat.to(torch.bfloat16), q_rope, latent_cache, k_rope_cache, cur_len, scale=scale)
     else:
-        ctx_lat = _mla_context(q_lat, q_rope, latent, k_rope_cache, scale=scale, cur_len=cur_len)
+        tracing.count("mla.plain_calls")
+        latent = latent_cache.to(f32)
+        if isinstance(latent, DTensor):
+            # every head beside each shard's slice of the sequence-parallel
+            # latent, combined across the model axis
+            mesh, tp = _seq_split(latent, 1)
+            group = (mesh, tp) if tp is not None else None
+            q_lat = constrain(q_lat, "dp", None, None, None)
+            q_rope = constrain(q_rope, "dp", None, None, None)
+
+            def local(q_lat, q_rope, latent, k_rope):
+                pos = _local_positions(mesh, tp, latent.shape[1], q_lat.device)
+                return KM.mla_decode_plain(q_lat, q_rope, latent, k_rope, cur_len, scale=scale, positions=pos,
+                                           group=group)
+
+            ctx_lat = run_local(local, q_lat, q_rope, latent, k_rope_cache)
+            ctx_lat = constrain(ctx_lat, "dp", "tp", None, None)
+        else:
+            ctx_lat = KM.mla_decode_plain(q_lat, q_rope, latent, k_rope_cache, cur_len, scale=scale)
     out = torch.einsum("bhqr,rhd->bhqd", ctx_lat.contiguous(), w_vu.contiguous())
     return out.to(q_nope.dtype)
-
-
-def _mla_context(q_lat, q_rope, latent, k_rope_cache, *, scale: float, cur_len: int, split=None):
-    """The softmax-weighted latent [B, H, 1, r] of the absorbed MLA
-    decode, in f32; with ``split`` (``_seq_split`` of a sequence-parallel
-    latent) over this rank's slice of the positions, combined across the
-    model axis."""
-    f32 = torch.float32
-    mesh, tp = split if split is not None else (None, None)
-    latent, q_lat = latent.to(f32).contiguous(), q_lat.contiguous()
-    logits = torch.einsum("bhqr,bsr->bhqs", q_lat, latent)
-    logits = logits + torch.einsum("bhqd,bsd->bhqs", q_rope.to(f32).contiguous(), k_rope_cache.to(f32).contiguous())
-    logits = logits * scale
-    pos = _local_positions(mesh, tp, latent.shape[1], q_lat.device)
-    mask = pos[None, None, None, :] < cur_len
-    logits = torch.where(mask, logits, NEG_INF)
-    # one arithmetic with and without a split (flash-decoding's: the row
-    # max, the unnormalised weights, their sum, and the weighted latent
-    # divided last), so a one-rank split gives the unsplit bits
-    from torch.distributed import _functional_collectives as funcol
-
-    group = (mesh, tp) if tp is not None else None
-    m = logits.amax(-1, keepdim=True)
-    if group is not None:
-        m = funcol.all_reduce(m, "max", group)
-    p = torch.exp(logits - m)
-    den = p.sum(-1, keepdim=True)
-    ctx_lat = torch.einsum("bhqs,bsr->bhqr", p, latent)
-    if group is not None:
-        den = funcol.all_reduce(den, "sum", group)
-        ctx_lat = funcol.all_reduce(ctx_lat, "sum", group)
-    return ctx_lat / den
 
 
 def attention_block(

@@ -58,6 +58,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import tracing
 from repro_torch.api import torch_device
+from repro_torch.kernels import build
 from repro_torch.kernels.policy import get_policy
 from repro_torch.kernels.ref import torch_dtype
 from repro_torch.models import attention as A
@@ -427,7 +428,8 @@ def prefill(
 def _apply_layer_decode(lp, cfg: ModelConfig, kind, is_moe, x, lcache, cur_len, positions, router=None):
     """One-token step.  x [B,1,d]; cur_len = tokens already in the cache
     (an int, or for MLA the device tensor [cur_len]), ``positions`` =
-    [cur_len], this token's position."""
+    [cur_len], this token's position on the device (MLA attends
+    ``positions + 1`` positions)."""
     with tracing.span(_LAYER_SPANS.get(kind, "layer")):
         h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
         compute = torch_dtype(cfg.compute_dtype)
@@ -439,8 +441,9 @@ def _apply_layer_decode(lp, cfg: ModelConfig, kind, is_moe, x, lcache, cur_len, 
                     C.write_attn_cache(cfg, lcache, None, None, (latent, k_rope), cur_len)
                 with tracing.span("attn.core"):
                     dh = cfg.head_dim_
+                    # the length read on the device, in the eager step as in the graphs
                     out = A.mla_decode_attention(
-                        lp["block"], cfg, q[..., :dh], q[..., dh:], lcache["latent"], lcache["k_rope"], cur_len + 1
+                        lp["block"], cfg, q[..., :dh], q[..., dh:], lcache["latent"], lcache["k_rope"], positions + 1
                     )
             else:
                 with tracing.span("attn.qkv"):
@@ -470,9 +473,9 @@ def _apply_layer_decode(lp, cfg: ModelConfig, kind, is_moe, x, lcache, cur_len, 
 
 def graphs_fit(cfg: ModelConfig) -> bool:
     """Whether ``decode_step`` can run the model's step as CUDA graphs:
-    MLA attention in every layer.  The absorbed decode attends the whole
-    latent cache under a mask, so every step of a cache has one shape and
-    reads its position from the device."""
+    MLA attention in every layer.  The absorbed decode reads its length
+    from the device (the kernel stops there, the plain version masks the
+    rest), so every step of a cache has one shape."""
     return bool(cfg.kv_lora_rank) and all(kind == "attn" for kind, _ in layer_kinds(cfg))
 
 
@@ -512,7 +515,10 @@ class _DecodeGraphs:
     experts are copied into the buffers the graph after it reads.  The
     token and the position are read from device buffers, so one capture
     serves every step of the cache; the graphs share one memory pool and
-    replay in the order they were captured."""
+    replay in the order they were captured.  The port's kernels count their
+    launches on the host as they are issued, so the counts the capture
+    recorded (``launches``) are taken off at capture and added at each
+    replay."""
 
     def __init__(self, params, cfg: ModelConfig, cache, token: torch.Tensor):
         dev, t = token.device, token.numel()
@@ -535,6 +541,7 @@ class _DecodeGraphs:
             # row that the replay writes again
             _decode_body(params, cfg, cache, self.token, self.pos, self.pos)
             stream.synchronize()
+            before = build.launches()
             graph = torch.cuda.CUDAGraph()
             graph.capture_begin(pool=pool)
 
@@ -552,6 +559,9 @@ class _DecodeGraphs:
             graph.capture_end()
             self.graphs.append(graph)
         torch.cuda.current_stream(dev).wait_stream(stream)
+        # the kernels counted while capturing ran nowhere: they launch at each replay
+        self.launches = {key: n - before[key] for key, n in build.launches().items() if n != before[key]}
+        build.add_launches(self.launches, -1)
 
     def __call__(self, cfg: ModelConfig, token: torch.Tensor, cur_len: int) -> torch.Tensor:
         self.token.copy_(token)
@@ -563,6 +573,7 @@ class _DecodeGraphs:
                 weights, idx, _ = M.route(ffn, cfg, xt)
                 routed[0].copy_(weights)
                 routed[1].copy_(idx)
+        build.add_launches(self.launches)
         return self.logits.clone()
 
 

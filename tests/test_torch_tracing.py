@@ -304,6 +304,10 @@ def test_product_counters_equal_the_shapes_arithmetic(arch, served):
     # tensors
     mamba_layers = sum(cfg.layer_kind(i) == "mamba" for i in range(cfg.n_layers))
     assert c.get("mamba.plain_calls", 0) == calls * mamba_layers
+    # one MLA decode attention an MLA layer and decode step, on the plain
+    # version: CPU tensors
+    mla_layers = attn_layers if cfg.kv_lora_rank else 0
+    assert c.get("mla.plain_calls", 0) == len(run.prefill_shapes) * NEW * mla_layers
     # every (token, choice) pair of every MoE layer routed, all held here
     # (the smoke configurations hold every expert)
     moe_pairs = {"moe.pairs", "moe.held_pairs", "moe.dropped_pairs"} if cfg.moe else set()
@@ -316,8 +320,9 @@ def test_product_counters_equal_the_shapes_arithmetic(arch, served):
     unrouted = {"gemm.unrouted_flops"} if len(run.routed) < len(run.dense) or heads or run.experts else set()
     attn = {"attn.plain_calls"} if attn_layers else set()
     mamba = {"mamba.plain_calls"} if mamba_layers else set()
+    mla = {"mla.plain_calls"} if mla_layers else set()
     assert set(c) == {"engine.prompt_tokens", "engine.padded_positions", "engine.decode_steps", "gemm.routed_flops",
-                      "policy.solves"} | unrouted | attn | mamba | moe_pairs
+                      "policy.solves"} | unrouted | attn | mamba | mla | moe_pairs
 
 
 @pytest.mark.parametrize("arch", ARCHS)
