@@ -291,6 +291,26 @@ fails; nothing is caught and passed over:
      the LM windows of 13 and 16, where each decode step of a bf16 MLA
      arch the rule takes (deepseek-v2 at full width) launches one a layer
      and counts ``mla.kernel_calls``, and the f32 smoke archs none.
+ 24. KDA's recurrence (``kernels/csrc/kda_recurrent.cu``; after 23):
+     kimi-linear-longdoc's layer (B 4, H 32, K = V = 128, bf16 q, k, v,
+     f32 g, beta and state) at T 16,384, 32,768 and 49,152, a decode step
+     from a state, and a ragged case on a grid far from full, each
+     admitted, one launch a call, two launches bit-equal, o within one
+     bf16 rounding of the plain version's (both round one f32 value) and
+     the final state within 1e-4; ms (CUDA-graph replay) beside bound_ms
+     (``bench/kda_bound.py``: the bytes, or 7 K V operations a token and
+     head at the bf16 peak), floor_ms (those operations at the f32 FMA
+     units' 67 TFLOP/s, and the ratio to it) and plain_ms
+     (``kda_recurrent_plain``, eager, one run);
+     then the benchmark's kimi-linear-48b-a3b.ep4 served once (B 4 x
+     1024, 4 new) with the recorder on: 20 KDA kernel calls a prefill
+     and decode step, 7 prefill-attention kernel calls a prefill and 7
+     MLA decode kernel calls a step, no plain call; then twice more with
+     nothing recording: 20 KDA and 7 MLA decode launches for each step
+     the capture runs eagerly and each replay, and the recorded wave's
+     tokens.  The kernels line carries it as ``kda_recurrent``, its
+     launches this phase's served runs' (no LM window of 13 or 16 holds
+     a KDA model).
 
 The launch counts (every kernel's, ``build.reset_launches``) are set to 0 just before each of phases 4, 6-10, the
 paths of 11 (each serve call too), the LM's served runs and smoke
@@ -317,6 +337,7 @@ import importlib.util
 import inspect
 import io
 import json
+import math
 import os
 import re
 import shutil
@@ -350,6 +371,7 @@ from repro_torch.core.strategy import gemm_instances, workload_from_node  # noqa
 from repro_torch.frontend import trace_model  # noqa: E402
 from repro_torch.kernels import attention as KA  # noqa: E402
 from repro_torch.kernels import build, gemm, ops, scan  # noqa: E402
+from repro_torch.kernels import kda as KK  # noqa: E402
 from repro_torch.kernels import mla as KM  # noqa: E402
 from repro_torch.kernels.gemm import GemmKernelConfig, gemm_plain, scheduled_gemm  # noqa: E402
 from repro_torch.kernels.policy import ScheduledKernelPolicy, scheduled_kernels  # noqa: E402
@@ -435,6 +457,23 @@ MLA_LAYER = (4, 128, 512, 64, 16384 + 64)
 MLA_LENGTHS = (8192, 11776, 16448)
 MLA_GRAPH_LAUNCHES = 50
 MLA_PLAIN_RUNS = 3
+#: KDA's recurrence, and its cases (label, B, T, H, from a state): the
+#: kimi-linear-longdoc layer (K = V = 128) at T 16,384 and 32,768 and at
+#: the cell's longest wave, a decode step, and a ragged case past a staged
+#: chunk of 16 on a grid of 60 CTAs; the kernels line carries T 32,768
+KDA_SOURCE = "src/repro_torch/kernels/csrc/kda_recurrent.cu"
+KDA_CASES = (
+    ("kimi T 16384", 4, 16384, 32, False),
+    ("kimi T 32768", 4, 32768, 32, False),
+    ("kimi T 49152", 4, 49152, 32, False),
+    ("kimi decode step", 4, 1, 32, True),
+    ("ragged", 3, 45, 5, True),
+)
+KDA_LINE_CASE = "kimi T 32768"
+#: the benchmark's Kimi-Linear configuration, served once in phase 24
+#: (batch, prompt length, new tokens)
+KDA_CONFIG = "kimi-linear-48b-a3b.ep4"
+KDA_SERVE = (4, 1024, 4)
 REPLACES = {
     "qgemm_requant": "src/repro/kernels/qgemm.py:19",
     "gemm_int32": "src/repro/kernels/gemm.py:97",
@@ -2439,6 +2478,158 @@ def mla_phase(dev: torch.device, card_line: str) -> dict:
     return results
 
 
+def kda_inputs(dev: torch.device, b: int, t: int, h: int, state: bool, seed: int):
+    """(q, k, v, g, beta, h0) drawn on the card as a KDA layer makes them: q
+    and k L2-normed (q times K^-1/2) and v after SiLU, in bf16; g =
+    -exp(A_log) softplus(z + dt_bias) with the configuration's draws of
+    A_log and dt_bias; beta a sigmoid; h0 f32 or None."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def draw(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    q = torch.nn.functional.normalize(draw(b, t, h, 128), dim=-1) * 128**-0.5
+    k = torch.nn.functional.normalize(draw(b, t, h, 128), dim=-1)
+    v = torch.nn.functional.silu(draw(b, t, h, 128))
+    a = torch.empty(h, 1, device=dev).uniform_(1.0, 16.0, generator=gen)
+    dt = torch.exp(torch.empty(h, 128, device=dev).uniform_(math.log(1e-3), math.log(0.1), generator=gen))
+    g = -a * torch.nn.functional.softplus(0.3 * draw(b, t, h, 128) + dt + torch.log(-torch.expm1(-dt)))
+    beta = torch.sigmoid(draw(b, t, h))
+    return (q.bfloat16(), k.bfloat16(), v.bfloat16(), g.contiguous(), beta,
+            0.1 * draw(b, h, 128, 128) if state else None)
+
+
+def kda_phase(dev: torch.device, card_line: str) -> dict:
+    """Phase 24, KDA's recurrence (after 23): each of ``KDA_CASES``
+    admitted, one launch a call, two launches bit-equal, o within one
+    bf16 rounding of the plain version's on the same tensors (both round
+    one f32 value, summed in different orders) and the final f32 state
+    within 1e-4; device ms per call (CUDA-graph replay) beside
+    ``bench/kda_bound.py``'s bound, the f32 FMA floor (its operations at
+    ``PEAK_OPS_PER_S["float32"]``; the kernel's clock follows the card's
+    power, so the ratio is reported, not held) and the plain version's ms
+    (CUDA events, eager, one run: one position at a time).
+    Then ``KDA_CONFIG`` served (``kda_serve_check``)."""
+    bound = bench_module("kda_bound.py", "chip_smoke_kda_bound")
+    results = {}
+    for i, (label, b, t, h, state) in enumerate(KDA_CASES):
+        args = kda_inputs(dev, b, t, h, state, seed=24 + i)
+        refusal = KK.recurrent_refusal(*args, None) or KK.kernel_refusal(*args, None)
+        check(refusal is None, f"kda {label}: refused ({refusal})")
+        before = KK.LAUNCHES["kda_recurrent"]
+        o, s = KK.kda_recurrent(*args)
+        o2, s2 = KK.kda_recurrent(*args)
+        torch.cuda.synchronize()
+        check(KK.LAUNCHES["kda_recurrent"] == before + 2,
+              f"kda {label}: {KK.LAUNCHES['kda_recurrent'] - before} launches for 2 calls")
+        check(torch.equal(o, o2) and torch.equal(s, s2), f"kda {label}: two launches differ")
+        del o2, s2
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        po, ps = KK.kda_recurrent_plain(*args)
+        end.record()
+        end.synchronize()
+        plain_ms = start.elapsed_time(end)
+        scale = float(po.float().abs().max())
+        err = max_err(o.float(), po.float())
+        o_ok = bool(((o.float() - po.float()).abs() <= bf16_ulp(po.float()) + 1e-5 * scale).all())
+        s_err = max_err(s, ps)
+        s_ok = bool(torch.allclose(s, ps, rtol=1e-4, atol=1e-5 * float(ps.abs().max())))
+        check(o_ok and s_ok, f"kda {label}: kernel vs plain max |err| o {err:.3e} (max |o| {scale:.3f}), "
+                             f"state {s_err:.3e}")
+        del po, ps
+        ms = device_ms(lambda: KK.kda_recurrent(*args), 5 if t > 1 else 200)
+        bound_ms = bound.kda_least_s(b, t, h, 128, 128) * 1e3
+        by = "operations" if bound.kda_flops(b, t, h, 128, 128) / PEAK_OPS_PER_S["bfloat16"] >= (
+            bound.kda_bytes(b, t, h, 128, 128) / HBM_BYTES_PER_S) else "bytes"
+        floor_ms = bound.kda_flops(b, t, h, 128, 128) / PEAK_OPS_PER_S["float32"] * 1e3
+        results[label] = {"b": b, "t": t, "h": h, "state": state, "ms": ms, "bound_ms": bound_ms, "bound_by": by,
+                          "roofline": bound_ms / ms, "floor_ms": floor_ms, "floor_ratio": ms / floor_ms,
+                          "plain_ms": plain_ms, "library_ms": None, "max_abs_err": err, "state_max_abs_err": s_err}
+        print(f"kda {label} (B {b}, T {t}, H {h}, K = V = 128): {ms:.4f} ms ({100 * bound_ms / ms:.1f} % of the "
+              f"{bound_ms:.4f} ms bound, by {by}; {ms / floor_ms:.2f} x the {floor_ms:.4f} ms f32 floor), plain "
+              f"{plain_ms:.3f} ms; max |err| from the plain version o {err:.3e} (max |o| {scale:.3f}), state "
+              f"{s_err:.3e} [{card_line}]")
+        del args, o, s
+        torch.cuda.empty_cache()
+    results["served " + KDA_CONFIG] = kda_serve_check(dev, card_line)
+    return results
+
+
+def kda_serve_check(dev: torch.device, card_line: str) -> dict:
+    """``KDA_CONFIG`` (the benchmark's weights from a seed) served at
+    ``KDA_SERVE`` through ``ServingEngine`` under the cell's policy.  With
+    the recorder on (the decode step eager): each prefill and decode step
+    makes one KDA kernel call per KDA layer, each prefill one prefill
+    attention kernel call per MLA layer and each step one MLA decode
+    kernel call per MLA layer, no plain call, and each kernel launches
+    that many times.  Then twice with nothing recording, as the benchmark
+    serves: the engine's cache captures the decode step at the first
+    wave's first step (one eager step, then the capture, which counts
+    nothing) and replays it, each replay counting one KDA launch a KDA
+    layer and one MLA decode launch an MLA layer; the tokens are the
+    recorded wave's."""
+    config = bench_module(f"configs/{KDA_CONFIG}.py", "chip_smoke_kda_config")
+    cfg = config.model_config(json.loads((ROOT / "bench" / "configs" / f"{KDA_CONFIG}.json").read_text()))
+    n_kda = sum(kind == "kda" for kind in cfg.layer_types)
+    n_mla = cfg.n_layers - n_kda
+    b, plen, new = KDA_SERVE
+    weights = config.make_weights(2**31 + 24, cfg, dev)
+    rng = np.random.default_rng(24)
+    prompts = [rng.integers(0, cfg.vocab, size=(plen,)).astype(np.int32) for _ in range(b)]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", ReproDeprecationWarning)
+        engine = ServingEngine(cfg, weights, ServeConfig(batch=b, max_len=plen + new, max_new_tokens=new))
+    policy = scheduled_kernels(build_backend(make_gemmini_description()))
+
+    def launched(before):
+        now = build.launches()
+        return {key: now[key] - before[key] for key in ("kda_recurrent", "mla_decode", "prefill_attention")}
+
+    before = build.launches()
+    t0 = time.perf_counter()
+    with policy, tracing.recording() as rec:
+        reqs = engine.generate(prompts)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    c, got = rec.counters, launched(before)
+    want = {"kda.kernel_calls": n_kda * (1 + new), "attn.kernel_calls": n_mla, "mla.kernel_calls": n_mla * new}
+    check(all(len(r.output) == new for r in reqs), f"{KDA_CONFIG}: a request was not served in full")
+    check({k: c.get(k) for k in want} == want and not any(c.get(k) for k in ("kda.plain_calls", "attn.plain_calls",
+                                                                              "mla.plain_calls"))
+          and got == {"kda_recurrent": want["kda.kernel_calls"], "mla_decode": want["mla.kernel_calls"],
+                      "prefill_attention": n_mla},
+          f"{KDA_CONFIG}: counters {c}, launches {got}, want {want}")
+    replays = []
+    for wave in range(2):
+        before = build.launches()
+        with policy:
+            again = engine.generate(prompts)
+        torch.cuda.synchronize()
+        got = launched(before)
+        steps = new + (1 if wave == 0 else 0)  # the first wave's capture runs one step eagerly
+        check(engine._cache["graphs"] is not None and got["kda_recurrent"] == n_kda * (1 + steps)
+              and got["mla_decode"] == n_mla * steps,
+              f"{KDA_CONFIG}: graph wave {wave}: launches {got}, want {n_kda} KDA a prefill and step and {n_mla} "
+              f"MLA decode a step over {steps} steps")
+        check([r.output for r in again] == [r.output for r in reqs],
+              f"{KDA_CONFIG}: graph wave {wave}: tokens differ from the eager wave's")
+        replays.append(got)
+    held = c["moe.held_pairs"] / c["moe.pairs"]
+    print(f"kda served {KDA_CONFIG}: B {b}, prompts of {plen}, {new} new in {seconds:.3f} s (schedules solved in the "
+          f"call); {c['kda.kernel_calls']} KDA, {c['attn.kernel_calls']} prefill attention and "
+          f"{c['mla.kernel_calls']} MLA decode kernel calls eager, held pairs {100 * held:.2f} %, dropped "
+          f"{c['moe.dropped_pairs']} of {c['moe.held_pairs']}; launches in two waves of CUDA graphs {replays}, tokens "
+          f"equal [{card_line}]")
+    out = {"kda_kernel_calls": c["kda.kernel_calls"], "attn_kernel_calls": c["attn.kernel_calls"],
+           "mla_kernel_calls": c["mla.kernel_calls"], "held_share": held, "dropped_pairs": c["moe.dropped_pairs"],
+           "seconds": seconds, "graph_launches": replays,
+           "launches": c["kda.kernel_calls"] + sum(r["kda_recurrent"] for r in replays)}
+    del engine, weights, reqs, again
+    torch.cuda.empty_cache()
+    return out
+
+
 def mla_calls(cfg, dev: torch.device, steps: int) -> dict[str, int]:
     """The MLA decode's counters over ``steps`` eager decode steps of
     ``cfg`` on ``dev``: one call a step and attention layer, on the kernel
@@ -4366,6 +4557,7 @@ def main(argv: list[str] | None = None) -> int:
     attention = attention_phase(dev, card_line)  # phase 21
     scans = scan_phase(dev, card_line)  # phase 22
     mla_decode = mla_phase(dev, card_line)  # phase 23
+    kda_run = kda_phase(dev, card_line)  # phase 24
     lm_run = lm_phase(dev, card_line, windows)  # sets the counts to 0 before each LM window
     full_width = full_width_phase(dev, card_line, windows)  # phase 16: likewise, after codeqwen is freed
     training = train_phase(dev, card_line, work, windows)  # phase 17, after phase 16's models are freed
@@ -4475,6 +4667,18 @@ def main(argv: list[str] | None = None) -> int:
         "shapes": f"deepseek-longdoc's layer at len {MLA_LENGTHS[-1]}: B 4, H 128, r 512, dr 64; every length in "
                   f"the report",
     })
+    kda_line = kda_run[KDA_LINE_CASE]
+    line["kernels"].append({
+        "name": "kda_recurrent",
+        "route": "cuda",
+        "source": KDA_SOURCE,
+        "replaces": "none: the reference has no linear-attention block",
+        "launches": kda_run["served " + KDA_CONFIG]["launches"],
+        "max_abs_err": max(c["max_abs_err"] for label, c in kda_run.items() if not label.startswith("served")),
+        **{k: kda_line[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "floor_ms")},
+        "shapes": f"kimi-linear-longdoc's layer at T {kda_line['t']}: B 4, H 32, K = V = 128; every case in the "
+                  f"report",
+    })
     path_cases = [
         {"variant": c["variant"], "shape": f"{c['m']}x{c['k']}x{c['n']}",
          "blocks": f"{c['blocks']} {c['dataflow']}",
@@ -4488,14 +4692,15 @@ def main(argv: list[str] | None = None) -> int:
               "verify_gate": gate, "host_ops": host_ops, "lm": lm_run, "launch_windows": windows,
               "frontend": frontend, "sharded": sharded, "tpu_v5e": tpu, "full_width": full_width,
               "training": training, "emulated": emulated, "sharded_lm": sharded_lm, "examples": examples,
-              "path_cases": path_cases, "attention": attention, "scan": scans, "mla_decode": mla_decode}
+              "path_cases": path_cases, "attention": attention, "scan": scans, "mla_decode": mla_decode,
+              "kda": kda_run}
     if args.report:
         Path(args.report).parent.mkdir(parents=True, exist_ok=True)
         Path(args.report).write_text(json.dumps({**report, **line}, indent=1))
     # the per-path summaries are long and printed above, path by path
     long = ("paths", "measured_dse", "pipelined", "decode_paths", "path_cases", "lm", "frontend", "sharded",
             "tpu_v5e", "full_width", "training", "emulated", "sharded_lm", "examples", "attention", "scan",
-            "mla_decode")
+            "mla_decode", "kda")
     print(json.dumps({k: v for k, v in report.items() if k not in long}))
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

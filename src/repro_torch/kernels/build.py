@@ -39,9 +39,10 @@ NVCC_FLAGS = (
 #: the sources of each library: the scheduled GEMM's mma.sync design
 #: (every form) and its wgmma + TMA design (bf16, m >= 64), the LM
 #: prefill's fused attention (``kernels/attention.py``), Mamba's
-#: selective scan (``kernels/scan.py``) and MLA's decode attention
-#: (``kernels/mla.py``)
-SOURCES = {"gemm": ("gemm.cu", "gemm_wgmma.cu", "attention_wgmma.cu", "selective_scan.cu", "mla_decode.cu")}
+#: selective scan (``kernels/scan.py``), MLA's decode attention
+#: (``kernels/mla.py``) and KDA's recurrence (``kernels/kda.py``)
+SOURCES = {"gemm": ("gemm.cu", "gemm_wgmma.cu", "attention_wgmma.cu", "selective_scan.cu", "mla_decode.cu",
+                    "kda_recurrent.cu")}
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -106,14 +106,21 @@ def mla_project(params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tens
     """MLA's projections below the up-projections: q [B, H, S, dh + dr]
     (the nope part, then the rope part rotated; batch on data, heads on
     model), the latent [B, S, r] (normed where the configuration is the
-    published one) and k_rope [B, S, dr] rotated.  The spans ``mla.q``
-    (q-LoRA or the direct q, and its RoPE) and ``mla.kv_down`` (the
-    latent and k_rope, the norm and RoPE)."""
+    published one) and k_rope [B, S, dr] rotated (unrotated where the
+    configuration has no positional encoding: Kimi-Linear's NoPE MLA).
+    The spans ``mla.q`` (q-LoRA or the direct q, and its RoPE) and
+    ``mla.kv_down`` (the latent and k_rope, the norm and RoPE)."""
     dh, r, dr = cfg.head_dim_, cfg.kv_lora_rank, cfg.qk_rope_dim
     compute = torch_dtype(cfg.compute_dtype)
     yarn = cfg.rope_scaling if isinstance(cfg, MLAConfig) else None
-    cos, sin = L.rope_tables(positions, dr, cfg.rope_theta, yarn)
-    cos, sin = _rope_broadcast(cos), _rope_broadcast(sin)
+    rotate = None  # NoPE (``MLAConfig.rope`` false): the rope dims stay, unrotated
+    if not isinstance(cfg, MLAConfig) or cfg.rope:
+        cos, sin = L.rope_tables(positions, dr, cfg.rope_theta, yarn)
+        cos, sin = _rope_broadcast(cos), _rope_broadcast(sin)
+
+        def rotate(t):
+            return L.apply_rope(t, cos, sin)
+
     with tracing.span("mla.q"):
         if "q_a" in params:
             c = L.rmsnorm(params["q_norm"], L.dense(params["q_a"], x, compute_dtype=compute), cfg.norm_eps)
@@ -121,14 +128,15 @@ def mla_project(params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tens
         else:
             q_all = L.dense(params["q"], x, compute_dtype=compute)
         q_all = _split_heads(q_all, cfg.n_heads)
-        q = torch.cat([q_all[..., :dh], L.apply_rope(q_all[..., dh:], cos, sin)], dim=-1)
+        q = q_all if rotate is None else torch.cat([q_all[..., :dh], rotate(q_all[..., dh:])], dim=-1)
         q = constrain(q, "dp", "tp", None, None)
     with tracing.span("mla.kv_down"):
         down = L.dense(params["kv_down"], x, compute_dtype=compute)  # [B,S,r+dr]
         latent, k_rope = down[..., :r], down[..., r:]
         if "kv_norm" in params:
             latent = L.rmsnorm(params["kv_norm"], latent, cfg.norm_eps)
-        k_rope = L.apply_rope(k_rope[:, None], cos, sin)[:, 0]  # one head shared by all
+        if rotate is not None:
+            k_rope = rotate(k_rope[:, None])[:, 0]  # one head shared by all
     return q, latent, k_rope
 
 

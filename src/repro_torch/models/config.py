@@ -17,8 +17,11 @@ Beyond the reference: ``MLAConfig`` and ``GroupedMoEConfig``, frozen
 subclasses of ``ModelConfig`` and ``MoEConfig`` that carry what
 DeepSeek-V2's published config adds to the registry's MLA and MoE
 (q-LoRA, the latent norms, YaRN; group-limited routing, the routed
-scale, and the share of the experts one chip holds).  The base classes
-keep exactly the reference's fields, so every registry configuration
+scale, and the share of the experts one chip holds; sigmoid scoring with
+a correction bias and renormalised weights, as Kimi-Linear publishes
+it), and ``HybridMLAConfig``, MLA beside KDA linear-attention layers
+(``KDAConfig``) in a published per-layer order.  The base classes keep
+exactly the reference's fields, so every registry configuration
 compares field for field with the reference's; code that reads one of
 the new settings treats a base-class configuration as having it off.
 """
@@ -28,7 +31,7 @@ from __future__ import annotations
 from dataclasses import dataclass, replace
 from typing import Literal
 
-BlockKind = Literal["attn", "mamba", "mlstm", "slstm"]
+BlockKind = Literal["attn", "mamba", "mlstm", "slstm", "kda"]
 
 
 @dataclass(frozen=True)
@@ -66,6 +69,12 @@ class GroupedMoEConfig(MoEConfig):
     n_group: int = 1
     topk_group: int = 1
     routed_scaling_factor: float = 1.0
+    # Kimi-Linear's router: "sigmoid" scores each expert on its own; the
+    # experts are chosen by score + a learned correction bias (the FFN's
+    # ``score_bias`` parameter, over the router's width) and weighted by
+    # their unbiased scores, renormalised to sum to 1 where ``renormalize``
+    scoring: Literal["softmax", "sigmoid"] = "softmax"
+    renormalize: bool = False
 
 
 @dataclass(frozen=True)
@@ -244,6 +253,35 @@ class MLAConfig(ModelConfig):
 
     q_lora_rank: int = 0
     rope_scaling: YarnRope | None = None
+    rope: bool = True  # False: no positional encoding (Kimi-Linear's mla_use_nope)
+
+
+@dataclass(frozen=True)
+class KDAConfig:
+    """Kimi Delta Attention (KDA), a gated delta-rule linear attention:
+    ``n_heads`` heads whose keys and values are ``head_dim`` wide (a
+    ``head_dim`` x ``head_dim`` float32 state a head), after depthwise
+    causal convolutions of ``conv_size`` taps."""
+
+    n_heads: int = 32
+    head_dim: int = 128
+    conv_size: int = 4
+
+
+@dataclass(frozen=True)
+class HybridMLAConfig(MLAConfig):
+    """MLA layers beside KDA layers in a published order that need not be
+    whole repeats of one pattern (Kimi-Linear: 27 layers, MLA at 1-based
+    4, 8, ..., 24 and 27).  ``layer_types`` names every layer's block kind
+    in order; ``block_pattern`` is the period the layers after the dense
+    prefix repeat, and the layers past its last whole repeat sit in a
+    tail of their own (``models/lm.py``)."""
+
+    layer_types: tuple[BlockKind, ...] = ()
+    kda: KDAConfig | None = None
+
+    def layer_kind(self, i: int) -> BlockKind:
+        return self.layer_types[i] if self.layer_types else super().layer_kind(i)
 
 
 # ---------------------------------------------------------------------------

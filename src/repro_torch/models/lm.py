@@ -1,10 +1,13 @@
 """LM assembly: embedding -> pattern-grouped blocks -> norm -> head.
 
 Layers are organized as ``n_groups`` repeats of ``cfg.pattern`` (a tuple
-of block kinds: ``attn``, ``mamba``, ``mlstm``, ``slstm``); the
+of block kinds: ``attn``, ``mamba``, ``mlstm``, ``slstm``, ``kda``); the
 parameters of the repeats are stacked along axis 0 (``params["groups"]``),
 and DeepSeek-style "first k layers dense" prefix layers
-(``params["prefix"]``, a list) sit outside the stack.  Where the
+(``params["prefix"]``, a list) sit outside the stack.  A published layer
+order that is not whole repeats (``config.HybridMLAConfig``: Kimi-Linear's
+27 = 1 dense + 6 x 4 + 2) keeps the layers past the last whole repeat in
+a tail (``params["suffix"]``, a list, present only where it has layers).  Where the
 reference scans over the groups, the port loops over ``g`` and indexes
 each stacked tensor, so a reference parameter tree converts leaf by leaf
 (``params_from_numpy``).
@@ -40,10 +43,13 @@ decode attention), ``attn.out`` and ``attn.cache_write``; MLA's projections
 record ``mla.q``, ``mla.kv_down`` and (in the prefill) ``mla.up`` inside
 ``attn.qkv``.  MLA's decode step makes no k or v: it projects q and the
 latent (``attention.mla_project``), caches the latent and attends in
-latent space (``attention.mla_decode_attention``).  Where every layer
-is MLA attention, a cache made with ``graphs=True`` (``ServingEngine``'s
-on a card) replays the decode step as CUDA graphs cut at each MoE
-router (``_DecodeGraphs``).
+latent space (``attention.mla_decode_attention``).  A KDA block
+(``models/kda.py``) records ``layer.kda`` and its own spans, and keeps
+its recurrent state and convolution tails in the cache as a Mamba block
+does, its state updated in place.  Where every layer is MLA attention
+or KDA, a cache made with ``graphs=True`` (``ServingEngine``'s on a
+card) replays the decode step as CUDA graphs cut at each MoE router
+(``_DecodeGraphs``).
 """
 
 from __future__ import annotations
@@ -63,11 +69,12 @@ from repro_torch.kernels.policy import get_policy
 from repro_torch.kernels.ref import torch_dtype
 from repro_torch.models import attention as A
 from repro_torch.models import cache as C
+from repro_torch.models import kda as K
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
 from repro_torch.models import xlstm as X
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import HybridMLAConfig, ModelConfig
 from repro_torch.parallel.policy import constrain, on_mesh
 from repro_torch.tree import tree_map
 
@@ -77,7 +84,7 @@ from repro_torch.tree import tree_map
 # ---------------------------------------------------------------------------
 
 #: the span of each block kind (built once, so a span off costs no string)
-_LAYER_SPANS = {kind: f"layer.{kind}" for kind in ("attn", "mamba", "mlstm", "slstm")}
+_LAYER_SPANS = {kind: f"layer.{kind}" for kind in ("attn", "mamba", "mlstm", "slstm", "kda")}
 
 
 def _position_is_moe(cfg: ModelConfig, pos: int) -> bool:
@@ -100,6 +107,8 @@ def _init_layer(gen, cfg: ModelConfig, kind: str, is_moe: bool, dtype, lead=()):
         p["block"] = X.init_mlstm(gen, cfg, dtype, lead=lead)
     elif kind == "slstm":
         p["block"] = X.init_slstm(gen, cfg, dtype, lead=lead)
+    elif kind == "kda":
+        p["block"] = K.init_kda(gen, cfg, dtype, lead=lead)
     else:
         raise ValueError(kind)
     if is_moe:
@@ -115,20 +124,40 @@ def n_prefix_layers(cfg: ModelConfig) -> int:
     return cfg.moe.first_dense if cfg.moe else 0
 
 
+def _has_tail(cfg: ModelConfig) -> bool:
+    """Whether the configuration publishes its layer order (``layer_types``),
+    which may end part-way through a repeat of its pattern."""
+    return isinstance(cfg, HybridMLAConfig) and bool(cfg.layer_types)
+
+
 def n_scan_groups(cfg: ModelConfig) -> int:
     n = cfg.n_layers - n_prefix_layers(cfg)
     p = len(cfg.pattern)
-    if n % p:
+    if n % p and not _has_tail(cfg):
         raise ValueError(f"{cfg.name}: {n} layers do not divide into pattern groups of {p}")
     return n // p
 
 
+def suffix_kinds(cfg: ModelConfig) -> list[tuple[str, bool]]:
+    """(block kind, MoE FFN) of the layers past the last whole repeat of the
+    pattern, each at its position in the pattern (none but for a published
+    order that ends part-way)."""
+    first = n_prefix_layers(cfg) + n_scan_groups(cfg) * len(cfg.pattern)
+    return [(cfg.layer_kind(i), _position_is_moe(cfg, p)) for p, i in enumerate(range(first, cfg.n_layers))]
+
+
 def layer_kinds(cfg: ModelConfig) -> list[tuple[str, bool]]:
     """(block kind, MoE FFN) of each layer in order: the prefix, then the
-    groups position by position."""
+    groups position by position, then the tail (each tail layer at its
+    position in the pattern).  A published order must be what this layout
+    holds: its prefix and tail as published, its groups the pattern."""
     prefix = [(cfg.layer_kind(i), False) for i in range(n_prefix_layers(cfg))]
     group = [(kind, _position_is_moe(cfg, p)) for p, kind in enumerate(cfg.pattern)]
-    return prefix + group * n_scan_groups(cfg)
+    kinds = prefix + group * n_scan_groups(cfg) + suffix_kinds(cfg)
+    if _has_tail(cfg) and [k for k, _ in kinds] != list(cfg.layer_types):
+        raise ValueError(f"{cfg.name}: the layer order {cfg.layer_types} is not the prefix, whole repeats of "
+                         f"{cfg.pattern} and a tail")
+    return kinds
 
 
 def init_lm(seed: int, cfg: ModelConfig, *, device="cuda"):
@@ -153,6 +182,8 @@ def init_lm(seed: int, cfg: ModelConfig, *, device="cuda"):
         f"pos{p}": _init_layer(gen, cfg, kind, _position_is_moe(cfg, p), dtype, lead)
         for p, kind in enumerate(cfg.pattern)
     }
+    if suffix_kinds(cfg):
+        params["suffix"] = [_init_layer(gen, cfg, kind, is_moe, dtype) for kind, is_moe in suffix_kinds(cfg)]
     return params
 
 
@@ -198,13 +229,14 @@ def _group(tree, g: int):
 
 
 def _stacked(tree, cfg: ModelConfig):
-    """Each entry of a prefix + stacked-groups tree (parameters or caches)
-    in layer order (views of the stacked tensors)."""
+    """Each entry of a prefix + stacked-groups (+ tail) tree (parameters or
+    caches) in layer order (views of the stacked tensors)."""
     yield from tree["prefix"]
     for g in range(n_scan_groups(cfg)):
         grp = _group(tree["groups"], g)
         for p in range(len(cfg.pattern)):
             yield grp[f"pos{p}"]
+    yield from tree.get("suffix", ())
 
 
 def iter_layers(params, cfg: ModelConfig):
@@ -248,6 +280,8 @@ def _apply_layer_train(lp, cfg: ModelConfig, kind: str, is_moe: bool, x, positio
         y = X.mlstm_block(lp["block"], cfg, h)
     elif kind == "slstm":
         y, _ = X.slstm_block(lp["block"], cfg, h)
+    elif kind == "kda":
+        y, _ = K.kda_block(lp["block"], cfg, h)
     else:
         raise ValueError(kind)
     return _ffn(lp, cfg, is_moe, x + y)
@@ -306,6 +340,10 @@ def forward(
             )
         else:
             x, aux = _group_body(gp, cfg, x, aux, positions, block_skip)
+    for lp, (kind, is_moe) in zip(params.get("suffix", ()), suffix_kinds(cfg), strict=True):
+        x, a = _apply_layer_train(lp, cfg, kind, is_moe, x, positions, block_skip=block_skip)
+        if a is not None:
+            aux = aux + a
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = constrain(_head(params, cfg, x), "dp", None, "tp")
     return logits.to(torch.float32), aux
@@ -326,6 +364,8 @@ def _empty_layer_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int, de
         return X.init_mlstm_state(cfg, batch, device=device, lead=lead)._asdict()
     if kind == "slstm":
         return X.init_slstm_state(cfg, batch, device=device, lead=lead)._asdict()
+    if kind == "kda":
+        return K.init_kda_state(cfg, batch, torch_dtype(cfg.compute_dtype), device=device, lead=lead)._asdict()
     raise ValueError(kind)
 
 
@@ -346,6 +386,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device, graphs: bo
         for p, kind in enumerate(cfg.pattern)
     }
     cache = {"prefix": prefix, "groups": groups, "len": 0}
+    if suffix_kinds(cfg):
+        cache["suffix"] = [_empty_layer_cache(cfg, kind, batch, max_len, dev) for kind, _ in suffix_kinds(cfg)]
     if graphs:
         cache["graphs"] = None
     return cache
@@ -354,12 +396,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device, graphs: bo
 def _store_state(lcache: dict, state) -> None:
     """Write a recurrent block's new state into its cache views in place
     (a DTensor state is laid out as its cache first, and each shard
-    copies its own slice)."""
+    copies its own slice; a state the block already wrote in place is
+    left as it is)."""
     for name, t in state._asdict().items():
         dst = lcache[name]
         if isinstance(dst, DTensor):
             dst.to_local().copy_(t.redistribute(dst.device_mesh, dst.placements).to_local())
-        else:
+        elif not (t.data_ptr() == dst.data_ptr() and t.shape == dst.shape and t.stride() == dst.stride()):
             dst.copy_(t)
 
 
@@ -386,6 +429,11 @@ def _apply_layer_prefill(lp, cfg: ModelConfig, kind, is_moe, x, positions, lcach
             _store_state(lcache, st)
         elif kind == "slstm":
             y, st = X.slstm_block(lp["block"], cfg, h, X.SLSTMState(**lcache))
+            _store_state(lcache, st)
+        elif kind == "kda":
+            # a prompt at position 0 starts from zeros, whatever the cache
+            # held (the engine's one graphed cache serves every wave)
+            y, st = K.kda_block(lp["block"], cfg, h, K.KDAState(**lcache) if start else None, into=lcache["S"])
             _store_state(lcache, st)
         else:
             raise ValueError(kind)
@@ -465,6 +513,9 @@ def _apply_layer_decode(lp, cfg: ModelConfig, kind, is_moe, x, lcache, cur_len, 
         elif kind == "slstm":
             y, st = X.slstm_decode_step(lp["block"], cfg, h, X.SLSTMState(**lcache))
             _store_state(lcache, st)
+        elif kind == "kda":
+            y, st = K.kda_block(lp["block"], cfg, h, K.KDAState(**lcache), into=lcache["S"])
+            _store_state(lcache, st)
         else:
             raise ValueError(kind)
         x = x + y
@@ -473,10 +524,11 @@ def _apply_layer_decode(lp, cfg: ModelConfig, kind, is_moe, x, lcache, cur_len, 
 
 def graphs_fit(cfg: ModelConfig) -> bool:
     """Whether ``decode_step`` can run the model's step as CUDA graphs:
-    MLA attention in every layer.  The absorbed decode reads its length
-    from the device (the kernel stops there, the plain version masks the
-    rest), so every step of a cache has one shape."""
-    return bool(cfg.kv_lora_rank) and all(kind == "attn" for kind, _ in layer_kinds(cfg))
+    MLA attention or KDA in every layer.  The absorbed decode reads its
+    length from the device (the kernel stops there, the plain version
+    masks the rest), and KDA's step is the same recurrence from the state
+    in place, so every step of a cache has one shape."""
+    return bool(cfg.kv_lora_rank) and all(kind in ("attn", "kda") for kind, _ in layer_kinds(cfg))
 
 
 def _replays(params, token: torch.Tensor) -> bool:
@@ -535,12 +587,19 @@ class _DecodeGraphs:
         pool = torch.cuda.graph_pool_handle()
         stream = torch.cuda.Stream(dev)
         stream.wait_stream(torch.cuda.current_stream(dev))
+        # the recurrent states (KDA's) before the eager step, put back after
+        # it: the replay advances them from where the step found them
+        states = [(t, t.clone()) for lc, (kind, _) in zip(_stacked(cache, cfg), layer_kinds(cfg), strict=True)
+                  if kind != "attn" for t in lc.values()]
         with torch.cuda.stream(stream):
             # one eager step on the capture's stream first (cuBLAS's state for
             # it; its routers run through moe.route too); it writes the cache
             # row that the replay writes again
             _decode_body(params, cfg, cache, self.token, self.pos, self.pos)
+            for t, saved in states:
+                t.copy_(saved)
             stream.synchronize()
+            del states
             before = build.launches()
             graph = torch.cuda.CUDAGraph()
             graph.capture_begin(pool=pool)

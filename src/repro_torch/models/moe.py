@@ -1,6 +1,9 @@
 """Mixture-of-Experts FFN with GShard-style capacity dispatch.
 
-Tokens are routed to their top-k experts; each expert takes at most C
+Tokens are routed to their top-k experts (softmax scores; a
+``GroupedMoEConfig`` may take DeepSeek-V2's group-limited choice, or
+Kimi-Linear's sigmoid scores with a correction bias: ``route``); each
+expert takes at most C
 tokens (GShard's capacity, C = max(ceil(T·k·cf / E), min(T, 16)), so tiny
 decode batches never drop), a token's slot in an expert is its rank among
 the (token, choice) pairs routed there in token-major, choice-minor order,
@@ -58,7 +61,21 @@ def init_moe(gen, cfg: ModelConfig, dtype=torch.float32, *, lead=()):
     }
     if m.n_shared_experts:
         params["shared"] = L.init_mlp(gen, d, ff * m.n_shared_experts, dtype, lead=lead)
+    if sigmoid_scored(m):
+        # trained, it balances the experts' loads; random here, at about the
+        # gap between a token's 8th and 9th sigmoid score of 256
+        params["score_bias"] = L.draw_normal(gen, (share(m)[0],), SCORE_BIAS_SCALE, torch.float32, lead)
     return params
+
+
+#: the scale of the correction bias drawn at init (``init_moe``)
+SCORE_BIAS_SCALE = 0.02
+
+
+def sigmoid_scored(m: MoEConfig) -> bool:
+    """Whether the router scores experts by sigmoid with a correction bias
+    (Kimi-Linear's router) rather than by softmax."""
+    return isinstance(m, GroupedMoEConfig) and m.scoring == "sigmoid"
 
 
 def share(m: MoEConfig) -> tuple[int, int]:
@@ -90,12 +107,21 @@ def group_limited_top_k(probs: torch.Tensor, k: int, n_group: int, topk_group: i
 def route(params, cfg: ModelConfig, xt: torch.Tensor):
     """[T, d] -> (weights [T, k] f32, expert ids [T, k] over the router's
     width, aux loss): the f32 router, its softmax, the top-k renormalized
-    (a ``GroupedMoEConfig``: group-limited and scaled), the load-balance
-    loss."""
+    (a ``GroupedMoEConfig``: group-limited and scaled; sigmoid-scored:
+    chosen by score + ``score_bias``, weighted by the scores, renormalised
+    where ``renormalize``, and scaled), the load-balance loss."""
     m: MoEConfig = cfg.moe
     logits = L.dense(params["router"], xt.to(torch.float32))  # [T, E]
-    probs = torch.softmax(logits, dim=-1)
-    if isinstance(m, GroupedMoEConfig):  # DeepSeek-V2: scaled, not renormalized
+    probs = torch.sigmoid(logits) if sigmoid_scored(m) else torch.softmax(logits, dim=-1)
+    if sigmoid_scored(m):  # Kimi-Linear
+        if m.n_group != 1:
+            raise ValueError(f"{cfg.name}: the port routes sigmoid scores over one group, not {m.n_group}")
+        idx = torch.topk(probs + gather_fsdp(params["score_bias"]).to(torch.float32), m.top_k, dim=-1).indices
+        weights = probs.gather(-1, idx)
+        if m.renormalize:
+            weights = weights / (weights.sum(-1, keepdim=True) + 1e-20)
+        weights = weights * m.routed_scaling_factor
+    elif isinstance(m, GroupedMoEConfig):  # DeepSeek-V2: scaled, not renormalized
         weights, idx = group_limited_top_k(probs, m.top_k, m.n_group, m.topk_group)
         weights = weights * m.routed_scaling_factor
     else:

@@ -302,7 +302,7 @@ def test_one_reset_zeros_every_kernels_launches_and_threads_all_count():
     """Every kernel's counts form one table; concurrent launches from 8
     threads are all counted, and one reset zeros the whole table."""
     from repro_torch.kernels import attention as KA
-    from repro_torch.kernels import mla, scan
+    from repro_torch.kernels import kda, mla, scan
 
     flt = GemmKernelConfig(64, 64, 64, "WS", out_dtype="bfloat16")
     workers, per = 8, 2000
@@ -313,6 +313,7 @@ def test_one_reset_zeros_every_kernels_launches_and_threads_all_count():
             KA.LAUNCHES.record("prefill_attention")
             scan.LAUNCHES.record("selective_scan")
             mla.LAUNCHES.record("mla_decode", (mla.LAUNCHES, "mla_decode_combine"))
+            kda.LAUNCHES.record("kda_recurrent")
 
     threads = [threading.Thread(target=launch) for _ in range(workers)]
     try:
@@ -324,11 +325,12 @@ def test_one_reset_zeros_every_kernels_launches_and_threads_all_count():
         assert build.launches() == {"qgemm_requant": 0, "gemm_int32": 0, "gemm_float": n,
                                     "gemm_float/mma_sync": 0, "gemm_float/wgmma": n,
                                     "prefill_attention": n, "selective_scan": n,
-                                    "mla_decode": n, "mla_decode_combine": n}
+                                    "mla_decode": n, "mla_decode_combine": n, "kda_recurrent": n}
     finally:
         gemm.reset_launches()
-    assert len(build.launches()) == 9 and not any(build.launches().values())
+    assert len(build.launches()) == 10 and not any(build.launches().values())
     assert not any(KA.LAUNCHES.values()) and not any(scan.LAUNCHES.values()) and not any(mla.LAUNCHES.values())
+    assert not any(kda.LAUNCHES.values())
 
 
 def test_kernel_build_outside_a_checkout_raises(monkeypatch, tmp_path):
